@@ -1,0 +1,69 @@
+"""On-device rollout generation.
+
+The whole actor loop — policy evaluation, action sampling, env step —
+runs on the device over B batched envs, as a Python loop over T that
+enqueues device work and never waits for it (no ``.item()`` or other host
+sync inside the loop), so the host can run ahead of the card.
+
+The rollout layout matches the paper's learner-input dict (§2): time-major
+(T+1 obs; T actions/rewards/dones/behavior outputs).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+
+def sample_actions(logits, gen: torch.Generator):
+    """Categorical sample by Gumbel-max: argmax(logits - log E), with
+    E ~ Exp(1) drawn from ``gen`` on the logits' device."""
+    e = torch.empty_like(logits, dtype=torch.float32).exponential_(
+        generator=gen)
+    return torch.argmax(logits.float() - torch.log(e), dim=-1)
+
+
+def make_unroll(env, unroll_length: int):
+    """Build unroll(agent, carry, gen) -> (carry, rollout).
+
+    carry = (env_state, obs) batched over B. rollout dict:
+      obs             (T+1, B, *obs_shape)
+      action          (T, B) int32
+      behavior_logits (T, B, A) float32
+      reward, done    (T, B) float32, bool
+    """
+
+    def unroll(agent, carry, gen):
+        env_state, obs = carry
+        steps = {"obs": [], "action": [], "behavior_logits": [],
+                 "reward": [], "done": []}
+        with torch.no_grad():
+            for _ in range(unroll_length):
+                out = agent(obs)
+                action = sample_actions(out.policy_logits, gen)
+                env_state, next_obs, reward, done = env.step(
+                    env_state, action, gen)
+                steps["obs"].append(obs)
+                steps["action"].append(action.int())
+                steps["behavior_logits"].append(out.policy_logits.float())
+                steps["reward"].append(reward)
+                steps["done"].append(done)
+                obs = next_obs
+        steps["obs"].append(obs)
+        rollout = {k: torch.stack(v) for k, v in steps.items()}
+        return (env_state, obs), rollout
+
+    return unroll
+
+
+def env_reset_batch(env, gen: torch.Generator, batch: int, device):
+    return env.reset(batch, gen, device)
+
+
+def episode_returns(rollout) -> Dict[str, torch.Tensor]:
+    """Diagnostics: per-batch mean reward and episode termination count."""
+    return {
+        "reward_per_step": rollout["reward"].mean(),
+        "episodes_ended": rollout["done"].sum(),
+    }
