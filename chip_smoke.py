@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failed check raises and the
 script exits nonzero without printing a result:
 
   1. device   the card (nvidia-smi name and power limit), torch and CUDA
-  2. build    nvcc builds every kernel from csrc/, one process per source
+  2. build    nvcc builds every kernel from csrc/
   3. kernel   the fused V-trace kernel against its plain PyTorch version on
               the card, at the trainer's and the paper's shapes and beyond
   4. learner  three learner steps of the IMPALA deep ResNet at full width
@@ -291,8 +291,8 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    report = build.build()
-    for name, r in report.items():
+    for name in build.SOURCES:
+        r = build.build(name)
         ptxas = [ln.strip() for ln in r["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         emit("build", kernel=name, seconds=r["seconds"], ptxas=ptxas)

@@ -6,7 +6,7 @@ Loss definitions match TorchBeast's polybeast.py:
   entropy_loss  = sum_t sum_a pi log pi          (i.e. negative entropy)
   total = pg + baseline_cost * baseline + entropy_cost * entropy
 TorchBeast sums over (T, B); like the reference we keep SUM over T and
-MEAN over B (``reduce="mean"``; ``"sum"`` sums over both).
+MEAN over B.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ class ImpalaLossOutput(NamedTuple):
     priority: torch.Tensor
 
 
-def _reduce(x, reduce):
-    return x.sum() if reduce == "sum" else x.mean(dim=1).sum()
+def _reduce(x):
+    """SUM over T, MEAN over B."""
+    return x.mean(dim=1).sum()
 
 
 def _vtrace_fn(vtrace_impl):
@@ -51,7 +52,7 @@ def _vtrace_fn(vtrace_impl):
 def impala_loss_from_logits(target_logits, behavior_logits, actions,
                             rewards, discounts, values, bootstrap_value,
                             *, baseline_cost=0.5, entropy_cost=0.01,
-                            clip_rho=1.0, clip_c=1.0, reduce="mean",
+                            clip_rho=1.0, clip_c=1.0,
                             vtrace_impl="kernel"):
     """Paper-faithful path (full logits, small action spaces). All (T,B,...).
 
@@ -69,10 +70,10 @@ def impala_loss_from_logits(target_logits, behavior_logits, actions,
         bootstrap_value.detach().float().contiguous(),
         clip_rho_threshold=clip_rho, clip_c_threshold=clip_c)
 
-    pg_loss = _reduce(-target_lp * vt.pg_advantages, reduce)
-    baseline_loss = 0.5 * _reduce(torch.square(vt.vs - values), reduce)
+    pg_loss = _reduce(-target_lp * vt.pg_advantages)
+    baseline_loss = 0.5 * _reduce(torch.square(vt.vs - values))
     probs = torch.exp(target_lp_all)
-    entropy_loss = _reduce(torch.sum(probs * target_lp_all, dim=-1), reduce)
+    entropy_loss = _reduce(torch.sum(probs * target_lp_all, dim=-1))
 
     total = pg_loss + baseline_cost * baseline_loss \
         + entropy_cost * entropy_loss

@@ -76,8 +76,8 @@ def check_rollout(rollout: Dict[str, Any], unroll_length: int,
 # On-device actors
 
 
-class _CompiledUnrollSource:
-    """Shared dispatch cadence for on-device unroll sources.
+class DeviceSource:
+    """Single-device unroll source.
 
     Synchronous (``pipelined=False``): ``next_batch(params)`` dispatches one
     unroll with the given params and returns it — unroll N sees the params
@@ -93,54 +93,6 @@ class _CompiledUnrollSource:
 
     ``param_sync_every=k`` refreshes the behavior params only every k-th
     dispatch — the actor-lag knob.
-
-    Subclasses implement ``_sync_behavior(params)`` (how learner params
-    become the held behavior params) and ``_unroll_once()`` (advance the
-    carry one unroll using ``self._behavior_params``).
-    """
-
-    def _init_dispatch(self, *, pipelined: bool, param_sync_every: int):
-        self.pipelined = pipelined
-        self.param_sync_every = max(1, param_sync_every)
-        self._behavior_params = None
-        self._dispatches = 0
-        self._pending = None
-
-    def _sync_behavior(self, params):
-        raise NotImplementedError
-
-    def _unroll_once(self):
-        raise NotImplementedError
-
-    def _dispatch(self, params):
-        if self._dispatches % self.param_sync_every == 0:
-            self._behavior_params = self._sync_behavior(params)
-        self._dispatches += 1
-        return self._unroll_once()
-
-    def start(self, params) -> None:
-        del params  # first dispatch happens lazily in next_batch
-
-    def next_batch(self, params):
-        if not self.pipelined:
-            return self._dispatch(params)
-        if self._pending is None:
-            self._pending = self._dispatch(params)
-        rollout, self._pending = self._pending, self._dispatch(params)
-        return rollout
-
-    def stop(self) -> None:
-        """Drop the in-flight rollout AND the dispatch/behavior-param state:
-        a stop/start cycle must behave like a fresh source, not resume the
-        ``param_sync_every`` cadence with last run's stale parameters."""
-        self._pending = None
-        self._behavior_params = None
-        self._dispatches = 0
-
-
-class DeviceSource(_CompiledUnrollSource):
-    """Single-device unroll source (see _CompiledUnrollSource for the
-    pipelining/param-sync semantics).
 
     The actors act with their own copy of the agent (TorchBeast's
     ``actor_model`` beside the ``learner_model``). The learner updates its
@@ -160,8 +112,10 @@ class DeviceSource(_CompiledUnrollSource):
         self.unroll_length = unroll_length
         self.batch_size = batch_size
         self.frames_per_batch = unroll_length * batch_size
-        self._init_dispatch(pipelined=pipelined,
-                            param_sync_every=param_sync_every)
+        self.pipelined = pipelined
+        self.param_sync_every = max(1, param_sync_every)
+        self._dispatches = 0
+        self._pending = None
 
     @classmethod
     def for_env(cls, env, agent: torch.nn.Module, *, unroll_length: int,
@@ -178,11 +132,29 @@ class DeviceSource(_CompiledUnrollSource):
         return cls(unroll, carry, gen, actor, unroll_length=unroll_length,
                    batch_size=batch_size, **kwargs)
 
-    def _sync_behavior(self, params):
-        self._actor.load_state_dict(params.state_dict())
-        return self._actor
-
-    def _unroll_once(self):
-        self._carry, rollout = self._unroll(self._behavior_params,
-                                            self._carry, self._gen)
+    def _dispatch(self, params):
+        if self._dispatches % self.param_sync_every == 0:
+            self._actor.load_state_dict(params.state_dict())
+        self._dispatches += 1
+        self._carry, rollout = self._unroll(self._actor, self._carry,
+                                            self._gen)
         return rollout
+
+    def start(self, params) -> None:
+        del params  # first dispatch happens lazily in next_batch
+
+    def next_batch(self, params):
+        if not self.pipelined:
+            return self._dispatch(params)
+        if self._pending is None:
+            self._pending = self._dispatch(params)
+        rollout, self._pending = self._pending, self._dispatch(params)
+        return rollout
+
+    def stop(self) -> None:
+        """Drop the in-flight rollout and the dispatch count: a stop/start
+        cycle must behave like a fresh source, so its first dispatch syncs
+        the actors instead of resuming the ``param_sync_every`` cadence with
+        last run's parameters."""
+        self._pending = None
+        self._dispatches = 0

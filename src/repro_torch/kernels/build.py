@@ -24,7 +24,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -51,47 +51,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile the named kernels (all by default) that are not built yet,
-    one ``nvcc`` per source, all started together. Returns, per kernel,
-    its library path, build seconds (0.0 when it was already built) and the
-    compiler's output (``ptxas`` registers and spills). Raises if any
-    build fails."""
-    names = list(SOURCES if names is None else names)
+def build(name: str) -> dict:
+    """Compile kernel ``name`` unless it is built already. Returns its
+    library path, build seconds (0.0 when it was already built) and the
+    compiler's output (``ptxas`` registers and spills). Raises if the build
+    fails."""
+    out = library_path(name)
+    if out.exists():
+        return {"path": str(out), "seconds": 0.0, "log": ""}
+    compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    compiler = None
-    jobs, report = {}, {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            report[name] = {"path": str(out), "seconds": 0.0, "log": ""}
-            continue
-        compiler = compiler or nvcc()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in jobs.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-        report[name] = {"path": str(out), "seconds": seconds, "log": log}
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return report
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([compiler, *NVCC_FLAGS, "-o", tmp,
+                           str(SOURCES[name])], capture_output=True,
+                          text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{proc.returncode}\n{log}")
+    os.replace(tmp, out)
+    return {"path": str(out), "seconds": seconds, "log": log}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = build([name])[name]["path"]
+        path = build(name)["path"]
         lib = _loaded[name] = ctypes.CDLL(path)
     return lib

@@ -100,6 +100,24 @@ def test_param_sync_every_acts_on_copied_params(pipelined):
     torch.testing.assert_close(third["behavior_logits"], logits(moved, third))
 
 
+def test_stop_restarts_the_sync_cadence():
+    """After stop/start the first dispatch copies the learner's params,
+    even where the old cadence would not have synced yet."""
+    env = catch.make()
+    learner = _agent(env)
+    src = DeviceSource.for_env(env, learner, unroll_length=T, batch_size=B,
+                               seed=7, pipelined=False, param_sync_every=3)
+    src.next_batch(learner)                  # dispatch 0 syncs
+    with torch.no_grad():
+        learner.policy.bias.add_(torch.arange(3.0))
+    src.stop()
+    src.start(learner)
+    r = src.next_batch(learner)
+    with torch.no_grad():
+        want = learner(r["obs"][:-1]).policy_logits
+    torch.testing.assert_close(r["behavior_logits"], want)
+
+
 def test_sample_actions_follows_softmax():
     gen = torch.Generator().manual_seed(0)
     logits = torch.tensor([[0.0, 1.0, -1.0, 2.0]]).repeat(40_000, 1)

@@ -1,7 +1,9 @@
 """V-trace in the PyTorch port against the JAX reference: the plain
 recurrence, the whole V-trace computation through the kernel wrapper and
-the plain loop, clipping, gradients, the wrapper's refusals, and (on a
-GPU only) the CUDA kernel against its plain version."""
+the plain loop, clipping, gradients, the wrapper's refusals, and the
+record of JAX outputs that the CUDA kernel is held against on the GPU."""
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -130,24 +132,57 @@ def test_missing_nvcc_is_an_error(tmp_path, monkeypatch):
     monkeypatch.setattr(tbuild, "nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
     with pytest.raises(RuntimeError, match="nvcc"):
-        tbuild.build(["vtrace"])
+        tbuild.build("vtrace")
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU and nvcc (run: python3 chip_smoke.py)")
-    return torch.device("cuda")
+# The JAX V-trace's outputs on seeded inputs, recorded so that the CUDA
+# kernel can be held against JAX on a machine without JAX
+# (tests/test_torch_vtrace_gpu.py). Rewrite the record with
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_vtrace.py
+JAX_RECORD = Path(__file__).with_name("test_torch_vtrace_jax.npz")
+RECORD_CASES = [(80, 32, 1.0), (20, 200, None), (1, 1, 1.0)]
+INPUTS = ("log_rhos", "discounts", "rewards", "values", "bootstrap_value")
 
 
-@pytest.mark.parametrize("t,b", [(80, 32), (20, 200), (1, 1)])
-def test_cuda_kernel_matches_plain(cuda_device, t, b):
-    args = [torch.from_numpy(x).to(cuda_device)
-            for x in _vtrace_args(np.random.default_rng(t * b), t, b)]
-    before = tops.stats()["vtrace"]
-    got = tops.vtrace_from_importance_weights_kernel(*args)
-    want = tref.ref_vtrace_from_importance_weights(*args)
-    torch.cuda.synchronize()
-    assert tops.stats()["vtrace"] == before + 1
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+def jax_record(t, b, clip):
+    """Seeded inputs, the clip (inf for none) and the JAX V-trace outputs of
+    one recorded case, keyed ``"{t}x{b}/<name>"``."""
+    args = _vtrace_args(np.random.default_rng(t * b), t, b)
+    want = jvtrace.vtrace_from_importance_weights(*map(jnp.asarray, args),
+                                                  **_clips(clip))
+    key = f"{t}x{b}"
+    out = {f"{key}/{name}": a for name, a in zip(INPUTS, args)}
+    out[f"{key}/clip"] = np.float32(np.inf if clip is None else clip)
+    out[f"{key}/vs"] = np.asarray(want.vs)
+    out[f"{key}/pg_advantages"] = np.asarray(want.pg_advantages)
+    return out
+
+
+@pytest.mark.parametrize("t,b,clip", RECORD_CASES)
+def test_jax_record_is_current(t, b, clip):
+    """The recorded inputs are the seeded ones and the recorded outputs are
+    what JAX computes from them now (1e-6); the port's CPU path agrees with
+    the record at the 2e-5 bar."""
+    fresh = jax_record(t, b, clip)
+    with np.load(JAX_RECORD) as rec:
+        assert {k for k in rec.files if k.startswith(f"{t}x{b}/")} \
+            == set(fresh)
+        for k, want in fresh.items():
+            np.testing.assert_allclose(rec[k], want, rtol=1e-6, atol=1e-6,
+                                       err_msg=k)
+        got = tops.vtrace_from_importance_weights_kernel(
+            *(torch.from_numpy(rec[f"{t}x{b}/{n}"]) for n in INPUTS),
+            **_clips(clip))
+        np.testing.assert_allclose(got.vs.numpy(), rec[f"{t}x{b}/vs"],
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got.pg_advantages.numpy(),
+                                   rec[f"{t}x{b}/pg_advantages"],
+                                   rtol=2e-5, atol=2e-5)
+
+
+if __name__ == "__main__":
+    record = {}
+    for case in RECORD_CASES:
+        record.update(jax_record(*case))
+    np.savez_compressed(JAX_RECORD, **record)
+    print(f"wrote {JAX_RECORD} ({len(record)} arrays)")
