@@ -3,20 +3,33 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failed check raises and the
-script exits nonzero without printing a result:
+Phases, each printing JSON lines; any failed check raises and the script
+exits nonzero without printing a result:
 
   1. device   the card (nvidia-smi name and power limit), torch and CUDA
-  2. build    nvcc builds every kernel from csrc/
-  3. kernel   the fused V-trace kernel against its plain PyTorch version on
-              the card, at the trainer's and the paper's shapes and beyond
+  2. build    nvcc builds every kernel from csrc/, one process per source,
+              all started together (ptxas registers and spills, seconds)
+  3. kernel   each kernel against its plain PyTorch version on the card:
+              V-trace at the trainer's and the paper's shapes; flash
+              attention at Qwen3-4B's prefill shapes, a windowed and
+              softcapped case and head_dim 64 and 256; decode attention
+              at the serving shape and beyond (bf16 and float32), with
+              times, bounds and SDPA's time beside them
   4. learner  three learner steps of the IMPALA deep ResNet at full width
               (84x84x4 obs, 18 actions, T=80, B=32, Table G.1 RMSProp) on a
               seeded synthetic rollout, held against the plain-loop V-trace
   5. trainer  repro_torch.launch.train.main on gridworld with the deep agent
-              (the main path: its kernel launches are the ones reported)
+              (the rl-agent main path: its V-trace launches are reported)
   6. converge Catch with the quickstart settings must reach "SOLVED"
-  7. kernels  one {"kernels": [...]} line, then the card's name and power
+  7. model    Qwen3-4B at full width in float32, weights from seed 0: the
+              kernel attention path against the plain (dense) path on 4
+              prompts of 300 tokens and 16 teacher-forced decode steps
+  8. serve    repro_torch.launch.serve.main at full Qwen3-4B width in bf16
+              with --attn-impl kernel, 24 requests (the serving main path:
+              its flash- and decode-attention launches are reported); then
+              a profile of one decode step (host time, device busy time by
+              kernel)
+  9. kernels  one {"kernels": [...]} line, then the card's name and power
               limit, then the final {"ok": true, "device": {...}} line
 
 It needs CUDA and the repository's src/ beside it; it exits nonzero when
@@ -27,6 +40,7 @@ taken in this run, on the card named in phase 1.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -40,12 +54,37 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 VTRACE_TOL = 1e-5              # expf rounding compounds through <=200 FMAs
 VTRACE_SHAPES = [(80, 32), (20, 32), (1, 1), (33, 200), (200, 4096)]
 TRAINER_SHAPE = (20, 32)       # (T, B) of the phase-5 main path
 # float operations per (t, b) element of the fused kernel: 3 clips, delta
 # (4), recurrence (3), vs (1), pg-advantage (4); the expf counts as one
 VTRACE_FLOPS_PER_ELEM = 15
+
+ATTN_TOL = 2e-5                # float32, as tests/test_kernels.py holds them
+BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
+# (B, H, K, S, hd, window, softcap): Qwen3-4B prefill (32 query heads over
+# 8 KV heads, hd 128) at bucket and exact prompt lengths, a gemma2-like
+# windowed and softcapped case, and the other two head_dims
+FLASH_SHAPES = [(1, 32, 8, s, 128, 0, 0.0) for s in (1, 16, 256, 300, 512)] \
+    + [(1, 32, 16, 4608, 128, 4096, 50.0), (1, 8, 2, 256, 64, 0, 0.0),
+       (1, 8, 2, 256, 256, 0, 0.0)]
+FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
+# (B, H, K, cap, hd, pos, window, softcap): the serving decode (8 slots at
+# their own positions in 576-slot caches), scalar pos, 4096-slot caches, a
+# ring buffer with window 32, softcap
+DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
+                 (8, 32, 8, 576, 128, "scalar", 0, 0.0),
+                 (8, 32, 8, 4096, 128, "rows", 0, 0.0),
+                 (8, 32, 8, 4096, 128, "scalar", 0, 0.0),
+                 (8, 32, 8, 32, 128, "ring", 32, 0.0),
+                 (8, 32, 8, 576, 128, "rows", 0, 50.0)]
+DECODE_MAIN = ((8, 32, 8, 576, 128, "rows", 0, 0.0), "bfloat16")
+MODEL_TOL = 1e-3               # full-width logits, kernel vs dense path
+SERVE_ARGV = ["--arch", "qwen3-4b", "--attn-impl", "kernel", "--requests",
+              "24", "--prompt-len", "512", "--gen-tokens", "64",
+              "--max-batch", "8"]
 
 
 def emit(phase, **fields):
@@ -160,6 +199,311 @@ def phase_kernel(ops, ref):
             rows[(t, b)] = row
             emit("kernel", name="vtrace", **row)
     return rows
+
+
+def _bound(nbytes, flops, dtype):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the card's peak rate for the inputs' type."""
+    import torch
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
+
+
+def _compare(got, want_f32, dtype):
+    """Max abs error of the kernel against its plain version, checked:
+    float32 within ATTN_TOL; bf16 against the plain version run in float32
+    on the same bf16 inputs and then rounded, within one bf16 ulp
+    (BF16_RTOL relative) or ATTN_TOL absolute. The check rounds."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite kernel output")
+    want = want_f32.to(dtype).float()
+    got = got.float()
+    err = (got - want).abs().max().item()
+    rtol = ATTN_TOL if dtype == torch.float32 else BF16_RTOL
+    if not torch.allclose(got, want, rtol=rtol, atol=ATTN_TOL):
+        raise AssertionError(f"max abs err {err:.3e} above rtol {rtol:.2e}, "
+                             f"atol {ATTN_TOL:.0e}")
+    return err
+
+
+def _time_row(kernel, plain, library, nbytes, flops, dtype, graph_launches):
+    reps = 20
+    row = dict(ms=event_ms(kernel, reps),
+               graph_ms=graph_ms(kernel, graph_launches),
+               plain_ms=event_ms(plain, 5),
+               library_ms=None if library is None else event_ms(library,
+                                                                reps))
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dtype)
+    return row
+
+
+def phase_flash(ops, ref):
+    """Flash attention against its plain version at every FLASH_SHAPES
+    entry in bf16 and float32. Returns {(shape, dtype name): row}."""
+    import torch
+    import torch.nn.functional as F
+    rows = {}
+    for i, shape in enumerate(FLASH_SHAPES):
+        b, h, kh, s, hd, window, cap = shape
+        gen = torch.Generator(device="cuda").manual_seed(2000 + i)
+        q32 = torch.randn((b, h, s, hd), generator=gen, device="cuda")
+        k32 = torch.randn((b, kh, s, hd), generator=gen, device="cuda")
+        v32 = torch.randn((b, kh, s, hd), generator=gen, device="cuda")
+        kw = dict(window=window, softcap=cap)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.ref_flash_attention(q.float(), k.float(), v.float(),
+                                           **kw)
+            torch.cuda.synchronize()
+            err = _compare(got, want, dtype)
+            del got, want
+            pairs = sum(min(i + 1, window or s) for i in range(s))
+            flops = 4 * hd * h * b * pairs
+            nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+            library = None
+            if not window and not cap:
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)
+            row = _time_row(
+                lambda: ops.flash_attention(q, k, v, **kw),
+                lambda: ref.ref_flash_attention(q, k, v, **kw), library,
+                nbytes, flops, dtype, 10 if s > 1000 else 50)
+            row.update(max_abs_err=err, dtype=str(dtype).split(".")[1],
+                       shape=[b, h, kh, s, hd], window=window, softcap=cap)
+            rows[(shape, row["dtype"])] = row
+            emit("kernel", name="flash_attention", **row)
+            del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _decode_inputs(shape, seed):
+    """q (B,H,hd), the cache k, v in the model's (B,cap,K,hd) layout,
+    slot_pos and pos as the serving path builds them."""
+    import torch
+    b, h, kh, cap, hd, pos_kind, window, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, hd), generator=gen, device="cuda")
+    k = torch.randn((b, cap, kh, hd), generator=gen, device="cuda")
+    v = torch.randn((b, cap, kh, hd), generator=gen, device="cuda")
+    idx = torch.arange(cap, dtype=torch.int32, device="cuda")
+    if pos_kind == "scalar":
+        return q, k, v, idx, cap - 1
+    lo, hi = (cap, 4 * cap) if pos_kind == "ring" else (cap // 2, cap)
+    pos = torch.randint(lo, hi, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if pos_kind == "ring":
+        slot = pos[:, None] - torch.remainder(pos[:, None] - idx, cap)
+    else:
+        slot = idx.expand(b, cap)
+    return q, k, v, slot, pos
+
+
+def phase_decode(ops, ref):
+    """Decode attention against its plain version at every DECODE_SHAPES
+    entry in bf16 and float32. Returns {(shape, dtype name): row}."""
+    import torch
+    import torch.nn.functional as F
+    rows = {}
+    for i, shape in enumerate(DECODE_SHAPES):
+        b, h, kh, cap, hd, pos_kind, window, cap_soft = shape
+        q32, k32, v32, slot, pos = _decode_inputs(shape, 3000 + i)
+        kw = dict(window=window, softcap=cap_soft)
+        pos_t = torch.as_tensor(pos, device="cuda").reshape(-1).expand(b)
+        valid = (slot >= 0) & (slot <= pos_t[:, None])
+        if window:
+            valid &= pos_t[:, None] - slot < window
+        n_valid = int(valid.expand(b, cap).sum())
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)   # views
+            got = ops.decode_attention(q, kt, vt, slot, pos, **kw)
+            want = ref.ref_decode_attention(q.float(), kt.float(),
+                                            vt.float(), slot, pos, **kw)
+            torch.cuda.synchronize()
+            err = _compare(got, want, dtype)
+            # bytes the function needs: q and o, the K and V rows of valid
+            # slots only, slot_pos and pos
+            esize = q.element_size()
+            nbytes = (2 * q.numel() + 2 * n_valid * kh * hd) * esize \
+                + 4 * (slot.numel() + b)
+            flops = 4 * hd * (h // kh) * kh * n_valid
+            library = None
+            if not cap_soft:
+                mask = valid.expand(b, cap)[:, None, None, :]
+                q4 = q[:, :, None]
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q4, kt, vt, attn_mask=mask, enable_gqa=True)
+            row = _time_row(
+                lambda: ops.decode_attention(q, kt, vt, slot, pos, **kw),
+                lambda: ref.ref_decode_attention(q, kt, vt, slot, pos, **kw),
+                library, nbytes, flops, dtype, 50)
+            row.update(max_abs_err=err, dtype=str(dtype).split(".")[1],
+                       shape=[b, h, kh, cap, hd], pos=pos_kind,
+                       window=window, softcap=cap_soft, valid_slots=n_valid)
+            rows[(shape, row["dtype"])] = row
+            emit("kernel", name="decode_attention", **row)
+    return rows
+
+
+def phase_model(ops):
+    """Qwen3-4B at full width in float32 with weights from seed 0: 4
+    prompts of 300 tokens and 16 teacher-forced decode steps through the
+    kernel path and the dense path; logits must agree within MODEL_TOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), dtype="float32")
+    t0 = time.perf_counter()
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p, n, b = 300, 16, 4
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, p + n))).cuda()
+    logits, launches, seconds = {}, {}, {}
+    with torch.no_grad():
+        for impl in ("xla", "kernel"):
+            ops.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h, cache = model_lib.prefill(params, tokens[:, :p], cfg=cfg,
+                                         impl=impl, cache_seq_len=p + n)
+            out = [model_lib.logits_from_hidden(params, cfg, h[:, -1:])]
+            del h
+            for t in range(p, p + n):
+                pos = torch.full((b,), t, dtype=torch.int32, device="cuda")
+                lg, _, cache = model_lib.serve_step(
+                    params, tokens[:, t:t + 1], cache, pos, cfg=cfg,
+                    impl=impl)
+                out.append(lg)
+            torch.cuda.synchronize()
+            seconds[impl] = time.perf_counter() - t0
+            logits[impl] = torch.cat(out, dim=1)
+            launches[impl] = ops.stats()
+            del cache
+    diff = (logits["kernel"] - logits["xla"]).abs().max().item()
+    finite = bool(torch.isfinite(logits["kernel"]).all())
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * n, "vtrace": 0}
+    emit("model", arch=cfg.name, dtype=cfg.dtype,
+         params=sum(x.numel() for x in params.parameters()),
+         init_seconds=init_s, prompts=b, prompt_len=p,
+         teacher_forced_steps=n, logits_shape=list(logits["kernel"].shape),
+         max_abs_logit_diff=diff, tol=MODEL_TOL, seconds=seconds,
+         kernel_launches=launches["kernel"])
+    del params, logits
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("full-width kernel-path logits not finite")
+    if not diff <= MODEL_TOL:
+        raise AssertionError(f"full-width kernel-path logits differ from the "
+                             f"dense path by {diff:.3e} > {MODEL_TOL}")
+    if launches["kernel"] != want or any(launches["xla"].values()):
+        raise AssertionError(f"model launches {launches}, kernel path "
+                             f"should be {want}")
+
+
+def phase_serve(ops):
+    """The serving main path at full Qwen3-4B width: every request served
+    and echoed, one flash-attention launch per layer per admission and one
+    decode-attention launch per layer per decode step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    layers = get_config("qwen3-4b").num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    ops.reset_stats()
+    with contextlib.redirect_stdout(buf):
+        summary = serve.main(SERVE_ARGV)
+    launches = ops.stats()
+    peak = torch.cuda.max_memory_allocated()
+    for line in buf.getvalue().strip().splitlines():
+        print("  " + line, flush=True)
+    emit("serve", argv=SERVE_ARGV, launches=launches, peak_mem_bytes=peak,
+         **summary)
+    if summary["served"] != summary["requests"] \
+            or not summary["prompt_echo_ok"]:
+        raise AssertionError(f"served {summary['served']} of "
+                             f"{summary['requests']}, echo "
+                             f"{summary['prompt_echo_ok']}")
+    if launches["flash_attention"] != layers * summary["admissions"] \
+            or launches["decode_attention"] != layers * summary["steps"] \
+            or not summary["admissions"] or not summary["steps"]:
+        raise AssertionError(
+            f"serve launches {launches} for {summary['admissions']} "
+            f"admissions and {summary['steps']} steps of {layers} layers")
+    return launches
+
+
+def phase_profile():
+    """Where one full-width serving decode step spends its time: 8 slots
+    admitted with 256..480-token prompts into 576-slot caches, then 5
+    decode steps timed on the host clock, and 5 more under torch.profiler
+    for the device's busy time by kernel. Device numbers are reported as
+    not measured when the profiler records no device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.generate import DecodeSession
+    from repro_torch.models import model as model_lib
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), attn_impl="kernel")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    sess = DecodeSession(params, cfg, max_batch=8, max_len=576)
+    rng = np.random.default_rng(1)
+    for slot in range(8):
+        sess.prefill_into(slot, rng.integers(0, cfg.vocab_size,
+                                             256 + 32 * slot), seed=slot)
+    for _ in range(3):
+        sess.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sess.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            sess.step()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) / 5 * 1e3
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 5 / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    emit("profile", arch=cfg.name, dtype=cfg.dtype, slots=8, cap=576,
+         step_ms=host_ms, profiled_step_ms=profiled_ms,
+         device_busy_ms=busy_ms if busy_ms else "not measured",
+         device_idle_share=(1 - busy_ms / profiled_ms) if busy_ms
+         else "not measured",
+         launches_per_step=sum(e.count for e in kernels) / 5,
+         top_kernels=[{"name": e.key[:80],
+                       "ms_per_step": e.self_device_time_total / 5 / 1e3,
+                       "calls_per_step": e.count / 5} for e in top])
+    del sess, params
+    torch.cuda.empty_cache()
 
 
 def phase_learner(ops):
@@ -289,36 +633,37 @@ def main():
          allow_tf32=[torch.backends.cuda.matmul.allow_tf32,
                      torch.backends.cudnn.allow_tf32])
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    for name in build.SOURCES:
-        r = build.build(name)
+    for name, r in build.build_all().items():
         ptxas = [ln.strip() for ln in r["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         emit("build", kernel=name, seconds=r["seconds"], ptxas=ptxas)
     emit("build", total_seconds=time.perf_counter() - t0)
 
-    # 3. kernel against plain
+    # 3. each kernel against its plain version
     rows = phase_kernel(ops, ref)
+    flash_rows = phase_flash(ops, ref)
+    decode_rows = phase_decode(ops, ref)
 
     # 4. full-width learner
     phase_learner(ops)
 
-    # 5. the trainer through its entry point: the main path
+    # 5. the trainer through its entry point: the rl-agent main path
     ops.reset_stats()
     runtime, seconds, last = run_trainer(
         ["--mode", "rl-agent", "--env", "gridworld", "--agent", "deep",
          "--batch", "32", "--steps", "20"])
-    main_path_launches = ops.stats()
-    if main_path_launches["vtrace"] < 20:
-        raise AssertionError(f"trainer made {main_path_launches} vtrace "
+    trainer_launches = ops.stats()
+    if trainer_launches["vtrace"] < 20:
+        raise AssertionError(f"trainer made {trainer_launches} vtrace "
                              "launches, fewer than its 20 steps")
     loss = float(runtime.metrics["loss"])
     if not math.isfinite(loss):
         raise AssertionError(f"trainer loss not finite: {loss}")
     emit("trainer", env="gridworld", agent="deep", T=TRAINER_SHAPE[0],
          B=TRAINER_SHAPE[1], steps=20, seconds=seconds,
-         ms_per_step=seconds / 20 * 1e3, launches=main_path_launches,
+         ms_per_step=seconds / 20 * 1e3, launches=trainer_launches,
          fps_line=last, **split_ms(runtime))
 
     # 6. convergence on Catch (the quickstart settings)
@@ -335,19 +680,50 @@ def main():
          **split_ms(runtime))
     if not final > 0.05:
         raise AssertionError(f"Catch not solved: reward/step {final:+.3f}")
+    del runtime
+    torch.cuda.empty_cache()
 
-    # 7. kernels, card, result
+    # 7. full-width Qwen3-4B: kernel path against the dense path
+    phase_model(ops)
+
+    # 8. the server through its entry point: the serving main path, then
+    # a profile of its decode step
+    serve_launches = phase_serve(ops)
+    torch.cuda.empty_cache()
+    phase_profile()
+
+    # 9. kernels, card, result
     row = rows[TRAINER_SHAPE]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "vtrace", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/vtrace.cu",
         "replaces": "src/repro/kernels/vtrace.py:38",
-        "launches": main_path_launches["vtrace"],
+        "launches": trainer_launches["vtrace"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None, "graph_ms": row["graph_ms"],
-        "shape": list(TRAINER_SHAPE)}]}), flush=True)
+        "shape": list(TRAINER_SHAPE)}]
+    for name, replaces, all_rows, (shape, dtype) in [
+            ("flash_attention", "src/repro/kernels/flash_attention.py:93",
+             flash_rows, FLASH_MAIN),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:75",
+             decode_rows, DECODE_MAIN)]:
+        row = all_rows[(shape, dtype)]
+        errs = {d: max(r["max_abs_err"] for (_, rd), r in all_rows.items()
+                       if rd == d) for d in ("bfloat16", "float32")}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": serve_launches[name],
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_bf16": errs["bfloat16"],
+            "max_abs_err_f32": errs["float32"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "graph_ms": row["graph_ms"],
+            "shape": row["shape"], "dtype": dtype})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,16 @@
 """Parameter trees between the JAX reference and this package.
 
-The reference keeps agent parameters as nested dicts/lists of arrays
+Conv agents. The reference keeps agent parameters as nested dicts/lists of arrays
 (``models/common.py::split_params`` values): conv ``w`` in HWIO, linear
 ``w`` as (din, dout), and ``b``. A port module's ``state_dict`` names the
 same leaves by their dotted path (``sections.0.res.1.c2.weight``), with
 conv weights in OIHW and linear weights as ``nn.Linear``'s (dout, din).
+
+LM decoders. The reference's tree (``models.model.init(...)[0]``) stacks
+every block leaf on a leading ``num_groups`` axis; the port's
+``models.model.init`` keeps one node per group (``blocks.<g>.l0.mixer.wq``).
+The converter unstacks and restacks that axis and keeps every leaf's
+layout, so ``wq`` stays (d, H, hd) and ``wo`` (H, hd, d).
 """
 
 from __future__ import annotations
@@ -71,3 +77,55 @@ def state_dict_to_jax(state_dict) -> Dict[str, Any]:
         return node
 
     return lists(root)
+
+
+def lm_state_dict_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX LM param tree (numpy or jax arrays) -> a ``state_dict`` of
+    ``models.model.init``'s tree, float32."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix, group=None):
+        for key, child in node.items():
+            if isinstance(child, dict):
+                walk(child, f"{prefix}{key}.", group)
+                continue
+            arr = np.asarray(child, np.float32)
+            if group is None:
+                out[f"{prefix}{key}"] = torch.tensor(arr)
+            else:
+                for g in range(arr.shape[0]):
+                    out[f"{group}.{g}.{prefix}{key}"] = torch.tensor(arr[g])
+
+    for key, child in tree.items():
+        if key == "blocks":
+            walk(child, "", group="blocks")
+        elif isinstance(child, dict):
+            walk(child, f"{key}.")
+        else:
+            out[key] = torch.tensor(np.asarray(child, np.float32))
+    return out
+
+
+def lm_state_dict_to_jax(state_dict) -> Dict[str, Any]:
+    """A ``models.model.init`` ``state_dict`` -> the JAX LM param tree, as
+    numpy, with the block leaves stacked on a leading group axis."""
+    root: Dict[str, Any] = {}
+    stacked: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, value in state_dict.items():
+        arr = value.detach().cpu().numpy()
+        if name.startswith("blocks."):
+            _, g, rest = name.split(".", 2)
+            stacked.setdefault(rest, {})[int(g)] = arr
+            continue
+        *path, leaf = name.split(".")
+        node = root
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    for rest, by_group in stacked.items():
+        *path, leaf = rest.split(".")
+        node = root.setdefault("blocks", {})
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.stack([by_group[g] for g in sorted(by_group)])
+    return root

@@ -12,14 +12,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
-_launches: Dict[str, int] = {"vtrace": 0}
+_launches: Dict[str, int] = {"vtrace": 0, "flash_attention": 0,
+                             "decode_attention": 0}
 
 
 def stats() -> Dict[str, int]:
@@ -95,3 +96,155 @@ def vtrace_from_importance_weights_kernel(
         raise RuntimeError(f"vtrace kernel launch failed: CUDA error {err}")
     _launches["vtrace"] += 1
     return VTraceReturns(vs, pg_advantages)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+_ATTN_HEAD_DIMS = (64, 128, 256)
+
+
+def _attn_fn(name, symbol, argtypes):
+    fn = getattr(_build.load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_attn(name, tensors: Sequence[torch.Tensor], vec: int):
+    """Device, type, head_dim and layout checks shared by both attention
+    kernels: one CUDA device, one type of the two the kernels take, the
+    head_dim axis contiguous, and every row start aligned to ``vec``
+    elements (the kernels' vector loads)."""
+    device = tensors[0].device
+    if device.type != "cuda" or any(x.device != device for x in tensors):
+        raise ValueError(f"{name} kernel: all inputs must lie on one CUDA "
+                         f"device, got {[str(x.device) for x in tensors]}")
+    dtype = tensors[0].dtype
+    if dtype not in _ATTN_DTYPES or any(x.dtype != dtype for x in tensors):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 (all "
+                        f"alike), got {[x.dtype for x in tensors]}")
+    hd = tensors[0].shape[-1]
+    if hd not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"{name} kernel: head_dim {hd} is not one of "
+                         f"{_ATTN_HEAD_DIMS}")
+    for x in tensors:
+        if x.stride(-1) != 1 or any(st % vec for st in x.stride()[:-1]) \
+                or x.data_ptr() % (vec * x.element_size()):
+            raise ValueError(f"{name} kernel: head_dim must be contiguous "
+                             f"and rows aligned to {vec} elements, got "
+                             f"strides {x.stride()}")
+    return device
+
+
+def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
+                    softcap=0.0):
+    """Flash attention forward on the CUDA kernel ``csrc/flash_attention.cu``
+    (the reference's ``kernels.ops.flash_attention``). q: (B,H,S,hd); k, v:
+    (B,K,S,hd) with H % K == 0, any strides whose hd axis is contiguous
+    (transposed views of (B,S,H,hd) activations go in without a copy).
+    float32 or bf16, hd 64, 128 or 256, any S. Returns (B,H,S,hd) in q's
+    type, laid out like q. CPU tensors take the plain version."""
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        return _ref.ref_flash_attention(q, k, v, scale=scale, causal=causal,
+                                        window=window, softcap=softcap)
+    device = _check_attn("flash_attention", (q, k, v), vec=4)
+    b, h, s, hd = q.shape
+    kheads = k.shape[1]
+    if k.shape != (b, kheads, s, hd) or v.shape != k.shape \
+            or kheads == 0 or h % kheads:
+        raise ValueError("flash_attention kernel: q (B,H,S,hd) and k, v "
+                         "(B,K,S,hd) with H % K == 0, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if scale is None:
+        scale = hd ** -0.5
+    out = torch.empty_like(q)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _attn_fn("flash_attention", "flash_attention_forward",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 12 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2 + [ctypes.c_float]
+                       + [ctypes.c_void_p])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], float(scale), int(bool(causal)),
+            int(window or 0), float(softcap or 0.0), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    _launches["flash_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
+                     window=0):
+    """One query token per row against its KV cache, on the CUDA kernel
+    ``csrc/decode_attention.cu`` (the reference's
+    ``kernels.ops.decode_attention``). q: (B,H,hd); k, v: (B,K,S,hd) with
+    any strides whose hd axis is contiguous: the model's (B,S,K,hd) cache
+    goes in as a transposed view, without a copy. slot_pos: int32 (S,) or
+    (B,S); pos: an int or an int32 tensor, scalar or (B,). Returns (B,H,hd)
+    in q's type. CPU tensors take the plain version."""
+    tensors = [x for x in (q, k, v, slot_pos, pos)
+               if isinstance(x, torch.Tensor)]
+    if all(x.device.type == "cpu" for x in tensors):
+        return _ref.ref_decode_attention(q, k, v, slot_pos, pos, scale=scale,
+                                         softcap=softcap, window=window)
+    hd = q.shape[-1]
+    device = _check_attn("decode_attention", (q, k, v),
+                         vec=max(1, hd // 32))
+    b, h, _ = q.shape
+    kheads, s = k.shape[1], k.shape[2]
+    if k.shape != (b, kheads, s, hd) or v.shape != k.shape \
+            or kheads == 0 or h % kheads:
+        raise ValueError("decode_attention kernel: q (B,H,hd) and k, v "
+                         "(B,K,S,hd) with H % K == 0, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not isinstance(slot_pos, torch.Tensor) or slot_pos.device != device \
+            or slot_pos.dtype != torch.int32 \
+            or slot_pos.shape not in ((s,), (b, s)) \
+            or slot_pos.stride(-1) != 1:
+        raise ValueError("decode_attention kernel: slot_pos must be an int32 "
+                         f"(S,) or (B,S) tensor on {device} with contiguous "
+                         "slots")
+    slot_stride = slot_pos.stride(0) if slot_pos.dim() == 2 else 0
+    if isinstance(pos, torch.Tensor):
+        if pos.device != device or pos.dtype != torch.int32 \
+                or pos.numel() not in (1, b) or pos.dim() > 1:
+            raise ValueError("decode_attention kernel: pos must be an int or "
+                             f"an int32 scalar or (B,) tensor on {device}")
+        pos_ptr, pos_stride, pos_scalar = (
+            pos.data_ptr(), pos.stride(0) if pos.numel() > 1 else 0, 0)
+    else:
+        pos_ptr, pos_stride, pos_scalar = None, 0, int(pos)
+    if scale is None:
+        scale = hd ** -0.5
+    out = torch.empty((b, h, hd), dtype=q.dtype, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _attn_fn("decode_attention", "decode_attention_forward",
+                       [ctypes.c_void_p] * 5
+                       + [ctypes.c_longlong, ctypes.c_void_p,
+                          ctypes.c_longlong] + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 10 + [ctypes.c_float,
+                                                     ctypes.c_int,
+                                                     ctypes.c_float,
+                                                     ctypes.c_void_p])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            slot_pos.data_ptr(), slot_stride, pos_ptr, pos_stride,
+            pos_scalar, int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
+            *q.stride()[:2], k.stride(0), k.stride(2), k.stride(1),
+            v.stride(0), v.stride(2), v.stride(1), *out.stride()[:2],
+            float(scale), int(window or 0), float(softcap or 0.0), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    _launches["decode_attention"] += 1
+    return out

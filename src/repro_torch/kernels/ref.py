@@ -9,6 +9,66 @@ from __future__ import annotations
 
 import torch
 
+# The float32 mask value shared by every masked-attention path: the model
+# (models/attention.py), the plain versions below and the CUDA kernels. It
+# is finite on purpose: a row whose every key is masked then gets p = 1
+# until a live key arrives, where -inf would give exp(-inf - -inf) = NaN.
+NEG_INF = -2.0e38
+
+
+def ref_flash_attention(q, k, v, *, scale=None, causal=True, window=0,
+                        softcap=0.0):
+    """q: (B,H,S,hd); k, v: (B,K,S,hd), H % K == 0 (query head h reads kv
+    head h // (H/K)). Dense softmax in float32; the output is in q's
+    type."""
+    b, h, s, hd = q.shape
+    kheads = k.shape[1]
+    group = h // kheads
+    if scale is None:
+        scale = hd ** -0.5
+    qg = q.reshape(b, kheads, group, s, hd).float()
+    logits = torch.einsum("bkgqh,bkth->bkgqt", qg, k.float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgqt,bkth->bkgqh", p, v.float())
+    return o.reshape(b, h, s, hd).to(q.dtype)
+
+
+def ref_decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
+                         window=0):
+    """q: (B,H,hd); k, v: (B,K,S,hd); slot_pos: (S,) or (B,S) int, the
+    position each cache slot holds (-1: empty); pos: scalar or (B,) int,
+    each row's current position. A slot is valid when
+    ``0 <= slot_pos <= pos`` (and ``pos - slot_pos < window``)."""
+    b, h, hd = q.shape
+    kheads, s = k.shape[1], k.shape[2]
+    group = h // kheads
+    if scale is None:
+        scale = hd ** -0.5
+    qg = q.reshape(b, kheads, group, hd).float()
+    logits = torch.einsum("bkgh,bkth->bkgt", qg, k.float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    slot_pos = torch.as_tensor(slot_pos, device=q.device).reshape(-1, s) \
+        .expand(b, s)
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(b)
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window:
+        valid &= pos[:, None] - slot_pos < window
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgt,bkth->bkgh", p, v.float())
+    return o.reshape(b, h, hd).to(q.dtype)
+
 
 def ref_vtrace_scan(deltas, dcs):
     """Reverse first-order recurrence acc_t = deltas_t + dcs_t * acc_{t+1},

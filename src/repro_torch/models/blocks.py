@@ -1,0 +1,109 @@
+"""Super-block composition: each architecture is ``num_groups`` repetitions
+of ``cfg.block_pattern`` (a tuple of (mixer, ffn) layer specs). One
+super-block's params form one ``Params`` node; ``model.py`` keeps one per
+group.
+
+Residual wiring: pre-norm (gemma2 adds sandwich post-norms). Ported
+mixers: the attention kinds ``attn``, ``local_attn`` and ``swa_attn``;
+ported FFNs: ``swiglu``, ``geglu``, ``gelu`` and ``none``. The others raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from repro_torch.models import attention, mlp
+from repro_torch.models.common import Params, make_norm
+
+# xattn raises in models/attention.py
+_NOT_PORTED = {
+    "moe": "ROADMAP item 16",
+    "mamba": "ROADMAP item 17",
+    "mlstm": "ROADMAP item 17",
+    "slstm": "ROADMAP item 17",
+}
+
+
+def check_ported(pattern):
+    """Raise for any mixer or FFN of ``pattern`` that is not ported yet."""
+    for mixer, ffn in pattern:
+        for kind in (mixer, ffn):
+            if kind in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"{kind} is not ported yet: {_NOT_PORTED[kind]}")
+
+
+def block_init(cfg, *, generator, device=None):
+    """Params for one super-block."""
+    check_ported(cfg.block_pattern)
+    norm_init, _ = make_norm(cfg)
+    kw = dict(generator=generator, device=device)
+    layers = {}
+    for idx, (mixer, ffn) in enumerate(cfg.block_pattern):
+        layer = {"pre_norm": norm_init(cfg.d_model, device=device),
+                 "mixer": attention.attn_init(cfg, mixer, **kw)}
+        if cfg.sandwich_norm:
+            layer["post_norm"] = norm_init(cfg.d_model, device=device)
+        if ffn != "none":
+            layer["ffn_pre_norm"] = norm_init(cfg.d_model, device=device)
+            layer["ffn"] = mlp.mlp_init(cfg, ffn, **kw)
+            if cfg.sandwich_norm:
+                layer["ffn_post_norm"] = norm_init(cfg.d_model,
+                                                   device=device)
+        layers[f"l{idx}"] = Params(**layer)
+    return Params(**layers)
+
+
+def _apply_ffn(layer, x, cfg, ffn, norm_fn):
+    h = mlp.mlp_apply(layer["ffn"], norm_fn(layer["ffn_pre_norm"], x), ffn)
+    if cfg.sandwich_norm:
+        h = norm_fn(layer["ffn_post_norm"], h)
+    return x + h
+
+
+def block_apply(params, x, *, cfg, positions, impl=None, build_cache=False,
+                seq_len=None, dtype=None):
+    """Full-sequence super-block. Returns (x, cache|None); with
+    ``build_cache`` (prefill) the cache holds this block's decode caches."""
+    _, norm_fn = make_norm(cfg)
+    cache = {} if build_cache else None
+    for idx, (mixer, ffn) in enumerate(cfg.block_pattern):
+        layer = params[f"l{idx}"]
+        h, kv = attention.attn_apply(layer["mixer"],
+                                     norm_fn(layer["pre_norm"], x), cfg=cfg,
+                                     kind=mixer, positions=positions,
+                                     impl=impl)
+        if build_cache:
+            cache[f"l{idx}"] = attention.attn_prefill_cache(
+                cfg, mixer, kv, seq_len, dtype)
+        if cfg.sandwich_norm:
+            h = norm_fn(layer["post_norm"], h)
+        x = x + h
+        if ffn != "none":
+            x = _apply_ffn(layer, x, cfg, ffn, norm_fn)
+    return x, cache
+
+
+def block_decode(params, x, cache, *, cfg, pos, impl=None):
+    """One-token decode through a super-block; each layer's cache is
+    written in place. Returns (x, cache)."""
+    _, norm_fn = make_norm(cfg)
+    for idx, (mixer, ffn) in enumerate(cfg.block_pattern):
+        layer = params[f"l{idx}"]
+        h, _ = attention.attn_decode(layer["mixer"],
+                                     norm_fn(layer["pre_norm"], x),
+                                     cache[f"l{idx}"], cfg=cfg, kind=mixer,
+                                     pos=pos, impl=impl)
+        if cfg.sandwich_norm:
+            h = norm_fn(layer["post_norm"], h)
+        x = x + h
+        if ffn != "none":
+            x = _apply_ffn(layer, x, cfg, ffn, norm_fn)
+    return x, cache
+
+
+def block_cache_init(cfg, batch, seq_len, dtype, device=None):
+    """Zero decode cache for one super-block."""
+    check_ported(cfg.block_pattern)
+    return {f"l{idx}": attention.attn_cache_init(cfg, mixer, batch, seq_len,
+                                                 dtype, device=device)
+            for idx, (mixer, _) in enumerate(cfg.block_pattern)}

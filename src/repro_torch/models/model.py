@@ -1,0 +1,165 @@
+"""Top-level decoder: embed -> ``num_groups`` super-blocks -> final norm ->
+heads (LM logits over the vocabulary = policy logits; a scalar baseline
+for IMPALA).
+
+``init`` returns the parameter tree as a :class:`Params` module: the
+reference stacks every block leaf on a leading ``num_groups`` axis for
+``lax.scan``; here ``params["blocks"]`` is a list of one node per group
+(``convert.py`` unstacks and restacks). The apply functions take that tree.
+The zamba-style shared block (``shared_attn_every``) is not ported yet; it
+only serves the Mamba2 archs (ROADMAP item 17).
+
+The decode cache mirrors the reference's: ``{"block": {"l<i>": {"k", "v"}}}``
+with leaves (num_groups, B, cap, K, hd). ``decode_step`` writes each
+layer's new k and v into it in place, group by group, which is what the
+reference's ``unroll=True`` serve path makes XLA do with the donated cache
+buffer; no second copy of the cache is ever made.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import blocks
+from repro_torch.models.common import (Params, dtype_of, make_norm, param,
+                                       sinusoidal_pos_emb, softcap)
+
+
+def init(cfg, *, seed=0, device=None):
+    """A freshly initialised parameter tree for ``cfg`` on ``device``,
+    drawn from a ``torch.Generator`` seeded with ``seed``."""
+    blocks.check_ported(cfg.block_pattern)
+    if cfg.shared_attn_every:
+        raise NotImplementedError("the shared attention block of the "
+                                  "Mamba2 hybrids is not ported yet: "
+                                  "ROADMAP item 17")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(generator=gen, device=device)
+    norm_init, _ = make_norm(cfg)
+    p = {
+        # 1/sqrt(d): keeps initial logits O(1) for both tied and untied
+        # heads -> near-uniform initial policy (entropy ~ log V)
+        "embed": param((cfg.vocab_size, cfg.d_model),
+                       scale=cfg.d_model ** -0.5, **kw),
+        "blocks": nn.ModuleList([blocks.block_init(cfg, **kw)
+                                 for _ in range(cfg.num_groups)]),
+        "final_norm": norm_init(cfg.d_model, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = param((cfg.d_model, cfg.vocab_size), **kw)
+    if cfg.baseline_head:
+        p["baseline"] = param((cfg.d_model,), scale=cfg.d_model ** -0.5,
+                              **kw)
+    return Params(**p)
+
+
+def _embed(params, cfg, tokens, positions):
+    x = params["embed"][tokens].to(dtype_of(cfg))
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_pos_emb(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def unembed_matrix(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["unembed"]
+
+
+def logits_from_hidden(params, cfg, h):
+    """float32 logits. As in the reference, the unembedding is first
+    rounded to the hidden's type (bf16 on the serving path), then
+    multiplied in float32."""
+    w = unembed_matrix(params, cfg)
+    logits = h.float() @ w.to(h.dtype).float()
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    return logits
+
+
+def baseline_from_hidden(params, cfg, h):
+    if not cfg.baseline_head:
+        return None
+    return h.float() @ params["baseline"].float()
+
+
+def forward(params, tokens, *, cfg, impl=None, build_cache=False,
+            cache_seq_len=None):
+    """Forward over a full sequence. tokens: (B, S) int.
+
+    Returns (hidden (B,S,d), cache|None); with ``build_cache`` the decode
+    cache of every layer, capacity ``cache_seq_len``. (The reference also
+    returns MoE auxiliary losses; MoE is not ported yet, ROADMAP item 16.)
+    """
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)
+    x = _embed(params, cfg, tokens, positions)
+    dtype = x.dtype
+    caches = []
+    for block_params in params["blocks"]:
+        x, cache = blocks.block_apply(
+            block_params, x, cfg=cfg, positions=positions, impl=impl,
+            build_cache=build_cache, seq_len=cache_seq_len, dtype=dtype)
+        caches.append(cache)
+    _, norm_fn = make_norm(cfg)
+    x = norm_fn(params["final_norm"], x)
+    if not build_cache:
+        return x, None
+    return x, {"block": {
+        name: {leaf: torch.stack([c[name][leaf] for c in caches])
+               for leaf in caches[0][name]}
+        for name in caches[0]}}
+
+
+def cache_init(cfg, batch, seq_len, device=None):
+    """Zero decode cache matching ``prefill``'s: leaves (G, B, cap, ...)."""
+    one = blocks.block_cache_init(cfg, batch, seq_len, dtype_of(cfg),
+                                  device=device)
+    return {"block": {
+        name: {leaf: torch.zeros((cfg.num_groups,) + a.shape, dtype=a.dtype,
+                                 device=a.device)
+               for leaf, a in layer.items()}
+        for name, layer in one.items()}}
+
+
+def prefill(params, tokens, *, cfg, impl=None, cache_seq_len):
+    """Forward + build decode caches. Returns (hidden (B,S,d), cache)."""
+    return forward(params, tokens, cfg=cfg, impl=impl, build_cache=True,
+                   cache_seq_len=cache_seq_len)
+
+
+def decode_step(params, tokens, cache, pos, *, cfg, impl=None):
+    """One-token decode. tokens: (B,1) int; pos: a scalar int (the position
+    of this token; lockstep decode) or a (B,) int32 tensor (per-slot
+    positions: the continuous-batching serve path). ``cache`` is written in
+    place, layer by layer. Returns (hidden (B,1,d), cache)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+    x = _embed(params, cfg, tokens, pos[:, None] if pos.dim() else pos[None])
+    for g, block_params in enumerate(params["blocks"]):
+        group_cache = {name: {leaf: a[g] for leaf, a in layer.items()}
+                       for name, layer in cache["block"].items()}
+        x, _ = blocks.block_decode(block_params, x, group_cache, cfg=cfg,
+                                   pos=pos, impl=impl)
+    _, norm_fn = make_norm(cfg)
+    return norm_fn(params["final_norm"], x), cache
+
+
+# ---------------------------------------------------------------------------
+# convenience heads for drivers/tests
+# ---------------------------------------------------------------------------
+
+def apply_lm(params, tokens, *, cfg, impl=None):
+    """(B,S) -> (logits float32 (B,S,V), baseline (B,S)|None)."""
+    h, _ = forward(params, tokens, cfg=cfg, impl=impl)
+    return logits_from_hidden(params, cfg, h), \
+        baseline_from_hidden(params, cfg, h)
+
+
+def serve_step(params, tokens, cache, pos, *, cfg, impl=None):
+    """(B,1) + cache -> (logits float32 (B,1,V), baseline, cache)."""
+    h, cache = decode_step(params, tokens, cache, pos, cfg=cfg, impl=impl)
+    return (logits_from_hidden(params, cfg, h),
+            baseline_from_hidden(params, cfg, h), cache)
