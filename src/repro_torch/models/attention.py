@@ -31,6 +31,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import Params, apply_rope, param, softcap
 
+
 def _not_ported(kind):
     if kind == "xattn":
         raise NotImplementedError(
