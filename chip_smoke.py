@@ -12,9 +12,12 @@ exits nonzero without printing a result:
   3. kernel   each kernel against its plain PyTorch version on the card:
               V-trace at the trainer's and the paper's shapes; flash
               attention at Qwen3-4B's prefill shapes, a windowed and
-              softcapped case and head_dim 64 and 256; decode attention
-              at the serving shape and beyond (bf16 and float32), with
-              times, bounds and SDPA's time beside them
+              softcapped case, head_dim 64 and 256, and Zamba2's shared
+              block (head_dim 80); decode attention at the serving shapes
+              of both (bf16 and float32), with times, bounds and SDPA's
+              time beside them; the SSD chunk at a Zamba2-2.7B admission
+              (80 heads sharing B/C, N = P = 64), 8 rows, ragged lengths
+              and the reference's sweep
   4. learner  three learner steps of the IMPALA deep ResNet at full width
               (84x84x4 obs, 18 actions, T=80, B=32, Table G.1 RMSProp) on a
               seeded synthetic rollout, held against the plain-loop V-trace
@@ -29,7 +32,15 @@ exits nonzero without printing a result:
               its flash- and decode-attention launches are reported); then
               a profile of one decode step (host time, device busy time by
               kernel)
-  9. kernels  one {"kernels": [...]} line, then the card's name and power
+  9. zamba    Zamba2-2.7B as published in float32, weights from seed 0: the
+              kernel path (SSD chunk and attention kernels) against the
+              plain path on 4 prompts of 512 tokens (two chunks, the state
+              carried through the kernel) and 16 teacher-forced steps
+ 10. zserve   repro_torch.launch.serve.main at full Zamba2-2.7B width with
+              --attn-impl kernel --ssd-impl kernel, 24 requests of 1..256
+              tokens (its SSD chunk, flash- and decode-attention launches
+              are reported); then a profile of one decode step
+ 11. kernels  one {"kernels": [...]} line, then the card's name and power
               limit, then the final {"ok": true, "device": {...}} line
 
 It needs CUDA and the repository's src/ beside it; it exits nonzero when
@@ -69,22 +80,40 @@ BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
 # windowed and softcapped case, and the other two head_dims
 FLASH_SHAPES = [(1, 32, 8, s, 128, 0, 0.0) for s in (1, 16, 256, 300, 512)] \
     + [(1, 32, 16, 4608, 128, 4096, 50.0), (1, 8, 2, 256, 64, 0, 0.0),
-       (1, 8, 2, 256, 256, 0, 0.0)]
+       (1, 8, 2, 256, 256, 0, 0.0), (1, 32, 32, 256, 80, 0, 0.0)]
 FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
 # (B, H, K, cap, hd, pos, window, softcap): the serving decode (8 slots at
 # their own positions in 576-slot caches), scalar pos, 4096-slot caches, a
-# ring buffer with window 32, softcap
+# ring buffer with window 32, softcap; Zamba2's shared block (no GQA, hd
+# 80, 8 slots of 320)
 DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 8, 576, 128, "scalar", 0, 0.0),
                  (8, 32, 8, 4096, 128, "rows", 0, 0.0),
                  (8, 32, 8, 4096, 128, "scalar", 0, 0.0),
                  (8, 32, 8, 32, 128, "ring", 32, 0.0),
-                 (8, 32, 8, 576, 128, "rows", 0, 50.0)]
+                 (8, 32, 8, 576, 128, "rows", 0, 50.0),
+                 (8, 32, 32, 320, 80, "rows", 0, 0.0)]
 DECODE_MAIN = ((8, 32, 8, 576, 128, "rows", 0, 0.0), "bfloat16")
+# (slices, L, N, P, heads, decay): heads > 1 is the model's layout, one B/C
+# group per batch row read by all its heads; da = -U(0, decay) per step.
+# One Zamba2-2.7B admission of a whole 256-token chunk (80 heads, N = P =
+# 64; decay 0.55 takes acs to about -70, as at full width), the same for
+# 8 rows, ragged admissions, the same admission in the reference's layout
+# (B/C repeated per head), then the reference's sweep (tests/test_kernels.py)
+SSD_SHAPES = [(80, 256, 64, 64, 80, 0.55), (640, 256, 64, 64, 80, 0.55),
+              (80, 1, 64, 64, 80, 0.55), (80, 37, 64, 64, 80, 0.55),
+              (80, 255, 64, 64, 80, 0.55), (80, 256, 64, 64, 1, 0.55),
+              (4, 64, 32, 32, 1, 0.1), (2, 128, 64, 64, 1, 0.1),
+              (1, 128, 128, 64, 1, 0.1), (3, 96, 64, 32, 1, 0.1)]
+SSD_MAIN = (80, 256, 64, 64, 80, 0.55)
 MODEL_TOL = 1e-3               # full-width logits, kernel vs dense path
 SERVE_ARGV = ["--arch", "qwen3-4b", "--attn-impl", "kernel", "--requests",
               "24", "--prompt-len", "512", "--gen-tokens", "64",
               "--max-batch", "8"]
+ZAMBA_SERVE_ARGV = ["--arch", "zamba2-2.7b", "--attn-impl", "kernel",
+                    "--ssd-impl", "kernel", "--requests", "24",
+                    "--prompt-len", "256", "--gen-tokens", "64",
+                    "--max-batch", "8"]
 
 
 def emit(phase, **fields):
@@ -354,39 +383,131 @@ def phase_decode(ops, ref):
     return rows
 
 
-def phase_model(ops):
-    """Qwen3-4B at full width in float32 with weights from seed 0: 4
-    prompts of 300 tokens and 16 teacher-forced decode steps through the
-    kernel path and the dense path; logits must agree within MODEL_TOL."""
+def _ssd_inputs(shape, seed):
+    """c, b, x, da, h_prev on the card for one SSD_SHAPES entry, in the
+    model's layout when heads > 1, else the reference's."""
+    import torch
+    slices, length, n, p, heads, decay = shape
+    rows = slices // heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*dims):
+        return torch.randn(dims, generator=gen, device="cuda")
+
+    c, b = rand(rows, length, n), rand(rows, length, n)
+    if heads > 1:
+        x, h = rand(rows, length, heads, p), rand(rows, heads, p, n)
+        da = -decay * torch.rand((rows, length, heads), generator=gen,
+                                 device="cuda")
+    else:
+        x, h = rand(rows, length, p), rand(rows, p, n)
+        da = -decay * torch.rand((rows, length, 1), generator=gen,
+                                 device="cuda")
+    return c, b, x, da, h
+
+
+def ssd_bound(shape):
+    """(bound_ms, bound_by) of one SSD chunk call: the lower triangle's
+    multiply-adds (C B^T and the weighted sum of X, L(L+1)/2 (2N + 2P) per
+    slice) and the two L x N x P products (C h^T, X^T B), against every
+    input read once (B/C once per group) and both outputs written once."""
+    import torch
+    slices, length, n, p, heads, _ = shape
+    flops = slices * (length * (length + 1) // 2 * (2 * n + 2 * p)
+                      + 4 * length * n * p)
+    groups = slices // heads
+    nbytes = 4 * (2 * groups * length * n + 2 * slices * length * p
+                  + slices * length + 2 * slices * p * n)
+    return _bound(nbytes, flops, torch.float32)
+
+
+def phase_ssd(ops, ref):
+    """The SSD chunk kernel against its plain version at every SSD_SHAPES
+    entry: y and h_new within the reference's 3e-5, widened by four times
+    the float32 plain version's own error against the same plain version
+    in float64 (kernels.ref.ssd_tolerance says why). Returns {shape: row}."""
+    import torch
+    rows = {}
+    for i, shape in enumerate(SSD_SHAPES):
+        heads = shape[4]
+        args = _ssd_inputs(shape, 4000 + i)
+        plain = ref.ref_ssd_chunk_heads if heads > 1 else ref.ref_ssd_chunk
+        got = ops.ssd_chunk(*args)
+        want = plain(*args)
+        exact = plain(*(a.double() for a in args))
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"ssd_chunk {shape}: non-finite output")
+        err = {}
+        for name, g, w, e in zip(("y", "h_new"), got, want, exact):
+            tol = ref.ssd_tolerance(w, e)
+            err[name] = dict(max_abs_err=(g - w).abs().max().item(),
+                             kernel_vs_float64=(g - e).abs().max().item(),
+                             plain_vs_float64=(w - e).abs().max().item(),
+                             atol=tol["atol"], rtol=tol["rtol"])
+            if not torch.allclose(g, w, **tol):
+                raise AssertionError(f"ssd_chunk {shape}: {name} {err}")
+        del got, want, exact
+        row = dict(ms=event_ms(lambda: ops.ssd_chunk(*args), 20),
+                   graph_ms=graph_ms(lambda: ops.ssd_chunk(*args), 20),
+                   plain_ms=event_ms(lambda: plain(*args), 5),
+                   library_ms=None,
+                   library_note="no single PyTorch call computes the chunk")
+        row["bound_ms"], row["bound_by"] = ssd_bound(shape)
+        row.update(shape=list(shape[:4]), heads=heads, decay=shape[5],
+                   layout="model" if heads > 1 else "reference",
+                   max_abs_err=max(e["max_abs_err"] for e in err.values()),
+                   errors=err)
+        rows[shape] = row
+        emit("kernel", name="ssd_chunk", **row)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_layers(cfg):
+    """(attention layers, Mamba2 layers) a token passes through: the shared
+    block counts once per group."""
+    mamba = sum(m == "mamba" for m, _ in cfg.block_pattern) * cfg.num_groups
+    shared = cfg.num_groups if cfg.shared_attn_every else 0
+    return cfg.num_layers - mamba + shared, mamba
+
+
+def phase_model(ops, arch, prompt_len):
+    """``arch`` at full width in float32 with weights from seed 0: 4
+    prompts of ``prompt_len`` tokens and 16 teacher-forced decode steps
+    through the kernel path (every kernel of the arch) and the plain path;
+    logits must agree within MODEL_TOL, and the kernel path must launch
+    each kernel once per layer that runs it and call."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
 
-    cfg = dataclasses.replace(get_config("qwen3-4b"), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
     t0 = time.perf_counter()
     params = model_lib.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    p, n, b = 300, 16, 4
+    p, n, b = prompt_len, 16, 4
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, p + n))).cuda()
     logits, launches, seconds = {}, {}, {}
     with torch.no_grad():
         for impl in ("xla", "kernel"):
+            icfg = dataclasses.replace(cfg, attn_impl=impl, ssd_impl=impl)
             ops.reset_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            h, cache = model_lib.prefill(params, tokens[:, :p], cfg=cfg,
-                                         impl=impl, cache_seq_len=p + n)
-            out = [model_lib.logits_from_hidden(params, cfg, h[:, -1:])]
+            h, cache = model_lib.prefill(params, tokens[:, :p], cfg=icfg,
+                                         cache_seq_len=p + n)
+            out = [model_lib.logits_from_hidden(params, icfg, h[:, -1:])]
             del h
             for t in range(p, p + n):
                 pos = torch.full((b,), t, dtype=torch.int32, device="cuda")
                 lg, _, cache = model_lib.serve_step(
-                    params, tokens[:, t:t + 1], cache, pos, cfg=cfg,
-                    impl=impl)
+                    params, tokens[:, t:t + 1], cache, pos, cfg=icfg)
                 out.append(lg)
             torch.cuda.synchronize()
             seconds[impl] = time.perf_counter() - t0
@@ -395,8 +516,10 @@ def phase_model(ops):
             del cache
     diff = (logits["kernel"] - logits["xla"]).abs().max().item()
     finite = bool(torch.isfinite(logits["kernel"]).all())
-    want = {"flash_attention": cfg.num_layers,
-            "decode_attention": cfg.num_layers * n, "vtrace": 0}
+    attn, mamba = kernel_layers(cfg)
+    want = {"vtrace": 0, "flash_attention": attn,
+            "decode_attention": attn * n,
+            "ssd_chunk": mamba * -(-p // min(p, cfg.ssm_chunk))}
     emit("model", arch=cfg.name, dtype=cfg.dtype,
          params=sum(x.numel() for x in params.parameters()),
          init_seconds=init_s, prompts=b, prompt_len=p,
@@ -409,70 +532,101 @@ def phase_model(ops):
         raise AssertionError("full-width kernel-path logits not finite")
     if not diff <= MODEL_TOL:
         raise AssertionError(f"full-width kernel-path logits differ from the "
-                             f"dense path by {diff:.3e} > {MODEL_TOL}")
+                             f"plain path by {diff:.3e} > {MODEL_TOL}")
     if launches["kernel"] != want or any(launches["xla"].values()):
         raise AssertionError(f"model launches {launches}, kernel path "
                              f"should be {want}")
 
 
-def phase_serve(ops):
-    """The serving main path at full Qwen3-4B width: every request served
-    and echoed, one flash-attention launch per layer per admission and one
-    decode-attention launch per layer per decode step."""
+def phase_serve(ops, argv):
+    """A serving main path at full width through ``serve.main(argv)``:
+    every request served and echoed; per admission one flash-attention
+    launch per attention layer and one SSD chunk launch per Mamba2 layer
+    (every prompt is at most one chunk), per decode step one
+    decode-attention launch per attention layer."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    layers = get_config("qwen3-4b").num_layers
+    attn, mamba = kernel_layers(get_config(argv[argv.index("--arch") + 1]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     ops.reset_stats()
     with contextlib.redirect_stdout(buf):
-        summary = serve.main(SERVE_ARGV)
+        summary = serve.main(argv)
     launches = ops.stats()
     peak = torch.cuda.max_memory_allocated()
     for line in buf.getvalue().strip().splitlines():
         print("  " + line, flush=True)
-    emit("serve", argv=SERVE_ARGV, launches=launches, peak_mem_bytes=peak,
+    emit("serve", argv=argv, launches=launches, peak_mem_bytes=peak,
          **summary)
     if summary["served"] != summary["requests"] \
             or not summary["prompt_echo_ok"]:
         raise AssertionError(f"served {summary['served']} of "
                              f"{summary['requests']}, echo "
                              f"{summary['prompt_echo_ok']}")
-    if launches["flash_attention"] != layers * summary["admissions"] \
-            or launches["decode_attention"] != layers * summary["steps"] \
-            or not summary["admissions"] or not summary["steps"]:
+    want = {"vtrace": 0, "flash_attention": attn * summary["admissions"],
+            "ssd_chunk": mamba * summary["admissions"],
+            "decode_attention": attn * summary["steps"]}
+    if launches != want or not summary["admissions"] \
+            or not summary["steps"]:
         raise AssertionError(
             f"serve launches {launches} for {summary['admissions']} "
-            f"admissions and {summary['steps']} steps of {layers} layers")
+            f"admissions and {summary['steps']} steps, want {want}")
     return launches
 
 
-def phase_profile():
-    """Where one full-width serving decode step spends its time: 8 slots
-    admitted with 256..480-token prompts into 576-slot caches, then 5
-    decode steps timed on the host clock, and 5 more under torch.profiler
-    for the device's busy time by kernel. Device numbers are reported as
-    not measured when the profiler records no device time."""
-    import numpy as np
+def _profiled(fn, reps):
+    """Host ms per call of ``fn`` under torch.profiler, the device's busy
+    ms per call (None when the profiler records no device time), and the
+    device kernels by time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    return host_ms, busy_ms or None, dict(
+        launches_per_call=sum(e.count for e in kernels) / reps,
+        top_kernels=[{"name": e.key[:80],
+                      "ms_per_call": e.self_device_time_total / reps / 1e3,
+                      "calls_per_call": e.count / reps} for e in top])
+
+
+def phase_profile(arch, prompt_lens, cap):
+    """Where one full-width serving decode step spends its time: 8 slots
+    admitted with ``prompt_lens`` into ``cap``-slot caches, then 5 decode
+    steps timed on the host clock, and 5 more under torch.profiler for the
+    device's busy time by kernel; then one admission of the longest prompt
+    into a freed slot, under the profiler. Device numbers are reported as
+    not measured when the profiler records no device time."""
+    import numpy as np
+    import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.generate import DecodeSession
     from repro_torch.models import model as model_lib
 
-    cfg = dataclasses.replace(get_config("qwen3-4b"), attn_impl="kernel")
+    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel",
+                              ssd_impl="kernel")
     params = model_lib.init(cfg, seed=0, device="cuda")
-    sess = DecodeSession(params, cfg, max_batch=8, max_len=576)
+    sess = DecodeSession(params, cfg, max_batch=8, max_len=cap)
     rng = np.random.default_rng(1)
-    for slot in range(8):
-        sess.prefill_into(slot, rng.integers(0, cfg.vocab_size,
-                                             256 + 32 * slot), seed=slot)
+    for slot, n in enumerate(prompt_lens):
+        sess.prefill_into(slot, rng.integers(0, cfg.vocab_size, n),
+                          seed=slot)
     for _ in range(3):
         sess.step()
     torch.cuda.synchronize()
@@ -480,28 +634,25 @@ def phase_profile():
     for _ in range(5):
         sess.step()
     torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / 5 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            sess.step()
-        torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) / 5 * 1e3
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 5 / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
-    emit("profile", arch=cfg.name, dtype=cfg.dtype, slots=8, cap=576,
-         step_ms=host_ms, profiled_step_ms=profiled_ms,
-         device_busy_ms=busy_ms if busy_ms else "not measured",
-         device_idle_share=(1 - busy_ms / profiled_ms) if busy_ms
-         else "not measured",
-         launches_per_step=sum(e.count for e in kernels) / 5,
-         top_kernels=[{"name": e.key[:80],
-                       "ms_per_step": e.self_device_time_total / 5 / 1e3,
-                       "calls_per_step": e.count / 5} for e in top])
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    profiled_ms, busy_ms, step_kernels = _profiled(sess.step, 5)
+    sess.evict(7)
+    prompt = rng.integers(0, cfg.vocab_size, max(prompt_lens))
+    admit_ms, admit_busy_ms, admit_kernels = _profiled(
+        lambda: sess.prefill_into(7, prompt, seed=7), 1)
+
+    def measured(x):
+        return x if x is not None else "not measured"
+
+    emit("profile", arch=cfg.name, dtype=cfg.dtype, slots=8, cap=cap,
+         step_ms=step_ms, profiled_step_ms=profiled_ms,
+         device_busy_ms=measured(busy_ms),
+         device_idle_share=measured(busy_ms and 1 - busy_ms / profiled_ms),
+         **step_kernels,
+         admission={"prompt_len": max(prompt_lens),
+                    "profiled_ms": admit_ms,
+                    "device_busy_ms": measured(admit_busy_ms),
+                    **admit_kernels})
     del sess, params
     torch.cuda.empty_cache()
 
@@ -645,6 +796,7 @@ def main():
     rows = phase_kernel(ops, ref)
     flash_rows = phase_flash(ops, ref)
     decode_rows = phase_decode(ops, ref)
+    ssd_rows = phase_ssd(ops, ref)
 
     # 4. full-width learner
     phase_learner(ops)
@@ -684,15 +836,25 @@ def main():
     torch.cuda.empty_cache()
 
     # 7. full-width Qwen3-4B: kernel path against the dense path
-    phase_model(ops)
+    phase_model(ops, "qwen3-4b", 300)
 
     # 8. the server through its entry point: the serving main path, then
     # a profile of its decode step
-    serve_launches = phase_serve(ops)
+    serve_launches = phase_serve(ops, SERVE_ARGV)
     torch.cuda.empty_cache()
-    phase_profile()
+    phase_profile("qwen3-4b", [256 + 32 * slot for slot in range(8)], 576)
 
-    # 9. kernels, card, result
+    # 9. full-width Zamba2-2.7B: kernel path against the plain path
+    phase_model(ops, "zamba2-2.7b", 512)
+
+    # 10. the Zamba2 server: the path through the SSD chunk kernel, then a
+    # profile of its decode step and of one admission
+    zamba_launches = phase_serve(ops, ZAMBA_SERVE_ARGV)
+    torch.cuda.empty_cache()
+    phase_profile("zamba2-2.7b", [32 * (slot + 1) for slot in range(8)],
+                  320)
+
+    # 11. kernels, card, result
     row = rows[TRAINER_SHAPE]
     kernels = [{
         "name": "vtrace", "route": "cuda",
@@ -723,6 +885,17 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "graph_ms": row["graph_ms"],
             "shape": row["shape"], "dtype": dtype})
+    row = ssd_rows[SSD_MAIN]
+    kernels.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_chunk.py:68",
+        "launches": zamba_launches["ssd_chunk"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "graph_ms": row["graph_ms"],
+        "shape": row["shape"], "heads": row["heads"], "dtype": "float32"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ The package mirrors ``repro``'s layout module for module (configs, envs,
 models, kernels, core, optim, launch) and imports nothing of it, nor JAX.
 Its hot kernels are hand-written CUDA C++ for ``sm_90a`` under
 ``kernels/csrc/``: V-trace for the trainer, flash attention and decode
-attention for the decoder and the server; every other op is plain
-PyTorch.
+attention for the decoder and the server, and the Mamba2 SSD chunk for the
+Zamba2 hybrid; every other op is plain PyTorch.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``); see :func:`resolve_device`.

@@ -10,7 +10,9 @@ LM decoders. The reference's tree (``models.model.init(...)[0]``) stacks
 every block leaf on a leading ``num_groups`` axis; the port's
 ``models.model.init`` keeps one node per group (``blocks.<g>.l0.mixer.wq``).
 The converter unstacks and restacks that axis and keeps every leaf's
-layout, so ``wq`` stays (d, H, hd) and ``wo`` (H, hd, d).
+layout, so ``wq`` stays (d, H, hd), ``wo`` (H, hd, d) and a Mamba2 layer's
+``conv_w`` (W, C). The Zamba2 hybrids' shared block (``shared.l0...``) is
+not stacked in either package and goes across as it is.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ actor-side inference path for LLM-policy IMPALA.
 There is one decode loop. ``_session_prefill`` and ``_session_step`` work
 on a *session state* with one row per slot:
 
-    {"cache":  decode cache, leaves (G, B, cap, ...), written in place
+    {"cache":  decode cache, leaves (G, B, ...), written in place
      "pos":    (B,) int32  position of the next token to decode
      "last":   (B,) int64  last sampled token (fed on the next step)
      "gens":   B torch.Generators on the session's device, one per slot
@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.batcher import bucket_size
 from repro_torch.models import model as model_lib
+from repro_torch.models.common import tree_map
 
 
 def logprob_entropy(logits, tokens):
@@ -221,10 +222,13 @@ class DecodeSession:
             cfg=self.cfg, cache_seq_len=self.max_len,
             last_index=lengths - 1)
         idx = torch.tensor(slots, device=dev)
-        for name, layer in state["cache"]["block"].items():
-            for leaf, full in layer.items():
-                full[:, idx] = rows["cache"]["block"][name][leaf].to(
-                    full.dtype)
+
+        def overwrite(full, row):
+            full[:, idx] = row.to(full.dtype)
+
+        # every leaf of every subtree: attention k/v, Mamba2 conv/ssm, the
+        # shared block's k/v
+        tree_map(overwrite, state["cache"], rows["cache"])
         state["pos"][idx] = rows["pos"]
         state["last"][idx] = rows["last"]
         state["temp"][idx] = temp

@@ -32,7 +32,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = {"vtrace": CSRC / "vtrace.cu",
            "flash_attention": CSRC / "flash_attention.cu",
-           "decode_attention": CSRC / "decode_attention.cu"}
+           "decode_attention": CSRC / "decode_attention.cu",
+           "ssd_chunk": CSRC / "ssd_chunk.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

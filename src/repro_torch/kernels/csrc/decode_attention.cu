@@ -22,7 +22,9 @@
 // query head; at the end the 8 partial states are merged through shared
 // memory. The cache is read in the model's own (B, cap, K, hd) layout
 // through strides: the JAX wrapper copied it to (B, K, cap, hd) at every
-// call, this kernel needs no copy.
+// call, this kernel needs no copy. At head_dim 80 (Zamba2's shared block,
+// whose 32 query heads have 32 KV heads, so a block holds one query row)
+// the first 20 lanes load 4 elements each and the other 12 hold zeros.
 //
 // Bound. Decode attention reads the whole live cache once per token and
 // does 4 FLOPs per cached element and query head: at the serving shape
@@ -67,10 +69,15 @@ __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
                             Args a) {
-  constexpr int E = HD / 32;  // head_dim elements of one lane
+  // head_dim elements of one lane: hd / 32, or at hd 80 four elements in
+  // each of the first 20 lanes (the others hold zeros and store nothing)
+  constexpr int E = HD % 32 == 0 ? HD / 32 : 4;
+  constexpr int kLanes = HD / E;
+  static_assert(HD % E == 0 && kLanes <= 32, "head_dim");
+  const bool lane_on = kLanes == 32 || threadIdx.x % 32 < kLanes;
   __shared__ float s_m[kWarps][kRows];
   __shared__ float s_l[kWarps][kRows];
-  __shared__ float s_acc[kWarps][kRows][HD];
+  __shared__ float s_acc[kWarps][kRows][32 * E];
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -84,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   float qr[kRows][E], m[kRows], l[kRows], acc[kRows][E];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    if (r < rows) {
+    if (r < rows && lane_on) {
       attn::load_vec<E>(q + b * a.q_sb + (h0 + r) * a.q_sh + lane * E, qr[r]);
     } else {
 #pragma unroll
@@ -108,7 +115,12 @@ __global__ void __launch_bounds__(kThreads)
       in[u] = t < a.S;
       live[u] = false;
       if (in[u]) {
-        attn::load_vec<E>(kb + t * a.k_ss, kk[u]);
+        if (lane_on) {
+          attn::load_vec<E>(kb + t * a.k_ss, kk[u]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kk[u][e] = 0.f;
+        }
         const int sp = slot_pos[t];
         live[u] = sp >= 0 && sp <= row_pos &&
                   (a.window <= 0 || row_pos - sp < a.window);
@@ -134,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
     float vv[kUnroll][E];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (in[u]) {
+      if (in[u] && lane_on) {
         attn::load_vec<E>(vb + (t0 + u) * a.v_ss, vv[u]);
       } else {
 #pragma unroll
@@ -213,6 +225,8 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 64:
       return launch<T, 64>(q, k, v, o, B, K, a, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, K, a, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, K, a, stream);
     case 256:
@@ -228,7 +242,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // by their (b, slot, head) strides, all in elements with hd contiguous;
 // is_bf16 selects bf16 for all four, else float32. slot_pos: int32, row b
 // at slot_pos + b * slot_stride_b. pos: int32 at pos + b * pos_stride_b,
-// or null for pos_scalar. hd must be 64, 128 or 256.
+// or null for pos_scalar. hd must be 64, 80, 128 or 256.
 extern "C" int decode_attention_forward(
     const void* q, const void* k, const void* v, void* o,
     const void* slot_pos, long long slot_stride_b, const void* pos,

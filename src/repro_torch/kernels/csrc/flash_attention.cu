@@ -24,7 +24,10 @@
 // query rows past S are not stored), so S need not divide by 64, where the
 // TPU kernel needed S % block == 0. Inputs are bf16 or float32 with any
 // strides whose head_dim axis is contiguous, so the model's (B, S, H, hd)
-// activations go in as transposed views, without a copy.
+// activations go in as transposed views, without a copy. head_dim is 64,
+// 80, 128 or 256; at 80 (Zamba2's shared block) the value columns 64..79
+// fall to the first four thread columns, and the others skip their second
+// chunk.
 //
 // Bound. At the serving path's prefill shapes (Qwen3-4B: 32 query heads
 // over 8 KV heads, hd 128, bf16) the causal work at S = 512 is about
@@ -99,6 +102,13 @@ __device__ __forceinline__ float row_group_sum(float x) {
   return x;
 }
 
+// Whether thread column cg holds output columns 4 cg + 64 j .. + 3: always
+// when 64 divides HD, so those head_dims compile as if unchecked.
+template <int HD>
+__device__ __forceinline__ bool has_chunk_of(int cg, int j) {
+  return HD % 64 == 0 || 4 * cg + 64 * j < HD;
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -106,7 +116,9 @@ __global__ void __launch_bounds__(kThreads)
                            int group, int S, Strides qs, Strides ks,
                            Strides vs, Strides os, float scale, int causal,
                            int window, float softcap) {
-  constexpr int kDV = HD / 64;  // float4 column chunks of a thread in PV
+  // float4 column chunks of a thread in PV: columns 4 cg + 64 j. At hd 80
+  // the second chunk covers columns 64..79, so only cg < 4 holds one.
+  constexpr int kDV = (HD + 63) / 64;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sKV = sQ + kBQ * (HD + 4);
@@ -219,6 +231,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int t = 0; t < 4; ++t) {
 #pragma unroll
         for (int j = 0; j < kDV; ++j) {
+          if (!has_chunk_of<HD>(cg, j)) continue;
           float vv[4];
           attn::load_vec<4>(sKV + (c + t) * (HD + 4) + 4 * cg + 64 * j, vv);
 #pragma unroll
@@ -238,6 +251,7 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l[i], attn::kMinDenominator);
 #pragma unroll
     for (int j = 0; j < kDV; ++j) {
+      if (!has_chunk_of<HD>(cg, j)) continue;
       float out[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) out[e] = acc[i][j][e] / denom;
@@ -284,6 +298,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, K, S, qs, ks, vs, os, scale,
                            causal, window, softcap, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, H, K, S, qs, ks, vs, os, scale,
+                           causal, window, softcap, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, K, S, qs, ks, vs, os, scale,
                             causal, window, softcap, stream);
@@ -299,7 +316,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 // q (B,H,S,hd), k and v (B,K,S,hd), o (B,H,S,hd), each given by its
 // (b, head, s) strides in elements with hd contiguous; is_bf16 selects
-// bf16 for all four, else float32. hd must be 64, 128 or 256.
+// bf16 for all four, else float32. hd must be 64, 80, 128 or 256.
 extern "C" int flash_attention_forward(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
     int H, int K, int S, int hd, long long q_sb, long long q_sh,

@@ -20,7 +20,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
 _launches: Dict[str, int] = {"vtrace": 0, "flash_attention": 0,
-                             "decode_attention": 0}
+                             "decode_attention": 0, "ssd_chunk": 0}
 
 
 def stats() -> Dict[str, int]:
@@ -33,12 +33,11 @@ def reset_stats() -> None:
         _launches[name] = 0
 
 
-def _vtrace_fn():
-    lib = _build.load("vtrace")
-    fn = lib.vtrace_from_importance_weights
+def _kernel_fn(name, symbol, argtypes):
+    """Function ``symbol`` of kernel ``name``'s library, typed."""
+    fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -87,7 +86,9 @@ def vtrace_from_importance_weights_kernel(
     pg_advantages = torch.empty_like(values)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _vtrace_fn()(
+        err = _kernel_fn("vtrace", "vtrace_from_importance_weights",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                         + [ctypes.c_float] * 3 + [ctypes.c_void_p])(
             *(x.data_ptr() for x in args), vs.data_ptr(),
             pg_advantages.data_ptr(), t, b,
             _threshold(clip_rho_threshold), _threshold(clip_c_threshold),
@@ -103,15 +104,7 @@ def vtrace_from_importance_weights_kernel(
 # ---------------------------------------------------------------------------
 
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
-_ATTN_HEAD_DIMS = (64, 128, 256)
-
-
-def _attn_fn(name, symbol, argtypes):
-    fn = getattr(_build.load(name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+_ATTN_HEAD_DIMS = (64, 80, 128, 256)
 
 
 def _check_attn(name, tensors: Sequence[torch.Tensor], vec: int):
@@ -146,8 +139,8 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     (the reference's ``kernels.ops.flash_attention``). q: (B,H,S,hd); k, v:
     (B,K,S,hd) with H % K == 0, any strides whose hd axis is contiguous
     (transposed views of (B,S,H,hd) activations go in without a copy).
-    float32 or bf16, hd 64, 128 or 256, any S. Returns (B,H,S,hd) in q's
-    type, laid out like q. CPU tensors take the plain version."""
+    float32 or bf16, hd 64, 80, 128 or 256, any S. Returns (B,H,S,hd) in
+    q's type, laid out like q. CPU tensors take the plain version."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return _ref.ref_flash_attention(q, k, v, scale=scale, causal=causal,
                                         window=window, softcap=softcap)
@@ -165,11 +158,11 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     out = torch.empty_like(q)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _attn_fn("flash_attention", "flash_attention_forward",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_float]
-                       + [ctypes.c_void_p])(
+        err = _kernel_fn("flash_attention", "flash_attention_forward",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                         + [ctypes.c_longlong] * 12 + [ctypes.c_float]
+                         + [ctypes.c_int] * 2 + [ctypes.c_float]
+                         + [ctypes.c_void_p])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -197,8 +190,10 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
         return _ref.ref_decode_attention(q, k, v, slot_pos, pos, scale=scale,
                                          softcap=softcap, window=window)
     hd = q.shape[-1]
+    # one lane loads hd/32 elements of a head row at once; at hd 80, 4 (20
+    # of the warp's 32 lanes)
     device = _check_attn("decode_attention", (q, k, v),
-                         vec=max(1, hd // 32))
+                         vec=hd // 32 if hd % 32 == 0 else 4)
     b, h, _ = q.shape
     kheads, s = k.shape[1], k.shape[2]
     if k.shape != (b, kheads, s, hd) or v.shape != k.shape \
@@ -229,14 +224,13 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
     out = torch.empty((b, h, hd), dtype=q.dtype, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _attn_fn("decode_attention", "decode_attention_forward",
-                       [ctypes.c_void_p] * 5
-                       + [ctypes.c_longlong, ctypes.c_void_p,
-                          ctypes.c_longlong] + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 10 + [ctypes.c_float,
-                                                     ctypes.c_int,
-                                                     ctypes.c_float,
-                                                     ctypes.c_void_p])(
+        err = _kernel_fn("decode_attention", "decode_attention_forward",
+                         [ctypes.c_void_p] * 5
+                         + [ctypes.c_longlong, ctypes.c_void_p,
+                            ctypes.c_longlong] + [ctypes.c_int] * 7
+                         + [ctypes.c_longlong] * 10
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                            ctypes.c_void_p])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             slot_pos.data_ptr(), slot_stride, pos_ptr, pos_stride,
             pos_scalar, int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
@@ -248,3 +242,97 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
                            f"error {err}")
     _launches["decode_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunk
+# ---------------------------------------------------------------------------
+
+_SSD_HEAD_DIMS = (16, 32, 64)
+_SSD_MAX_SMEM = 232448          # bytes of shared memory a block may use
+
+
+def ssd_chunk(c, b, xdt, da, h_prev):
+    """One Mamba2 SSD chunk on the CUDA kernel ``csrc/ssd_chunk.cu`` (the
+    reference's ``kernels.ops.ssd_chunk``), float32 in and out, in either
+    of two layouts:
+
+    * the reference's, one slice per (batch * head): c, b (BH,L,N); xdt
+      (BH,L,P); da (BH,L,1); h_prev (BH,P,N) -> y (BH,L,P), h_new (BH,P,N);
+    * the model's, whose H heads of a batch row share one B/C group that
+      the kernel reads in place: c, b (B,L,N); xdt (B,L,H,P); da (B,L,H);
+      h_prev (B,H,P,N) -> y (B,L,H,P), h_new (B,H,P,N).
+
+    c, b and xdt may have any strides whose last axis is contiguous (rows
+    16-byte aligned), da any strides; h_prev must be contiguous. P is 16,
+    32 or 64 and N a multiple of 4. CPU tensors take the plain version."""
+    args = (c, b, xdt, da, h_prev)
+    heads_form = xdt.dim() == 4
+    if all(x.device.type == "cpu" for x in args):
+        plain = _ref.ref_ssd_chunk_heads if heads_form else _ref.ref_ssd_chunk
+        return plain(*args)
+
+    device = h_prev.device
+    if device.type != "cuda" or any(x.device != device for x in args):
+        raise ValueError("ssd_chunk kernel: all inputs must lie on one CUDA "
+                         f"device, got {[str(x.device) for x in args]}")
+    if any(x.dtype != torch.float32 for x in args):
+        raise TypeError("ssd_chunk kernel takes float32, got "
+                        f"{[x.dtype for x in args]}")
+    shapes = [tuple(x.shape) for x in args]
+    if heads_form:
+        bsz, l, heads, p = xdt.shape
+        n = c.shape[-1]
+        want = [(bsz, l, n), (bsz, l, n), (bsz, l, heads, p),
+                (bsz, l, heads), (bsz, heads, p, n)]
+        # (batch, head, position) strides
+        x_st = (xdt.stride(0), xdt.stride(2), xdt.stride(1))
+        da_st = (da.stride(0), da.stride(2), da.stride(1))
+        y = torch.empty((bsz, l, heads, p), dtype=torch.float32,
+                        device=device)
+        y_st = (y.stride(0), y.stride(2), y.stride(1))
+    else:
+        bsz, l, n = c.shape
+        heads, p = 1, xdt.shape[-1]
+        want = [(bsz, l, n), (bsz, l, n), (bsz, l, p), (bsz, l, 1),
+                (bsz, p, n)]
+        x_st = (xdt.stride(0), 0, xdt.stride(1))
+        da_st = (da.stride(0), 0, da.stride(1))
+        y = torch.empty((bsz, l, p), dtype=torch.float32, device=device)
+        y_st = (y.stride(0), 0, y.stride(1))
+    if shapes != want or l == 0:
+        raise ValueError(f"ssd_chunk kernel: shapes {shapes}, want {want} "
+                         "with L >= 1")
+    if p not in _SSD_HEAD_DIMS or n % 4:
+        raise ValueError(f"ssd_chunk kernel: head dim {p} not in "
+                         f"{_SSD_HEAD_DIMS} or state size {n} not a "
+                         "multiple of 4")
+    for x in (c, b, xdt):
+        if x.stride(-1) != 1 or any(st % 4 for st in x.stride()[:-1]) \
+                or x.data_ptr() % 16:
+            raise ValueError("ssd_chunk kernel: c, b and xdt need a "
+                             "contiguous last axis and rows aligned to 4 "
+                             f"elements, got strides {x.stride()}")
+    if not h_prev.is_contiguous():
+        raise ValueError("ssd_chunk kernel: h_prev must be contiguous")
+    # the kernel's smem_floats: prefix sums, the C and B tiles, the X tile,
+    # the weighted scores
+    smem = 4 * ((l + 3) // 4 * 4 + 128 * (n + 4) + 64 * (p + 4) + 64 * 68)
+    if smem > _SSD_MAX_SMEM:
+        raise ValueError(f"ssd_chunk kernel: L={l}, N={n} need {smem} bytes "
+                         f"of shared memory, more than {_SSD_MAX_SMEM}")
+
+    h_new = torch.empty_like(h_prev)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel_fn("ssd_chunk", "ssd_chunk_forward",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                         + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])(
+            c.data_ptr(), b.data_ptr(), xdt.data_ptr(), da.data_ptr(),
+            h_prev.data_ptr(), y.data_ptr(), h_new.data_ptr(),
+            bsz * heads, heads, l, n, p, c.stride(0), c.stride(1),
+            b.stride(0), b.stride(1), *x_st, *da_st, *y_st, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err}")
+    _launches["ssd_chunk"] += 1
+    return y, h_new

@@ -70,6 +70,71 @@ def ref_decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
     return o.reshape(b, h, hd).to(q.dtype)
 
 
+def ref_ssd_chunk(c, b, xdt, da, h_prev):
+    """One Mamba2 SSD chunk per (batch * head) slice. c, b: (BH,L,N); xdt:
+    (BH,L,P); da: (BH,L,1) (<= 0); h_prev: (BH,P,N). In float32, or in
+    float64 when xdt is float64 (the exact value ``ssd_tolerance`` takes).
+    Returns y (BH,L,P) in xdt's type and h_new (BH,P,N):
+        acs   = cumsum(da)
+        y     = ((C B^T) * exp(acs_l - acs_s) [s <= l]) X + (C h^T) exp(acs)
+        h_new = h exp(acs_L) + X^T (B exp(acs_L - acs))"""
+    dt = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    c, b, x, h = (t.to(dt) for t in (c, b, xdt, h_prev))
+    acs = torch.cumsum(da.to(dt)[..., 0], dim=-1)              # (BH, L)
+    seg = acs[:, :, None] - acs[:, None, :]
+    l = c.shape[1]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=c.device))
+    lmat = torch.where(mask, torch.exp(seg), 0.0)
+    scores = torch.einsum("gln,gsn->gls", c, b) * lmat
+    y = torch.einsum("gls,gsp->glp", scores, x)
+    y = y + torch.einsum("gln,gpn->glp", c, h) * torch.exp(acs)[..., None]
+    w = torch.exp(acs[:, -1:] - acs)                           # (BH, L)
+    h_new = h * torch.exp(acs[:, -1])[:, None, None] + \
+        torch.einsum("glp,gln,gl->gpn", x, b, w)
+    return y.to(xdt.dtype), h_new
+
+
+def ssd_tolerance(want, exact):
+    """rtol and atol that a float32 SSD chunk result is held to against
+    ``want``, another float32 evaluation (the plain version, or the
+    reference's), given ``exact``, the plain version in float64 on the same
+    inputs: the reference's 3e-5 (tests/test_kernels.py), its absolute part
+    widened by four times ``want``'s own float32 error. The decay
+    exp(acs_l - acs_s) is a difference of two cumulative sums and carries
+    the rounding of both, which grows with the chunk's length and |acs|,
+    and y_l sums up to L terms, so two float32 evaluations in different
+    orders differ by up to the sum of their errors; the factor lets the
+    other evaluation be up to three times as far from exact as ``want``
+    (the CUDA kernel's sums run sequentially over all L keys). The
+    reference's Pallas kernel and plain version agree within 3e-5 only
+    because both take XLA's cumsum and dot in the same order; up to 128
+    positions of its draws the float32 error is far below 3e-5, at 256 it
+    is not."""
+    err = float(abs(want - exact).max())
+    return dict(rtol=3e-5, atol=3e-5 + 4 * err)
+
+
+def ref_ssd_chunk_heads(c, b, xdt, da, h_prev):
+    """``ref_ssd_chunk`` in the model's layout, where the H heads of a batch
+    row share one B/C group: c, b (B,L,N); xdt (B,L,H,P); da (B,L,H);
+    h_prev (B,H,P,N). The group is repeated per head and the heads are
+    flattened into slices, as the reference's ``mamba_apply`` does before
+    it calls the kernel. Returns y (B,L,H,P) and h_new (B,H,P,N)."""
+    bsz, l, heads, p = xdt.shape
+    n = c.shape[-1]
+    rows = bsz * heads
+
+    def per_head(t):
+        return t[:, None].expand(bsz, heads, l, n).reshape(rows, l, n)
+
+    y, h_new = ref_ssd_chunk(per_head(c), per_head(b),
+                             xdt.transpose(1, 2).reshape(rows, l, p),
+                             da.transpose(1, 2).reshape(rows, l, 1),
+                             h_prev.reshape(rows, p, n))
+    return (y.reshape(bsz, heads, l, p).transpose(1, 2),
+            h_new.reshape(bsz, heads, p, n))
+
+
 def ref_vtrace_scan(deltas, dcs):
     """Reverse first-order recurrence acc_t = deltas_t + dcs_t * acc_{t+1},
     acc_T = 0, as a Python loop over T (deltas, dcs: (T, B))."""

@@ -19,10 +19,16 @@ with the same seed (tests/test_torch_serve.py).
 
 Runs on CUDA unless ``--device cpu`` is given; with ``--attn-impl kernel``
 every prefill runs the flash-attention kernel and every decode step the
-decode-attention kernel. Weights are initialised from seed 0:
+decode-attention kernel, and with ``--ssd-impl kernel`` every Mamba2
+prefill runs the SSD chunk kernel (Zamba2: prompts of at most
+``ssm_chunk`` tokens, 256 at full width, or a multiple of it, as in the
+reference). Weights are initialised from seed 0:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --attn-impl kernel --requests 24 --prompt-len 512 --gen-tokens 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --attn-impl kernel --ssd-impl kernel --requests 24 --prompt-len 256 \\
+      --gen-tokens 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --reduced --device cpu --requests 6 --gen-tokens 8
 """
@@ -273,8 +279,9 @@ def _parser():
                         "token (their plain versions on the CPU); the "
                         "others name plain PyTorch paths")
     p.add_argument("--ssd-impl", default=None, choices=["xla", "kernel"],
-                   help="Mamba2 chunk-scan impl for prefill (the Mamba2 "
-                        "archs are not ported yet)")
+                   help="Mamba2 chunk-scan impl for prefill: 'kernel' runs "
+                        "the SSD chunk kernel once per chunk (its plain "
+                        "version on the CPU), 'xla' the plain einsum path")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to run; cuda raises when there is no GPU")
     return p
@@ -325,6 +332,7 @@ def main(argv=None) -> dict:
             h.t_first - h.t_submit for h in handles),
         "prompt_echo_ok": ok, "device": str(device),
         "policy": args.policy, "attn_impl": cfg.attn_impl,
+        "ssd_impl": cfg.ssd_impl,
     }
     print(f"served {server.served} requests / {server.tokens_out} tokens "
           f"in {server.steps} decode steps ({dt:.2f}s, "

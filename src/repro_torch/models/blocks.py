@@ -1,23 +1,25 @@
 """Super-block composition: each architecture is ``num_groups`` repetitions
 of ``cfg.block_pattern`` (a tuple of (mixer, ffn) layer specs). One
 super-block's params form one ``Params`` node; ``model.py`` keeps one per
-group.
+group, and one more for the zamba-style shared block, whose pattern it
+passes as ``pattern``.
 
 Residual wiring: pre-norm (gemma2 adds sandwich post-norms). Ported
-mixers: the attention kinds ``attn``, ``local_attn`` and ``swa_attn``;
-ported FFNs: ``swiglu``, ``geglu``, ``gelu`` and ``none``. The others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+mixers: the attention kinds ``attn``, ``local_attn`` and ``swa_attn``, and
+``mamba`` (Mamba2); ported FFNs: ``swiglu``, ``geglu``, ``gelu`` and
+``none``. The others raise ``NotImplementedError`` naming the ROADMAP item
+that ports them. A layer's decode cache is {"k", "v"} for attention and
+{"conv", "ssm"} for Mamba2.
 """
 
 from __future__ import annotations
 
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mamba, mlp
 from repro_torch.models.common import Params, make_norm
 
 # xattn raises in models/attention.py
 _NOT_PORTED = {
     "moe": "ROADMAP item 16",
-    "mamba": "ROADMAP item 17",
     "mlstm": "ROADMAP item 17",
     "slstm": "ROADMAP item 17",
 }
@@ -32,15 +34,17 @@ def check_ported(pattern):
                     f"{kind} is not ported yet: {_NOT_PORTED[kind]}")
 
 
-def block_init(cfg, *, generator, device=None):
+def block_init(cfg, *, generator, device=None, pattern=None):
     """Params for one super-block."""
-    check_ported(cfg.block_pattern)
+    pattern = pattern if pattern is not None else cfg.block_pattern
+    check_ported(pattern)
     norm_init, _ = make_norm(cfg)
     kw = dict(generator=generator, device=device)
     layers = {}
-    for idx, (mixer, ffn) in enumerate(cfg.block_pattern):
+    for idx, (mixer, ffn) in enumerate(pattern):
         layer = {"pre_norm": norm_init(cfg.d_model, device=device),
-                 "mixer": attention.attn_init(cfg, mixer, **kw)}
+                 "mixer": (mamba.mamba_init(cfg, **kw) if mixer == "mamba"
+                           else attention.attn_init(cfg, mixer, **kw))}
         if cfg.sandwich_norm:
             layer["post_norm"] = norm_init(cfg.d_model, device=device)
         if ffn != "none":
@@ -60,21 +64,29 @@ def _apply_ffn(layer, x, cfg, ffn, norm_fn):
     return x + h
 
 
-def block_apply(params, x, *, cfg, positions, impl=None, build_cache=False,
-                seq_len=None, dtype=None):
+def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
+                build_cache=False, seq_len=None, dtype=None):
     """Full-sequence super-block. Returns (x, cache|None); with
-    ``build_cache`` (prefill) the cache holds this block's decode caches."""
+    ``build_cache`` (prefill) the cache holds this block's decode caches.
+    ``impl`` is the attention impl; Mamba2 reads ``cfg.ssd_impl``."""
+    pattern = pattern if pattern is not None else cfg.block_pattern
     _, norm_fn = make_norm(cfg)
     cache = {} if build_cache else None
-    for idx, (mixer, ffn) in enumerate(cfg.block_pattern):
+    for idx, (mixer, ffn) in enumerate(pattern):
         layer = params[f"l{idx}"]
-        h, kv = attention.attn_apply(layer["mixer"],
-                                     norm_fn(layer["pre_norm"], x), cfg=cfg,
-                                     kind=mixer, positions=positions,
-                                     impl=impl)
+        h = norm_fn(layer["pre_norm"], x)
+        if mixer == "mamba":
+            h, lcache = mamba.mamba_apply(layer["mixer"], h, cfg,
+                                          return_state=build_cache)
+        else:
+            h, kv = attention.attn_apply(layer["mixer"], h, cfg=cfg,
+                                         kind=mixer, positions=positions,
+                                         impl=impl)
+            if build_cache:
+                lcache = attention.attn_prefill_cache(cfg, mixer, kv,
+                                                      seq_len, dtype)
         if build_cache:
-            cache[f"l{idx}"] = attention.attn_prefill_cache(
-                cfg, mixer, kv, seq_len, dtype)
+            cache[f"l{idx}"] = lcache
         if cfg.sandwich_norm:
             h = norm_fn(layer["post_norm"], h)
         x = x + h
@@ -83,16 +95,21 @@ def block_apply(params, x, *, cfg, positions, impl=None, build_cache=False,
     return x, cache
 
 
-def block_decode(params, x, cache, *, cfg, pos, impl=None):
+def block_decode(params, x, cache, *, cfg, pos, pattern=None, impl=None):
     """One-token decode through a super-block; each layer's cache is
     written in place. Returns (x, cache)."""
+    pattern = pattern if pattern is not None else cfg.block_pattern
     _, norm_fn = make_norm(cfg)
-    for idx, (mixer, ffn) in enumerate(cfg.block_pattern):
+    for idx, (mixer, ffn) in enumerate(pattern):
         layer = params[f"l{idx}"]
-        h, _ = attention.attn_decode(layer["mixer"],
-                                     norm_fn(layer["pre_norm"], x),
-                                     cache[f"l{idx}"], cfg=cfg, kind=mixer,
-                                     pos=pos, impl=impl)
+        h = norm_fn(layer["pre_norm"], x)
+        if mixer == "mamba":
+            h, _ = mamba.mamba_decode(layer["mixer"], h, cache[f"l{idx}"],
+                                      cfg)
+        else:
+            h, _ = attention.attn_decode(layer["mixer"], h, cache[f"l{idx}"],
+                                         cfg=cfg, kind=mixer, pos=pos,
+                                         impl=impl)
         if cfg.sandwich_norm:
             h = norm_fn(layer["post_norm"], h)
         x = x + h
@@ -101,9 +118,14 @@ def block_decode(params, x, cache, *, cfg, pos, impl=None):
     return x, cache
 
 
-def block_cache_init(cfg, batch, seq_len, dtype, device=None):
+def block_cache_init(cfg, batch, seq_len, dtype, device=None, pattern=None):
     """Zero decode cache for one super-block."""
-    check_ported(cfg.block_pattern)
-    return {f"l{idx}": attention.attn_cache_init(cfg, mixer, batch, seq_len,
-                                                 dtype, device=device)
-            for idx, (mixer, _) in enumerate(cfg.block_pattern)}
+    pattern = pattern if pattern is not None else cfg.block_pattern
+    check_ported(pattern)
+    return {f"l{idx}": (mamba.mamba_cache_init(cfg, batch, dtype,
+                                               device=device)
+                        if mixer == "mamba"
+                        else attention.attn_cache_init(cfg, mixer, batch,
+                                                       seq_len, dtype,
+                                                       device=device))
+            for idx, (mixer, _) in enumerate(pattern)}

@@ -128,5 +128,15 @@ def softcap(x, cap):
     return cap * torch.tanh(x / cap)
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a tree of nested dicts (a decode cache),
+    with the matching leaves of ``rest`` as further arguments; returns the
+    tree of results."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)

@@ -1,19 +1,25 @@
-"""Top-level decoder: embed -> ``num_groups`` super-blocks -> final norm ->
+"""Top-level decoder: embed -> ``num_groups`` super-blocks (each followed,
+in the Zamba2 hybrids, by the shared attention block) -> final norm ->
 heads (LM logits over the vocabulary = policy logits; a scalar baseline
 for IMPALA).
 
 ``init`` returns the parameter tree as a :class:`Params` module: the
 reference stacks every block leaf on a leading ``num_groups`` axis for
 ``lax.scan``; here ``params["blocks"]`` is a list of one node per group
-(``convert.py`` unstacks and restacks). The apply functions take that tree.
-The zamba-style shared block (``shared_attn_every``) is not ported yet; it
-only serves the Mamba2 archs (ROADMAP item 17).
+(``convert.py`` unstacks and restacks). With ``shared_attn_every`` the
+zamba-style shared block ``params["shared"]`` (pattern ``SHARED_PATTERN``,
+one attention layer and one SwiGLU FFN) runs after every group with the
+same weights. The apply functions take that tree.
 
-The decode cache mirrors the reference's: ``{"block": {"l<i>": {"k", "v"}}}``
-with leaves (num_groups, B, cap, K, hd). ``decode_step`` writes each
-layer's new k and v into it in place, group by group, which is what the
-reference's ``unroll=True`` serve path makes XLA do with the donated cache
-buffer; no second copy of the cache is ever made.
+The decode cache mirrors the reference's: ``{"block": {"l<i>": leaves}}``,
+plus ``"shared": {"l0": {"k", "v"}}`` for the hybrids, every leaf stacked
+on a leading num_groups axis. An attention layer's leaves are k and v
+(G, B, cap, K, hd); a Mamba2 layer's are conv (G, B, W-1, C), the last
+inputs of its depthwise convolution, and ssm (G, B, H, P, N) in float32.
+``decode_step`` writes each layer's new entries into it in place, group by
+group, which is what the reference's ``unroll=True`` serve path makes XLA
+do with the donated cache buffer; no second copy of the cache is ever
+made.
 """
 
 from __future__ import annotations
@@ -23,17 +29,15 @@ from torch import nn
 
 from repro_torch.models import blocks
 from repro_torch.models.common import (Params, dtype_of, make_norm, param,
-                                       sinusoidal_pos_emb, softcap)
+                                       sinusoidal_pos_emb, softcap, tree_map)
+
+SHARED_PATTERN = (("attn", "swiglu"),)  # zamba-style shared global block
 
 
 def init(cfg, *, seed=0, device=None):
     """A freshly initialised parameter tree for ``cfg`` on ``device``,
     drawn from a ``torch.Generator`` seeded with ``seed``."""
     blocks.check_ported(cfg.block_pattern)
-    if cfg.shared_attn_every:
-        raise NotImplementedError("the shared attention block of the "
-                                  "Mamba2 hybrids is not ported yet: "
-                                  "ROADMAP item 17")
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=gen, device=device)
     norm_init, _ = make_norm(cfg)
@@ -48,6 +52,8 @@ def init(cfg, *, seed=0, device=None):
     }
     if not cfg.tie_embeddings:
         p["unembed"] = param((cfg.d_model, cfg.vocab_size), **kw)
+    if cfg.shared_attn_every:
+        p["shared"] = blocks.block_init(cfg, pattern=SHARED_PATTERN, **kw)
     if cfg.baseline_head:
         p["baseline"] = param((cfg.d_model,), scale=cfg.d_model ** -0.5,
                               **kw)
@@ -97,32 +103,34 @@ def forward(params, tokens, *, cfg, impl=None, build_cache=False,
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     x = _embed(params, cfg, tokens, positions)
-    dtype = x.dtype
+    kw = dict(cfg=cfg, positions=positions, impl=impl,
+              build_cache=build_cache, seq_len=cache_seq_len, dtype=x.dtype)
     caches = []
     for block_params in params["blocks"]:
-        x, cache = blocks.block_apply(
-            block_params, x, cfg=cfg, positions=positions, impl=impl,
-            build_cache=build_cache, seq_len=cache_seq_len, dtype=dtype)
+        x, cache = blocks.block_apply(block_params, x, **kw)
+        cache = {"block": cache}
+        if cfg.shared_attn_every:
+            x, cache["shared"] = blocks.block_apply(
+                params["shared"], x, pattern=SHARED_PATTERN, **kw)
         caches.append(cache)
     _, norm_fn = make_norm(cfg)
     x = norm_fn(params["final_norm"], x)
     if not build_cache:
         return x, None
-    return x, {"block": {
-        name: {leaf: torch.stack([c[name][leaf] for c in caches])
-               for leaf in caches[0][name]}
-        for name in caches[0]}}
+    return x, tree_map(lambda *leaves: torch.stack(leaves), *caches)
 
 
 def cache_init(cfg, batch, seq_len, device=None):
-    """Zero decode cache matching ``prefill``'s: leaves (G, B, cap, ...)."""
-    one = blocks.block_cache_init(cfg, batch, seq_len, dtype_of(cfg),
-                                  device=device)
-    return {"block": {
-        name: {leaf: torch.zeros((cfg.num_groups,) + a.shape, dtype=a.dtype,
-                                 device=a.device)
-               for leaf, a in layer.items()}
-        for name, layer in one.items()}}
+    """Zero decode cache matching ``prefill``'s: leaves (G, B, ...)."""
+    dtype = dtype_of(cfg)
+    one = {"block": blocks.block_cache_init(cfg, batch, seq_len, dtype,
+                                            device=device)}
+    if cfg.shared_attn_every:
+        one["shared"] = blocks.block_cache_init(
+            cfg, batch, seq_len, dtype, device=device, pattern=SHARED_PATTERN)
+    return tree_map(lambda a: torch.zeros((cfg.num_groups,) + a.shape,
+                                          dtype=a.dtype, device=a.device),
+                    one)
 
 
 def prefill(params, tokens, *, cfg, impl=None, cache_seq_len):
@@ -139,10 +147,14 @@ def decode_step(params, tokens, cache, pos, *, cfg, impl=None):
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     x = _embed(params, cfg, tokens, pos[:, None] if pos.dim() else pos[None])
     for g, block_params in enumerate(params["blocks"]):
-        group_cache = {name: {leaf: a[g] for leaf, a in layer.items()}
-                       for name, layer in cache["block"].items()}
-        x, _ = blocks.block_decode(block_params, x, group_cache, cfg=cfg,
-                                   pos=pos, impl=impl)
+        group_cache = tree_map(lambda a: a[g], cache)
+        x, _ = blocks.block_decode(block_params, x, group_cache["block"],
+                                   cfg=cfg, pos=pos, impl=impl)
+        if cfg.shared_attn_every:
+            x, _ = blocks.block_decode(params["shared"], x,
+                                       group_cache["shared"], cfg=cfg,
+                                       pos=pos, pattern=SHARED_PATTERN,
+                                       impl=impl)
     _, norm_fn = make_norm(cfg)
     return norm_fn(params["final_norm"], x), cache
 

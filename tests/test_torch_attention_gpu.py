@@ -90,7 +90,7 @@ def test_decode_kernel_matches_plain_and_jax(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 @pytest.mark.parametrize("s", [1, 63, 65, 200])
 def test_kernels_read_strided_model_layouts(cuda_device, hd, s):
     """Both kernels take the model's layouts as transposed views, with no
@@ -112,6 +112,33 @@ def test_kernels_read_strided_model_layouts(cuda_device, hd, s):
     torch.testing.assert_close(
         got, tref.ref_decode_attention(q[:, -1], *args[1:], slot, pos),
         **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_80_without_gqa(cuda_device, dtype):
+    """Zamba2's shared block: head_dim 80, as many KV heads as query heads
+    (one query row per decode block), a ragged prompt, per-row pos."""
+    gen = torch.Generator(device=cuda_device).manual_seed(80)
+    q, k, v = (torch.randn((2, 8, 70, 80), generator=gen, device=cuda_device)
+               .to(dtype) for _ in range(3))
+    got = tops.flash_attention(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, tref.ref_flash_attention(q, k, v),
+                                   **TOL)
+    else:
+        _assert_bf16_close(got, q, k, v, tref.ref_flash_attention)
+    pos = torch.tensor([69, 30], dtype=torch.int32, device=cuda_device)
+    slot = torch.arange(70, dtype=torch.int32, device=cuda_device)
+    got = tops.decode_attention(q[:, :, -1], k, v, slot, pos)
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            got, tref.ref_decode_attention(q[:, :, -1], k, v, slot, pos),
+            **TOL)
+    else:
+        _assert_bf16_close(
+            got, q[:, :, -1], k, v,
+            lambda q, k, v: tref.ref_decode_attention(q, k, v, slot, pos))
 
 
 @pytest.mark.gpu

@@ -1,8 +1,10 @@
 """The port's decoder against the JAX reference: configs field for field,
 the LM parameter converter, whole-model forward, prefill + decode, logits
-and baseline for the reduced ``qwen3-4b`` and ``gemma2-27b`` (window, both
-softcaps, sandwich norms, GeGLU), the same in bf16, and teacher forcing of
-JAX ``generate``'s token stream through the port."""
+and baseline for the reduced ``qwen3-4b``, ``gemma2-27b`` (window, both
+softcaps, sandwich norms, GeGLU) and ``zamba2-2.7b`` (Mamba2 layers and the
+shared attention block, also at the published head_dim 80), the same in
+bf16, and teacher forcing of JAX ``generate``'s token stream through the
+port."""
 
 import dataclasses
 
@@ -27,7 +29,11 @@ from repro_torch.models import model as tmodel
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_attn_impl.py's float32 bar
-ARCHS = ["qwen3-4b", "gemma2-27b"]
+ARCHS = ["qwen3-4b", "gemma2-27b", "zamba2-2.7b"]
+# Mamba2 takes sequences of at most one chunk (16 tokens reduced) or a
+# multiple of it, as in the reference: zamba2's lengths are multiples
+FORWARD_LEN = {"zamba2-2.7b": 48}
+PREFILL_LEN = {"zamba2-2.7b": 32}
 
 
 def _setup(arch, **over):
@@ -41,6 +47,21 @@ def _setup(arch, **over):
 
 def _tokens(cfg, shape, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def _leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict, in key order."""
+    for key, child in tree.items():
+        if isinstance(child, dict):
+            yield from _leaves(child, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", child
+
+
+def _at(tree, path):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -78,10 +99,16 @@ def test_converter_round_trip(arch):
     layouts and the group axis is unstacked."""
     _, tcfg, jparams, tparams = _setup(arch)
     sd = tparams.state_dict()
-    assert tuple(sd["blocks.0.l0.mixer.wq"].shape) == (
+    attn = "shared.l0" if tcfg.shared_attn_every else "blocks.0.l0"
+    assert tuple(sd[f"{attn}.mixer.wq"].shape) == (
         tcfg.d_model, tcfg.num_heads, tcfg.resolved_head_dim)
-    assert tuple(sd["blocks.0.l0.mixer.wo"].shape) == (
+    assert tuple(sd[f"{attn}.mixer.wo"].shape) == (
         tcfg.num_heads, tcfg.resolved_head_dim, tcfg.d_model)
+    if tcfg.is_recurrent:
+        # Mamba2 leaves keep the reference's layouts: conv_w (W, C)
+        assert tuple(sd["blocks.0.l0.mixer.conv_w"].shape) == (
+            tcfg.ssm_conv_width,
+            tcfg.ssm_expand * tcfg.d_model + 2 * tcfg.ssm_state)
     back = lm_state_dict_to_jax(sd)
     flat_want = jax.tree_util.tree_leaves_with_path(jparams)
     flat_got = jax.tree_util.tree_leaves_with_path(back)
@@ -92,7 +119,7 @@ def test_converter_round_trip(arch):
 
 def test_unported_mixers_raise_naming_the_roadmap_item():
     for arch, item in [("granite-moe-1b-a400m", "item 16"),
-                       ("zamba2-2.7b", "item 17"), ("xlstm-125m", "item 17"),
+                       ("xlstm-125m", "item 17"),
                        ("llama-3.2-vision-90b", "item 16")]:
         with pytest.raises(NotImplementedError, match=item):
             tmodel.init(tconfigs.get_reduced_config(arch))
@@ -105,8 +132,9 @@ def test_unported_mixers_raise_naming_the_roadmap_item():
 @pytest.mark.parametrize("impl", ["xla", "kernel"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_baseline_match_jax(arch, impl):
-    jcfg, tcfg, jparams, tparams = _setup(arch)
-    tokens = _tokens(tcfg, (2, 40))
+    """``impl`` picks both the attention and the Mamba2 SSD path."""
+    jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl)
+    tokens = _tokens(tcfg, (2, FORWARD_LEN.get(arch, 40)))
     want_l, want_b, _ = jmodel.apply_lm(jparams, jnp.asarray(tokens),
                                         cfg=jcfg, impl=impl)
     with torch.no_grad():
@@ -120,21 +148,23 @@ def test_forward_logits_baseline_match_jax(arch, impl):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_match_jax(arch, impl):
     """A 36-token prefill (past gemma2's 32-token window: the ring is
-    rolled) builds the reference's caches, and 8 decode steps at per-row
-    positions (wrapping the ring) track its logits and baseline."""
-    jcfg, tcfg, jparams, tparams = _setup(arch)
-    p, n = 36, 8
+    rolled; zamba2: two 16-token chunks, the state carried through the SSD
+    chunk) builds the reference's caches, every subtree and leaf of them,
+    and 8 decode steps at per-row positions (wrapping the ring) track its
+    logits and baseline."""
+    jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl)
+    p, n = PREFILL_LEN.get(arch, 36), 8
     tokens = _tokens(tcfg, (2, p + n), seed=2)
     _, _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens[:, :p]),
                                   cfg=jcfg, impl=impl, cache_seq_len=p + n)
     with torch.no_grad():
         _, tcache = tmodel.prefill(tparams, torch.from_numpy(tokens[:, :p]),
                                    cfg=tcfg, impl=impl, cache_seq_len=p + n)
-    for name, layer in tcache["block"].items():
-        for leaf, got in layer.items():
-            np.testing.assert_allclose(
-                got.numpy(), jcache["block"][name][leaf], **TOL,
-                err_msg=f"{name}/{leaf}")
+    paths = [path for path, _ in _leaves(tcache)]
+    assert paths == [path for path, _ in _leaves(jcache)]
+    for path, got in _leaves(tcache):
+        np.testing.assert_allclose(got.numpy(), _at(jcache, path), **TOL,
+                                   err_msg=path)
     for t in range(p, p + n):
         pos = np.full((2,), t, np.int32)
         want_l, want_b, jcache = jmodel.serve_step(
@@ -146,6 +176,40 @@ def test_prefill_then_decode_match_jax(arch, impl):
                 torch.from_numpy(pos), cfg=tcfg, impl=impl)
         np.testing.assert_allclose(got_l.numpy(), want_l, **TOL)
         np.testing.assert_allclose(got_b.numpy(), want_b, **TOL)
+
+
+def test_zamba2_head_dim_80_matches_jax():
+    """The published shared-block head_dim (80) on the reduced hybrid, in
+    float32 through both kernels' plain versions: forward logits, then a
+    16-token prefill and 4 decode steps."""
+    jcfg, tcfg, jparams, tparams = _setup("zamba2-2.7b", head_dim=80,
+                                          attn_impl="kernel",
+                                          ssd_impl="kernel")
+    assert tparams["shared"]["l0"]["mixer"]["wq"].shape[-1] == 80
+    p, n = 16, 4
+    tokens = _tokens(tcfg, (2, p + n), seed=5)
+    want_l, want_b, _ = jmodel.apply_lm(jparams, jnp.asarray(tokens[:, :p]),
+                                        cfg=jcfg)
+    with torch.no_grad():
+        got_l, got_b = tmodel.apply_lm(tparams,
+                                       torch.from_numpy(tokens[:, :p]),
+                                       cfg=tcfg)
+    np.testing.assert_allclose(got_l.numpy(), want_l, **TOL)
+    np.testing.assert_allclose(got_b.numpy(), want_b, **TOL)
+    _, _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens[:, :p]),
+                                  cfg=jcfg, cache_seq_len=p + n)
+    with torch.no_grad():
+        _, tcache = tmodel.prefill(tparams, torch.from_numpy(tokens[:, :p]),
+                                   cfg=tcfg, cache_seq_len=p + n)
+    for t in range(p, p + n):
+        want_l, _, jcache = jmodel.serve_step(
+            jparams, jnp.asarray(tokens[:, t:t + 1]), jcache, jnp.int32(t),
+            cfg=jcfg, unroll=True)
+        with torch.no_grad():
+            got_l, _, tcache = tmodel.serve_step(
+                tparams, torch.from_numpy(tokens[:, t:t + 1]), tcache, t,
+                cfg=tcfg)
+        np.testing.assert_allclose(got_l.numpy(), want_l, **TOL)
 
 
 # bf16 activations: both packages round to bf16 at the same ops

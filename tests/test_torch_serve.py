@@ -6,7 +6,9 @@ file is bitwise —
   * a recycled slot leaks no KV, position or generator state,
   * per-request max_tokens / temperature / stop_token are honoured,
 and batched admission, the server's thread and failure handling, and the
-serve CLI on the CPU."""
+serve CLI on the CPU; for the reduced Zamba2 hybrid too (Mamba2 conv and
+ssm state in the slot's cache row, the shared block's KV), whose session
+is also held against the JAX ``DecodeSession`` by teacher forcing."""
 
 import dataclasses
 
@@ -29,7 +31,8 @@ P, N = 4, 8   # prompt length (on the bucket ladder), generation budget
 SEED = 7
 
 
-@pytest.fixture(scope="module", params=["qwen3-4b", "gemma2-27b"])
+@pytest.fixture(scope="module",
+                params=["qwen3-4b", "gemma2-27b", "zamba2-2.7b"])
 def setup(request):
     cfg = get_reduced_config(request.param)
     params = model_lib.init(cfg, seed=0)
@@ -265,21 +268,87 @@ def test_failed_prefill_fails_only_its_request(monkeypatch):
         server.submit([1], seed=0)
 
 
-def test_serve_cli_on_cpu(capsys):
+@pytest.mark.parametrize("argv", [
+    ["--arch", "qwen3-4b", "--prompt-len", "12", "--gen-tokens", "5",
+     "--max-batch", "4"],
+    ["--arch", "zamba2-2.7b", "--ssd-impl", "kernel", "--prompt-len", "16",
+     "--gen-tokens", "8"]], ids=["qwen3-4b", "zamba2-2.7b"])
+def test_serve_cli_on_cpu(capsys, argv):
     """``--device cpu --reduced``: every request served, prompts echoed,
-    each admission one flash-attention call per layer and each decode step
-    one decode-attention call per layer — counted nowhere on the CPU,
-    where the wrappers run the plain versions."""
+    each admission one flash-attention call per layer (and one SSD chunk
+    call per Mamba2 layer) and each decode step one decode-attention call
+    per layer — counted nowhere on the CPU, where the wrappers run the
+    plain versions."""
     before = kops.stats()
-    summary = serve.main(["--arch", "qwen3-4b", "--reduced", "--device",
-                          "cpu", "--attn-impl", "kernel", "--requests", "6",
-                          "--prompt-len", "12", "--gen-tokens", "5",
-                          "--max-batch", "4"])
+    summary = serve.main(argv + ["--reduced", "--device", "cpu",
+                                 "--attn-impl", "kernel", "--requests", "6"])
     assert summary["served"] == 6 and summary["prompt_echo_ok"]
     assert summary["admissions"] == 6 and summary["steps"] > 0
     assert summary["tokens"] >= 6 and summary["tokens_per_s"] > 0
     assert kops.stats() == before
     assert "prompt-echo check: OK" in capsys.readouterr().out
+
+
+def test_zamba2_session_teacher_forced_matches_jax(monkeypatch):
+    """The port's DecodeSession against the reference's on the reduced
+    Zamba2 hybrid, float32: two slots admitted with prompts of at most one
+    Mamba2 chunk, decoded, one evicted and refilled mid-run. The samplers
+    draw differently from a seed, so the port's draw is replaced by the
+    token the reference sampled at the same call; every slot's logprob,
+    entropy and baseline must then agree within 1e-4, as in
+    tests/test_torch_model.py's teacher forcing."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.core import generate as jgen
+    from repro.models import model as jmodel
+    from repro_torch.convert import lm_state_dict_from_jax
+
+    jcfg = jconfigs.get_reduced_config("zamba2-2.7b")
+    cfg = get_reduced_config("zamba2-2.7b")
+    jparams, _ = jmodel.init(jax.random.PRNGKey(0), jcfg)
+    params = model_lib.init(cfg, seed=0)
+    params.load_state_dict(lm_state_dict_from_jax(jparams), strict=True)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (7, 16, 3)]
+    keys = [jax.random.PRNGKey(i) for i in range(3)]
+
+    def schedule(admit, step, evict):
+        """The same calls on either session; returns its outputs."""
+        outs = [admit(0, prompts[0], 0), admit(1, prompts[1], 1)]
+        outs += [step() for _ in range(5)]
+        evict(0)
+        outs.append(admit(0, prompts[2], 2))
+        outs += [step() for _ in range(4)]
+        return outs
+
+    jsess = jgen.DecodeSession(jparams, jcfg, max_batch=2, max_len=32)
+    want = schedule(
+        lambda slot, p, i: dict(jsess.prefill_into(slot, p, key=keys[i],
+                                                   temperature=0.8),
+                                slot=slot),
+        jsess.step, jsess.evict)
+
+    forced = iter(w["token"] for w in want)
+
+    def teacher(logits, temp, gens, active):
+        tok = torch.as_tensor(np.array(next(forced)),
+                              dtype=torch.int64).reshape(-1)
+        lp, ent = G.logprob_entropy(logits / temp[:, None], tok)
+        return tok, lp, ent
+
+    monkeypatch.setattr(G, "_sample", teacher)
+    sess = G.DecodeSession(params, cfg, max_batch=2, max_len=32)
+    got = schedule(
+        lambda slot, p, i: dict(sess.prefill_into(slot, p, seed=i,
+                                                  temperature=0.8),
+                                slot=slot),
+        sess.step, sess.evict)
+    for n, (g, w) in enumerate(zip(got, want)):
+        for key in ("logprob", "entropy", "baseline"):
+            np.testing.assert_allclose(g[key], w[key], rtol=1e-4, atol=1e-4,
+                                       err_msg=f"call {n} {key}")
 
 
 def test_serve_cli_cuda_without_gpu_raises():
