@@ -61,4 +61,44 @@ __device__ __forceinline__ float apply_softcap(float s, float softcap) {
   return softcap > 0.0f ? softcap * tanhf(s / softcap) : s;
 }
 
+// 16 bytes from global src to shared dst without passing through
+// registers (cp.async, cached in L2 only). With full false nothing is read
+// and dst is zero-filled, so a ragged or invalid row costs no fetch.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Lets kernel take `bytes` of dynamic shared memory on the current device:
+// above 48 KB a kernel must opt in, once per device. `done` holds one bit
+// per device and belongs to the caller's kernel instantiation.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t bytes,
+                        unsigned long long& done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (done >> device & 1ull) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) done |= 1ull << device;
+  return err;
+}
+
 }  // namespace attn

@@ -10,33 +10,53 @@
 // pos[b] - slot_pos[b,t] < window); slot_pos is (S,) or (B,S) and pos a
 // scalar or (B,), as the reference broadcasts them. The mask is the
 // reference's NEG_INF = -2e38, the softcap comes before it, and l is
-// clamped to 1e-30 before dividing.
+// clamped to 1e-30 before dividing. A row with no valid slot at all gets
+// what the reference's softmax over S equal logits gives: the mean of V.
 //
-// Design. One block of 8 warps owns one (batch row, KV head) and up to 4
-// of the G query heads that share it (G > 4 takes more blocks along z), so
-// each cache row is read once for all of them, as the TPU kernel's
-// (group, hd) query tile did. Each warp walks its own slots, 4 at a time;
-// its 32 lanes split head_dim, so a slot's K and V rows are read as one
-// coalesced 256-byte (bf16, hd 128) load per warp, and the query rows sit
-// in registers. Each warp keeps a float32 online softmax (m, l, acc) per
-// query head; at the end the 8 partial states are merged through shared
-// memory. The cache is read in the model's own (B, cap, K, hd) layout
-// through strides: the JAX wrapper copied it to (B, K, cap, hd) at every
-// call, this kernel needs no copy. At head_dim 80 (Zamba2's shared block,
-// whose 32 query heads have 32 KV heads, so a block holds one query row)
-// the first 20 lanes load 4 elements each and the other 12 hold zeros.
+// Bound. Decode attention reads the live cache once per token and does 4
+// FLOPs per cached element and query head, about G = 4 FLOPs per byte at
+// Qwen3-4B's shape, far below the ~295 at which bf16 tensor cores would
+// matter: bytes bound it, and it stays on the CUDA cores. At the serving
+// shape (B 8, cap 576, K 8, hd 128, bf16, rows at their own positions) the
+// K and V rows of the valid slots, with q, o, slot_pos and pos, are 13.5
+// MB: 4.04 us at 3.35 TB/s. The design is about bytes in flight.
 //
-// Bound. Decode attention reads the whole live cache once per token and
-// does 4 FLOPs per cached element and query head: at the serving shape
-// (B 8, cap 576, K 8, hd 128, bf16) that is 18.9 MB and 19 MFLOP per
-// layer, so bytes bound it (5.6 us at 3.35 TB/s). The grid is only B * K
-// = 64 blocks, fewer than the 132 SMs, with 8 rows in flight per warp; a
-// split over cache blocks with a combine pass, which fills the card, is
-// later work.
+// Design. The grid is (K, B, splits x ceil(G/4)): a block owns one (batch
+// row, KV head), up to 4 of the G query heads that share it, so each cache
+// row is read once for all of them, as the TPU kernel's (group, hd) query
+// tile did, and one contiguous range of slots. The wrapper picks splits
+// (ops.decode_splits): ranges of a multiple of 32 slots, no empty split,
+// and at least two blocks per SM (264) where S allows: 6 ranges of 96
+// slots at the serving shape (384 blocks, where one range per block gave
+// 64 on 132 SMs). A block first reads its range's slot_pos; a range with
+// no valid slot loads nothing and leaves an empty state (m = NEG_INF, l =
+// 0). Otherwise its K and V go through a ring of three stages of 32 slots
+// (16 in float32) in shared memory, loaded by all threads with 16-byte
+// cp.async, so two tiles (32 KB at hd 128 bf16) are in flight while the
+// block computes on the third; slots that are invalid or past the range
+// are zero-filled, not fetched. The four warps take 4 slots of a tile at
+// a time; a warp's 32 lanes split head_dim (at hd 80, 4 elements in each
+// of the first 20 lanes) with the query rows in registers, sum the 16
+// dot products of 4 slots and 4 rows across the warp in one exchange of
+// 16 shuffles (where 16 separate sums took 80), and keep a float32 online
+// softmax (m, l, acc) per query head, in log2 units, in which an invalid
+// slot has p = 0. With G = 1 (Zamba2's shared block) a block holds one
+// query row, not four of which three are empty. The warps' states merge
+// through shared memory.
+// With one split the block writes o. With more, it writes its partial (m,
+// l, acc) in float32 to a workspace the wrapper allocates (B H splits (hd
+// + 2) floats: 0.4 MB at the serving shape, written and read once), and a
+// second kernel, launched from the same C entry point on the same stream,
+// merges the splits per (b, h) as the in-block merge does. A second launch
+// costs a few us of host time, where a last-block semaphore would need a
+// counter that persists between calls, unsafe under CUDA-graph capture and
+// concurrent streams. The cache is read in the model's own (B, cap, K, hd)
+// layout through strides: the JAX wrapper copied it to (B, K, cap, hd) at
+// every call, this kernel needs no copy.
 //
 // Interface: plain C, loaded with ctypes. Pointers are device pointers on
 // the caller's stream; strides are in elements. Returns cudaGetLastError()
-// so that a refused launch reaches the caller.
+// after each launch so that a refused launch reaches the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,10 +67,26 @@ namespace {
 
 using attn::kNegInf;
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 4;    // query heads of one KV head per block
-constexpr int kUnroll = 4;  // cache slots per warp step
+constexpr int kMaxRows = 4;  // query heads of one KV head per block
+constexpr int kUnroll = 4;   // cache slots per warp step
+constexpr int kStages = 3;   // ring of K and V tiles
+constexpr int kCombineThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// slots per ring tile: 8 KB of K (and of V) at hd 128
+template <typename T>
+constexpr int kTileSlots = sizeof(T) == 2 ? 32 : 16;
+
+template <typename T, int HD>
+constexpr size_t smem_bytes() {
+  // the ring, reused after the loop for the warps' accumulators
+  constexpr int E = HD % 32 == 0 ? HD / 32 : 4;
+  constexpr size_t ring = 2 * kStages * kTileSlots<T> * HD * sizeof(T);
+  constexpr size_t merge = kWarps * kMaxRows * 32 * E * sizeof(float);
+  return ring > merge ? ring : merge;
+}
 
 struct Args {
   const int* slot_pos;
@@ -58,13 +94,76 @@ struct Args {
   const int* pos;           // null: pos_scalar for every batch row
   long long pos_stride_b;   // 0: one position for every batch row
   int pos_scalar;
-  int S, group;
+  int S, H, group;
+  int splits, range;  // slot ranges per (b, KV head) and slots per range
+  float* ws;          // splits > 1: (B, H, splits) (m, l), then acc
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale, softcap;
   int window;
 };
 
-template <typename T, int HD>
+__device__ __forceinline__ int row_position(const Args& a, int b) {
+  return a.pos ? a.pos[b * a.pos_stride_b] : a.pos_scalar;
+}
+
+__device__ __forceinline__ bool slot_valid(const Args& a, const int* sp,
+                                           int t, int row_pos) {
+  const int p = sp[t];
+  return p >= 0 && p <= row_pos && (a.window <= 0 || row_pos - p < a.window);
+}
+
+// One output element from its merged state: num / den, or, for a row with
+// no valid slot (den = 0), what the reference's softmax over S equal
+// NEG_INF logits gives: the mean of V's column over all slots.
+template <typename T>
+__device__ __forceinline__ float finish(float num, float den,
+                                        const T* v_col, long long v_ss,
+                                        int S) {
+  if (den > 0.f) return __fdividef(num, fmaxf(den, attn::kMinDenominator));
+  float sum = 0.f;
+  for (int t = 0; t < S; ++t) {
+    float x[1];
+    attn::load_vec<1>(v_col + t * v_ss, x);
+    sum += x[0];
+  }
+  return __fdividef(sum, static_cast<float>(S));
+}
+
+// Sums each of the N values v[] over the warp's 32 lanes with 2N - 1 +
+// log2(32 / N) shuffles, where N separate reductions take 5N: each halving
+// step trades half of the values with the lane OFF away. Returns the total
+// of value lane / (32 / N), so that every value's total sits in 32 / N
+// neighbouring lanes. N is a power of two, at most 32.
+template <int N, int n = N, int OFF = 16>
+__device__ __forceinline__ float warp_sum_many(float (&v)[N]) {
+  if constexpr (n > 1) {
+    const bool upper = threadIdx.x & OFF;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = upper ? v[i] : v[i + n / 2];
+      const float keep = upper ? v[i + n / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    return warp_sum_many<N, n / 2, OFF / 2>(v);
+  } else {
+    float x = v[0];
+#pragma unroll
+    for (int off = OFF; off > 0; off /= 2)
+      x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_out(const Args& a, T* o, int b, int h,
+                                          int d, float value) {
+  const float out[1] = {value};
+  attn::store_vec<1>(o + b * a.o_sb + h * a.o_sh + d, out);
+}
+
+// ROWS: query heads per block, 4 (GQA) or 1 (a KV head per query head,
+// as in Zamba2's shared block, where 4 would compute 3 empty rows).
+template <typename T, int HD, int ROWS>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
@@ -74,23 +173,40 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int E = HD % 32 == 0 ? HD / 32 : 4;
   constexpr int kLanes = HD / E;
   static_assert(HD % E == 0 && kLanes <= 32, "head_dim");
+  constexpr int kTile = kTileSlots<T>;
+  constexpr int kPiece = 16 / sizeof(T);     // elements of a 16-byte copy
+  constexpr int kPieces = HD / kPiece;       // 16-byte pieces of a row
+  static_assert(HD % kPiece == 0, "rows are whole 16-byte pieces");
+  static_assert(kTile % (kWarps * kUnroll) == 0, "warps split a tile");
+  constexpr int kSumLanes = 32 / (kUnroll * ROWS);  // lanes per score
   const bool lane_on = kLanes == 32 || threadIdx.x % 32 < kLanes;
-  __shared__ float s_m[kWarps][kRows];
-  __shared__ float s_l[kWarps][kRows];
-  __shared__ float s_acc[kWarps][kRows][32 * E];
+  extern __shared__ float4 smem4[];
+  T* sK = reinterpret_cast<T*>(smem4);  // [kStages][kTile][HD]
+  T* sV = sK + kStages * kTile * HD;
+  float* s_acc = reinterpret_cast<float*>(smem4);  // after the loop
+  __shared__ bool s_valid[kStages][kTile];
+  __shared__ float s_m[kWarps][ROWS];
+  __shared__ float s_l[kWarps][ROWS];
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const int h0 = kvh * a.group + blockIdx.z * kRows;  // first query head
-  const int rows = min(kRows, a.group - static_cast<int>(blockIdx.z) * kRows);
+  const int split = blockIdx.z % a.splits;
+  const int zg = blockIdx.z / a.splits;
+  const int h0 = kvh * a.group + zg * ROWS;  // first query head
+  const int rows = min(ROWS, a.group - zg * ROWS);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row_pos = a.pos ? a.pos[b * a.pos_stride_b] : a.pos_scalar;
+  const int row_pos = row_position(a, b);
   const int* slot_pos = a.slot_pos + b * a.slot_stride_b;
+  const int t_begin = split * a.range;
+  const int t_end = min(a.S, t_begin + a.range);
 
-  float qr[kRows][E], m[kRows], l[kRows], acc[kRows][E];
+  const T* kb = k + b * a.k_sb + kvh * a.k_sh;
+  const T* vb = v + b * a.v_sb + kvh * a.v_sh;
+
+  float qr[ROWS][E], m[ROWS], l[ROWS], acc[ROWS][E];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < ROWS; ++r) {
     if (r < rows && lane_on) {
       attn::load_vec<E>(q + b * a.q_sb + (h0 + r) * a.q_sh + lane * E, qr[r]);
     } else {
@@ -103,91 +219,145 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
   }
 
-  const T* kb = k + b * a.k_sb + kvh * a.k_sh + lane * E;
-  const T* vb = v + b * a.v_sb + kvh * a.v_sh + lane * E;
+  const float scale_log2 = a.scale * kLog2e;
+  bool any = false;
+  for (int t = t_begin + threadIdx.x; t < t_end; t += kThreads)
+    any = any || slot_valid(a, slot_pos, t, row_pos);
+  any = __syncthreads_or(any);
 
-  for (int t0 = warp * kUnroll; t0 < a.S; t0 += kWarps * kUnroll) {
-    float kk[kUnroll][E], s[kUnroll][kRows];
-    bool in[kUnroll], live[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      in[u] = t < a.S;
-      live[u] = false;
-      if (in[u]) {
-        if (lane_on) {
-          attn::load_vec<E>(kb + t * a.k_ss, kk[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < E; ++e) kk[u][e] = 0.f;
+  if (any) {
+    const int n_tiles = (t_end - t_begin + kTile - 1) / kTile;
+    // tile i of the range into stage i % kStages: the valid rows of K and
+    // V by cp.async, the others zero-filled; then one commit group, empty
+    // past the last tile so that every thread counts groups alike
+    auto issue = [&](int i) {
+      if (i < n_tiles) {
+        const int stage = i % kStages;
+        const int t0 = t_begin + i * kTile;
+        for (int idx = threadIdx.x; idx < 2 * kTile * kPieces;
+             idx += kThreads) {
+          const bool is_v = idx >= kTile * kPieces;
+          const int r = (idx % (kTile * kPieces)) / kPieces;
+          const int c = (idx % kPieces) * kPiece;
+          const int t = t0 + r;
+          const bool live = t < t_end && slot_valid(a, slot_pos, t, row_pos);
+          const T* base = is_v ? vb : kb;
+          const long long ss = is_v ? a.v_ss : a.k_ss;
+          T* dst = (is_v ? sV : sK) + (stage * kTile + r) * HD + c;
+          attn::cp_async16(dst, live ? base + t * ss + c : base, live);
         }
-        const int sp = slot_pos[t];
-        live[u] = sp >= 0 && sp <= row_pos &&
-                  (a.window <= 0 || row_pos - sp < a.window);
-      } else {
+        if (threadIdx.x < kTile) {
+          const int t = t0 + threadIdx.x;
+          s_valid[stage][threadIdx.x] =
+              t < t_end && slot_valid(a, slot_pos, t, row_pos);
+        }
+      }
+      attn::cp_async_commit();
+    };
+
 #pragma unroll
-        for (int e = 0; e < E; ++e) kk[u][e] = 0.f;
+    for (int i = 0; i < kStages - 1; ++i) issue(i);
+    for (int i = 0; i < n_tiles; ++i) {
+      // tile i has landed for every thread, and every warp is done with
+      // tile i - 1, whose stage tile i + kStages - 1 fills
+      attn::cp_async_wait<kStages - 2>();
+      __syncthreads();
+      issue(i + kStages - 1);
+      const int stage = i % kStages;
+      const T* tK = sK + stage * kTile * HD + lane * E;
+      const T* tV = sV + stage * kTile * HD + lane * E;
+
+      for (int u0 = warp * kUnroll; u0 < kTile; u0 += kWarps * kUnroll) {
+        bool live[kUnroll];
+        bool some = false;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          live[u] = s_valid[stage][u0 + u];
+          some = some || live[u];
+        }
+        if (!some) continue;  // the same for every lane of the warp
+        // q . k of the group's slots and rows, summed over the warp in
+        // one exchange; then every lane takes all the scores, in log2 units
+        float dot[kUnroll * ROWS];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          float kk[E];
+          if (lane_on) {
+            attn::load_vec<E>(tK + (u0 + u) * HD, kk);
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) kk[e] = 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            float x = 0.f;
+#pragma unroll
+            for (int e = 0; e < E; ++e) x = fmaf(qr[r][e], kk[e], x);
+            dot[u * ROWS + r] = x;
+          }
+        }
+        const float mine = warp_sum_many(dot);
+        float s[kUnroll][ROWS];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            const float x =
+                __shfl_sync(0xffffffffu, mine, (u * ROWS + r) * kSumLanes);
+            s[u][r] = a.softcap > 0.f ? kLog2e * attn::apply_softcap(
+                                                     x * a.scale, a.softcap)
+                                      : x * scale_log2;
+          }
+        float vv[kUnroll][E];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (lane_on) {
+            attn::load_vec<E>(tV + (u0 + u) * HD, vv[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) vv[u][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          float mx = kNegInf;
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            if (live[u]) mx = fmaxf(mx, s[u][r]);
+          const float m_new = fmaxf(m[r], mx);
+          const float corr = exp2f(m[r] - m_new);
+          float p[kUnroll], sum = 0.f;
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            p[u] = live[u] ? exp2f(s[u][r] - m_new) : 0.f;
+            sum += p[u];
+          }
+          l[r] = l[r] * corr + sum;
+          m[r] = m_new;
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            float x = acc[r][e] * corr;
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) x = fmaf(p[u], vv[u][e], x);
+            acc[r][e] = x;
+          }
+        }
       }
     }
-    // q . k over the lane's elements, then summed across the warp
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float x = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) x = fmaf(qr[r][e], kk[u][e], x);
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2)
-          x += __shfl_xor_sync(0xffffffffu, x, off);
-        s[u][r] = live[u] ? attn::apply_softcap(x * a.scale, a.softcap)
-                          : kNegInf;
-      }
-    float vv[kUnroll][E];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (in[u] && lane_on) {
-        attn::load_vec<E>(vb + (t0 + u) * a.v_ss, vv[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) vv[u][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (in[u]) mx = fmaxf(mx, s[u][r]);
-      const float m_new = fmaxf(m[r], mx);
-      const float corr = expf(m[r] - m_new);
-      float p[kUnroll], sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        p[u] = in[u] ? expf(s[u][r] - m_new) : 0.f;
-        sum += p[u];
-      }
-      l[r] = l[r] * corr + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float x = acc[r][e] * corr;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) x = fmaf(p[u], vv[u][e], x);
-        acc[r][e] = x;
-      }
-    }
+    attn::cp_async_wait<0>();
   }
 
-  // merge the warps' partial softmax states
+  // merge the warps' partial softmax states through the ring's memory
+  __syncthreads();
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < ROWS; ++r) {
     if (lane == 0) {
       s_m[warp][r] = m[r];
       s_l[warp][r] = l[r];
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e) s_acc[warp][r][lane * E + e] = acc[r][e];
+    for (int e = 0; e < E; ++e)
+      s_acc[(warp * ROWS + r) * 32 * E + lane * E + e] = acc[r][e];
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < rows * HD; idx += kThreads) {
@@ -199,23 +369,80 @@ __global__ void __launch_bounds__(kThreads)
     float den = 0.f, num = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(s_m[w][r] - mx);
+      const float f = exp2f(s_m[w][r] - mx);
       den = fmaf(s_l[w][r], f, den);
-      num = fmaf(s_acc[w][r][d], f, num);
+      num = fmaf(s_acc[(w * ROWS + r) * 32 * E + d], f, num);
     }
-    const float out[1] = {num / fmaxf(den, attn::kMinDenominator)};
-    attn::store_vec<1>(o + b * a.o_sb + (h0 + r) * a.o_sh + d, out);
+    const int h = h0 + r;
+    if (a.splits == 1) {
+      store_out(a, o, b, h, d, finish(num, den, vb + d, a.v_ss, a.S));
+    } else {
+      const long long slot = (static_cast<long long>(b) * a.H + h) *
+                                 a.splits + split;
+      float* ml = a.ws + 2 * slot;
+      float* wacc = a.ws + 2LL * a.H * a.splits * gridDim.y + slot * HD;
+      if (d == 0) {
+        ml[0] = mx;
+        ml[1] = den;
+      }
+      wacc[d] = num;
+    }
   }
+}
+
+// Merges the splits' partial states of one (b, h), as the block merges its
+// warps: weights exp(m_s - max m), empty splits (l = 0) skipped.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kCombineThreads)
+    decode_combine_kernel(const T* __restrict__ v, T* __restrict__ o,
+                          int B, Args a) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const long long first = (static_cast<long long>(b) * a.H + h) * a.splits;
+  const float* ml = a.ws + 2 * first;
+  const float* wacc = a.ws + 2LL * a.H * a.splits * B + first * HD;
+  float mx = kNegInf;
+  for (int s = 0; s < a.splits; ++s) mx = fmaxf(mx, ml[2 * s]);
+  for (int d = threadIdx.x; d < HD; d += kCombineThreads) {
+    float den = 0.f, num = 0.f;
+    for (int s = 0; s < a.splits; ++s) {
+      const float ls = ml[2 * s + 1];
+      if (ls == 0.f) continue;  // no valid slot; its acc was not written
+      const float f = exp2f(ml[2 * s] - mx);
+      den = fmaf(ls, f, den);
+      num = fmaf(wacc[s * HD + d], f, num);
+    }
+    const T* v_col = v + b * a.v_sb + (h / a.group) * a.v_sh + d;
+    store_out(a, o, b, h, d, finish(num, den, v_col, a.v_ss, a.S));
+  }
+}
+
+template <typename T, int HD, int ROWS>
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        void* o, int B, int K, const Args& a,
+                        cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<T, HD, ROWS>;
+  constexpr size_t smem = smem_bytes<T, HD>();
+  static unsigned long long opted_in = 0;
+  cudaError_t err = attn::opt_in_smem(kernel, smem, opted_in);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(K, B, a.splits * ((a.group + ROWS - 1) / ROWS));
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  decode_combine_kernel<T, HD><<<dim3(a.H, B), kCombineThreads, 0, stream>>>(
+      static_cast<const T*>(v), static_cast<T*>(o), B, a);
+  return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int K, const Args& a, cudaStream_t stream) {
-  const dim3 grid(K, B, (a.group + kRows - 1) / kRows);
-  decode_attention_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), a);
-  return cudaGetLastError();
+  if (a.group == 1)
+    return launch_rows<T, HD, 1>(q, k, v, o, B, K, a, stream);
+  return launch_rows<T, HD, kMaxRows>(q, k, v, o, B, K, a, stream);
 }
 
 template <typename T>
@@ -239,10 +466,13 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B,H,hd) and o (B,H,hd) by their (b, head) strides; k and v (B,S,K,hd)
-// by their (b, slot, head) strides, all in elements with hd contiguous;
-// is_bf16 selects bf16 for all four, else float32. slot_pos: int32, row b
-// at slot_pos + b * slot_stride_b. pos: int32 at pos + b * pos_stride_b,
-// or null for pos_scalar. hd must be 64, 80, 128 or 256.
+// by their (b, slot, head) strides, all in elements with hd contiguous and
+// k, v rows 16-byte aligned; is_bf16 selects bf16 for all four, else
+// float32. slot_pos: int32, row b at slot_pos + b * slot_stride_b. pos:
+// int32 at pos + b * pos_stride_b, or null for pos_scalar. hd must be 64,
+// 80, 128 or 256. The slots are cut into `splits` ranges of `range` slots
+// (a multiple of 32, none empty); with splits > 1, ws holds B * H * splits
+// * (hd + 2) floats of scratch.
 extern "C" int decode_attention_forward(
     const void* q, const void* k, const void* v, void* o,
     const void* slot_pos, long long slot_stride_b, const void* pos,
@@ -250,9 +480,12 @@ extern "C" int decode_attention_forward(
     int K, int S, int hd, long long q_sb, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_sh, float scale, int window,
-    float softcap, void* stream) {
+    float softcap, int splits, int range, void* ws, void* stream) {
   if (B <= 0 || H <= 0) return cudaSuccess;
-  if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+  if (K <= 0 || H % K != 0 || S <= 0 || splits <= 0 || range <= 0 ||
+      (splits - 1) * range >= S || splits * range < S ||
+      (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
   Args a;
   a.slot_pos = static_cast<const int*>(slot_pos);
   a.slot_stride_b = slot_stride_b;
@@ -260,7 +493,11 @@ extern "C" int decode_attention_forward(
   a.pos_stride_b = pos_stride_b;
   a.pos_scalar = pos_scalar;
   a.S = S;
+  a.H = H;
   a.group = H / K;
+  a.splits = splits;
+  a.range = range;
+  a.ws = static_cast<float*>(ws);
   a.q_sb = q_sb;
   a.q_sh = q_sh;
   a.k_sb = k_sb;

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -33,17 +33,37 @@ def reset_stats() -> None:
         _launches[name] = 0
 
 
+_fns: Dict[str, Callable[..., int]] = {}
+
+
 def _kernel_fn(name, symbol, argtypes):
-    """Function ``symbol`` of kernel ``name``'s library, typed."""
-    fn = getattr(_build.load(name), symbol)
-    if fn.argtypes is None:
+    """Function ``symbol`` of kernel ``name``'s library, typed once and
+    cached, so that a call looks it up in one dict."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(name), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _fns[symbol] = fn
     return fn
+
+
+def _launch(device, fn, *args):
+    """``fn(*args, stream)`` on ``device``'s current stream, with
+    ``device`` made the current device for the call if it is not already
+    (a kernel launches on the calling thread's current device)."""
+    if torch.cuda.current_device() == device.index:
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _threshold(x):
     return math.inf if x is None else float(x)
+
+
+_VTRACE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 
 def vtrace_from_importance_weights_kernel(
@@ -84,15 +104,12 @@ def vtrace_from_importance_weights_kernel(
 
     vs = torch.empty_like(values)
     pg_advantages = torch.empty_like(values)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel_fn("vtrace", "vtrace_from_importance_weights",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                         + [ctypes.c_float] * 3 + [ctypes.c_void_p])(
-            *(x.data_ptr() for x in args), vs.data_ptr(),
-            pg_advantages.data_ptr(), t, b,
-            _threshold(clip_rho_threshold), _threshold(clip_c_threshold),
-            _threshold(clip_pg_rho_threshold), stream)
+    err = _launch(
+        device, _kernel_fn("vtrace", "vtrace_from_importance_weights",
+                           _VTRACE_ARGTYPES),
+        *(x.data_ptr() for x in args), vs.data_ptr(),
+        pg_advantages.data_ptr(), t, b, _threshold(clip_rho_threshold),
+        _threshold(clip_c_threshold), _threshold(clip_pg_rho_threshold))
     if err != 0:
         raise RuntimeError(f"vtrace kernel launch failed: CUDA error {err}")
     _launches["vtrace"] += 1
@@ -105,13 +122,25 @@ def vtrace_from_importance_weights_kernel(
 
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 _ATTN_HEAD_DIMS = (64, 80, 128, 256)
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_void_p])
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 5
+                    + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
+                    + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+_SPLIT_SLOTS = 32              # decode attention ranges are multiples of it
+_sm_counts: Dict[int, int] = {}
 
 
-def _check_attn(name, tensors: Sequence[torch.Tensor], vec: int):
+def _check_attn(name, tensors: Sequence[torch.Tensor],
+                vecs: Sequence[int]):
     """Device, type, head_dim and layout checks shared by both attention
     kernels: one CUDA device, one type of the two the kernels take, the
-    head_dim axis contiguous, and every row start aligned to ``vec``
-    elements (the kernels' vector loads)."""
+    head_dim axis contiguous, and every row start of ``tensors[i]`` aligned
+    to ``vecs[i]`` elements (the kernels' vector loads and 16-byte copies).
+    """
     device = tensors[0].device
     if device.type != "cuda" or any(x.device != device for x in tensors):
         raise ValueError(f"{name} kernel: all inputs must lie on one CUDA "
@@ -124,12 +153,15 @@ def _check_attn(name, tensors: Sequence[torch.Tensor], vec: int):
     if hd not in _ATTN_HEAD_DIMS:
         raise ValueError(f"{name} kernel: head_dim {hd} is not one of "
                          f"{_ATTN_HEAD_DIMS}")
-    for x in tensors:
-        if x.stride(-1) != 1 or any(st % vec for st in x.stride()[:-1]) \
-                or x.data_ptr() % (vec * x.element_size()):
+    esize = tensors[0].element_size()
+    for x, vec in zip(tensors, vecs):
+        st = x.stride()
+        # gcd(*strides) % vec == 0: every stride is a multiple of vec
+        if st[-1] != 1 or math.gcd(*st[:-1]) % vec \
+                or x.data_ptr() % (vec * esize):
             raise ValueError(f"{name} kernel: head_dim must be contiguous "
                              f"and rows aligned to {vec} elements, got "
-                             f"strides {x.stride()}")
+                             f"strides {st}")
     return device
 
 
@@ -139,12 +171,15 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     (the reference's ``kernels.ops.flash_attention``). q: (B,H,S,hd); k, v:
     (B,K,S,hd) with H % K == 0, any strides whose hd axis is contiguous
     (transposed views of (B,S,H,hd) activations go in without a copy).
-    float32 or bf16, hd 64, 80, 128 or 256, any S. Returns (B,H,S,hd) in
-    q's type, laid out like q. CPU tensors take the plain version."""
-    if all(x.device.type == "cpu" for x in (q, k, v)):
+    float32 (CUDA cores) or bf16 (tensor cores; rows 16-byte aligned), hd
+    64, 80, 128 or 256, any S. Returns (B,H,S,hd) in q's type, laid out
+    like q. CPU tensors take the plain version."""
+    if q.is_cpu and k.is_cpu and v.is_cpu:
         return _ref.ref_flash_attention(q, k, v, scale=scale, causal=causal,
                                         window=window, softcap=softcap)
-    device = _check_attn("flash_attention", (q, k, v), vec=4)
+    # float32 rows: 4-element vector loads; bf16 rows: 16-byte cp.async
+    vec = 8 if q.dtype == torch.bfloat16 else 4
+    device = _check_attn("flash_attention", (q, k, v), (vec,) * 3)
     b, h, s, hd = q.shape
     kheads = k.shape[1]
     if k.shape != (b, kheads, s, hd) or v.shape != k.shape \
@@ -156,18 +191,14 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     if scale is None:
         scale = hd ** -0.5
     out = torch.empty_like(q)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel_fn("flash_attention", "flash_attention_forward",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                         + [ctypes.c_longlong] * 12 + [ctypes.c_float]
-                         + [ctypes.c_int] * 2 + [ctypes.c_float]
-                         + [ctypes.c_void_p])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], float(scale), int(bool(causal)),
-            int(window or 0), float(softcap or 0.0), stream)
+    err = _launch(
+        device, _kernel_fn("flash_attention", "flash_attention_forward",
+                           _FLASH_ARGTYPES),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], float(scale), int(bool(causal)),
+        int(window or 0), float(softcap or 0.0))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -175,31 +206,55 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     return out
 
 
+def decode_splits(blocks, slots, sms=132):
+    """(splits, range): how decode attention cuts a cache of ``slots``
+    slots when one range per (row, KV head, query-head group) gives
+    ``blocks`` blocks. Ranges are ``range`` slots, a multiple of 32; they
+    cover the cache with none empty; and splits * blocks reaches two blocks
+    per SM (``sms``, 132 on an H100) wherever the cache has enough 32-slot
+    pieces, else every piece is its own range."""
+    pieces = -(-slots // _SPLIT_SLOTS)
+    want = -(-2 * sms // blocks)
+    span = max(1, pieces // want) * _SPLIT_SLOTS
+    return -(-slots // span), span
+
+
+def _sm_count(device):
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
                      window=0):
     """One query token per row against its KV cache, on the CUDA kernel
     ``csrc/decode_attention.cu`` (the reference's
     ``kernels.ops.decode_attention``). q: (B,H,hd); k, v: (B,K,S,hd) with
-    any strides whose hd axis is contiguous: the model's (B,S,K,hd) cache
-    goes in as a transposed view, without a copy. slot_pos: int32 (S,) or
-    (B,S); pos: an int or an int32 tensor, scalar or (B,). Returns (B,H,hd)
-    in q's type. CPU tensors take the plain version."""
+    any strides whose hd axis is contiguous and rows 16-byte aligned: the
+    model's (B,S,K,hd) cache goes in as a transposed view, without a copy.
+    slot_pos: int32 (S,) or (B,S); pos: an int or an int32 tensor, scalar
+    or (B,). The slots are split into ranges (``decode_splits``) whose
+    partial states a second kernel merges, in the same call. Returns
+    (B,H,hd) in q's type. CPU tensors take the plain version."""
     tensors = [x for x in (q, k, v, slot_pos, pos)
                if isinstance(x, torch.Tensor)]
-    if all(x.device.type == "cpu" for x in tensors):
+    if all(x.is_cpu for x in tensors):
         return _ref.ref_decode_attention(q, k, v, slot_pos, pos, scale=scale,
                                          softcap=softcap, window=window)
     hd = q.shape[-1]
-    # one lane loads hd/32 elements of a head row at once; at hd 80, 4 (20
-    # of the warp's 32 lanes)
+    # q: one lane loads hd/32 elements of a head row at once (at hd 80, 4
+    # in 20 of the warp's 32 lanes); k, v: 16-byte cp.async pieces
+    piece = 16 // q.element_size()
     device = _check_attn("decode_attention", (q, k, v),
-                         vec=hd // 32 if hd % 32 == 0 else 4)
+                         (hd // 32 if hd % 32 == 0 else 4, piece, piece))
     b, h, _ = q.shape
     kheads, s = k.shape[1], k.shape[2]
     if k.shape != (b, kheads, s, hd) or v.shape != k.shape \
-            or kheads == 0 or h % kheads:
+            or kheads == 0 or h % kheads or s == 0:
         raise ValueError("decode_attention kernel: q (B,H,hd) and k, v "
-                         "(B,K,S,hd) with H % K == 0, got "
+                         "(B,K,S,hd) with H % K == 0 and S > 0, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if not isinstance(slot_pos, torch.Tensor) or slot_pos.device != device \
@@ -221,22 +276,24 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
         pos_ptr, pos_stride, pos_scalar = None, 0, int(pos)
     if scale is None:
         scale = hd ** -0.5
+    group = h // kheads
+    splits, span = decode_splits(kheads * b * -(-group // 4), s,
+                                 _sm_count(device))
     out = torch.empty((b, h, hd), dtype=q.dtype, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel_fn("decode_attention", "decode_attention_forward",
-                         [ctypes.c_void_p] * 5
-                         + [ctypes.c_longlong, ctypes.c_void_p,
-                            ctypes.c_longlong] + [ctypes.c_int] * 7
-                         + [ctypes.c_longlong] * 10
-                         + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                            ctypes.c_void_p])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            slot_pos.data_ptr(), slot_stride, pos_ptr, pos_stride,
-            pos_scalar, int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
-            *q.stride()[:2], k.stride(0), k.stride(2), k.stride(1),
-            v.stride(0), v.stride(2), v.stride(1), *out.stride()[:2],
-            float(scale), int(window or 0), float(softcap or 0.0), stream)
+    ws = None
+    if splits > 1:   # each split's (m, l) and float32 acc
+        ws = torch.empty(b * h * splits * (hd + 2), dtype=torch.float32,
+                         device=device)
+    err = _launch(
+        device, _kernel_fn("decode_attention", "decode_attention_forward",
+                           _DECODE_ARGTYPES),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        slot_pos.data_ptr(), slot_stride, pos_ptr, pos_stride, pos_scalar,
+        int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
+        *q.stride()[:2], k.stride(0), k.stride(2), k.stride(1), v.stride(0),
+        v.stride(2), v.stride(1), *out.stride()[:2], float(scale),
+        int(window or 0), float(softcap or 0.0), splits, span,
+        None if ws is None else ws.data_ptr())
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -250,6 +307,8 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
 
 _SSD_HEAD_DIMS = (16, 32, 64)
 _SSD_MAX_SMEM = 232448          # bytes of shared memory a block may use
+_SSD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
 
 
 def ssd_chunk(c, b, xdt, da, h_prev):
@@ -323,15 +382,12 @@ def ssd_chunk(c, b, xdt, da, h_prev):
                          f"of shared memory, more than {_SSD_MAX_SMEM}")
 
     h_new = torch.empty_like(h_prev)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel_fn("ssd_chunk", "ssd_chunk_forward",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                         + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])(
-            c.data_ptr(), b.data_ptr(), xdt.data_ptr(), da.data_ptr(),
-            h_prev.data_ptr(), y.data_ptr(), h_new.data_ptr(),
-            bsz * heads, heads, l, n, p, c.stride(0), c.stride(1),
-            b.stride(0), b.stride(1), *x_st, *da_st, *y_st, stream)
+    err = _launch(
+        device, _kernel_fn("ssd_chunk", "ssd_chunk_forward", _SSD_ARGTYPES),
+        c.data_ptr(), b.data_ptr(), xdt.data_ptr(), da.data_ptr(),
+        h_prev.data_ptr(), y.data_ptr(), h_new.data_ptr(), bsz * heads,
+        heads, l, n, p, c.stride(0), c.stride(1), b.stride(0), b.stride(1),
+        *x_st, *da_st, *y_st)
     if err != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err}")
     _launches["ssd_chunk"] += 1

@@ -141,6 +141,105 @@ def test_head_dim_80_without_gqa(cuda_device, dtype):
             lambda q, k, v: tref.ref_decode_attention(q, k, v, slot, pos))
 
 
+def _launches_of(name, fn):
+    """fn()'s result, checked to add exactly one launch of ``name``."""
+    before = tops.stats()[name]
+    out = fn()
+    assert tops.stats()[name] == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 512])
+def test_flash_bf16_tensor_core_kernel_on_strided_views(cuda_device, hd, s):
+    """bf16 takes the tensor-core kernel: the model's (B,S,H,hd)
+    activations as transposed views, GQA, ragged and whole 64-key tiles,
+    plain and windowed with a softcap; one launch per call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1000 + s * hd)
+    q = torch.randn((2, s, 8, hd), generator=gen, device=cuda_device)
+    k = torch.randn((2, s, 2, hd), generator=gen, device=cuda_device)
+    v = torch.randn((2, s, 2, hd), generator=gen, device=cuda_device)
+    args = [x.bfloat16().transpose(1, 2) for x in (q, k, v)]
+    for kw in (dict(), dict(window=40, softcap=20.0)):
+        got = _launches_of("flash_attention",
+                           lambda: tops.flash_attention(*args, **kw))
+        assert got.dtype == torch.bfloat16
+        assert got.transpose(1, 2).is_contiguous()
+        _assert_bf16_close(got, *args, tref.ref_flash_attention, **kw)
+
+
+def _decode_split_case(b, h, kh, s, hd, pos_kind, device):
+    """q, the (B,S,K,hd) cache as (B,K,S,hd) views, slot_pos and pos:
+    per-row positions with row 0 at 5 (every range past the first empty),
+    pos 0, an (S,) slot_pos row with a scalar pos, a ring buffer, or row 0
+    with no valid slot at all."""
+    gen = torch.Generator(device=device).manual_seed(s * hd + h)
+    q = torch.randn((b, h, hd), generator=gen, device=device)
+    k = torch.randn((b, s, kh, hd), generator=gen, device=device)
+    v = torch.randn((b, s, kh, hd), generator=gen, device=device)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    idx = torch.arange(s, dtype=torch.int32, device=device)
+    pos = torch.randint(0, s, (b,), generator=gen, device=device,
+                        dtype=torch.int32)
+    pos[0] = 5
+    if pos_kind == "zero":
+        return q, k, v, idx.expand(b, s), torch.zeros_like(pos)
+    if pos_kind == "scalar":
+        return q, k, v, idx, s // 3
+    if pos_kind == "ring":
+        pos = pos + 2 * s
+        return q, k, v, pos[:, None] - torch.remainder(pos[:, None] - idx,
+                                                       s), pos
+    slot = idx.expand(b, s)
+    if pos_kind == "none_valid":
+        slot = slot.clone()
+        slot[0] = -1
+    return q, k, v, slot, pos
+
+
+# (B, H, K, S, hd, pos, window): the Qwen3-4B serving shape with empty
+# ranges, with pos 0, with an (S,) slot_pos row; a ring buffer under a
+# window; Zamba2's shared block (G = 1, hd 80); G = 8 (two groups of four
+# query heads per KV head) with S not a multiple of the range; hd 256; a
+# row with no valid slot
+DECODE_SPLIT_CASES = [
+    (8, 32, 8, 576, 128, "rows", 0),
+    (8, 32, 8, 576, 128, "zero", 0),
+    (8, 32, 8, 576, 128, "scalar", 0),
+    (8, 32, 8, 256, 128, "ring", 100),
+    (8, 32, 32, 320, 80, "rows", 0),
+    (4, 64, 8, 300, 64, "rows", 0),
+    (4, 32, 8, 200, 256, "rows", 0),
+    (4, 8, 2, 130, 128, "none_valid", 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,s,hd,pos_kind,window", DECODE_SPLIT_CASES)
+def test_decode_kernel_split_over_the_cache(cuda_device, b, h, kh, s, hd,
+                                            pos_kind, window, dtype):
+    """Decode attention with the cache cut into several ranges and their
+    partial states merged by the combine kernel, all in one call and one
+    counted launch."""
+    q, k, v, slot, pos = _decode_split_case(b, h, kh, s, hd, pos_kind,
+                                            cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert tops.decode_splits(kh * b * -(-(h // kh) // 4), s, sms)[0] > 1
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    got = _launches_of("decode_attention", lambda: tops.decode_attention(
+        q, k, v, slot, pos, window=window))
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            got, tref.ref_decode_attention(q, k, v, slot, pos,
+                                           window=window), **TOL)
+    else:
+        _assert_bf16_close(
+            got, q, k, v, lambda q, k, v, **kw: tref.ref_decode_attention(
+                q, k, v, slot, pos, **kw), window=window)
+
+
 @pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 4, 8, 96), device=cuda_device)
