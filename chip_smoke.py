@@ -17,10 +17,10 @@ exits nonzero without printing a result:
               block (head_dim 80); decode attention at the serving shapes
               of both (bf16 and float32), with events and graph times,
               bounds and the share of them reached, SDPA's events and
-              graph times, the wrapper's host time per call, and decode
-              attention's split count; the SSD chunk at a Zamba2-2.7B
-              admission (80 heads sharing B/C, N = P = 64), 8 rows, ragged
-              lengths and the reference's sweep
+              graph times, the wrapper's host time per call, and the split
+              count decode attention launched with; the SSD chunk at a
+              Zamba2-2.7B admission (80 heads sharing B/C, N = P = 64), 8
+              rows, ragged lengths and the reference's sweep
   4. learner  three learner steps of the IMPALA deep ResNet at full width
               (84x84x4 obs, 18 actions, T=80, B=32, Table G.1 RMSProp) on a
               seeded synthetic rollout, held against the plain-loop V-trace
@@ -47,11 +47,8 @@ exits nonzero without printing a result:
               limit, then the final {"ok": true, "device": {...}} line
 
 It needs CUDA and the repository's src/ beside it; it exits nonzero when
-either is missing. ``python3 chip_smoke.py --attention-timing SRC`` times
-only the two attention kernels through the port under SRC (another
-checkout's src/), to compare two versions on one card in one call.
-Times are CUDA-event or synchronised host-clock times taken in this run,
-on the card named in phase 1.
+either is missing. Times are CUDA-event or synchronised host-clock times
+taken in this run, on the card named in phase 1.
 """
 
 from __future__ import annotations
@@ -152,19 +149,11 @@ def event_ms(fn, reps, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-_capture_streams = []
-
-
 def graph_ms(fn, launches=50):
     """Device time of one call: a CUDA graph of ``launches`` calls is
-    replayed, so host-side wrapper time is left out. Every capture uses one
-    side stream: cuBLAS keeps a workspace for each stream it has run on
-    until the process ends, so a new stream per capture of a library call
-    would hold one more workspace each time."""
+    replayed, so host-side wrapper time is left out."""
     import torch
-    if not _capture_streams:
-        _capture_streams.append(torch.cuda.Stream())
-    stream = _capture_streams[0]
+    stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         fn()                                   # warm: build, allocate
@@ -174,41 +163,6 @@ def graph_ms(fn, launches=50):
         for _ in range(launches):
             fn()
     return event_ms(graph.replay, reps=10) / launches
-
-
-def ptxas_summary(log):
-    """Registers and spill bytes of every kernel function in an ``nvcc
-    -Xptxas -v`` log, by (demangled, where c++filt is installed) name."""
-    import re
-    import shutil
-    funcs, name, props = [], None, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"Function properties for (\w+)", line)
-        if m:
-            props = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and name and props == name:
-            funcs.append({"function": name, "stack_frame": int(m.group(1)),
-                          "spill_stores": int(m.group(2)),
-                          "spill_loads": int(m.group(3))})
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and funcs and funcs[-1]["function"] == name:
-            funcs[-1]["registers"] = int(m.group(1))
-    if funcs and shutil.which("c++filt"):
-        names = subprocess.run(
-            ["c++filt"], input="\n".join(f["function"] for f in funcs),
-            capture_output=True, text=True, check=True,
-            timeout=60).stdout.splitlines()
-        for f, n in zip(funcs, names):
-            f["function"] = n.replace("(anonymous namespace)::", "")
-    return funcs
 
 
 def vtrace_inputs(t, b, seed):
@@ -410,7 +364,6 @@ def phase_decode(ops, ref):
     import torch
     import torch.nn.functional as F
     rows = {}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, shape in enumerate(DECODE_SHAPES):
         b, h, kh, cap, hd, pos_kind, window, cap_soft = shape
         q32, k32, v32, slot, pos = _decode_inputs(shape, 3000 + i)
@@ -449,8 +402,7 @@ def phase_decode(ops, ref):
             row.update(max_abs_err=err, dtype=str(dtype).split(".")[1],
                        shape=[b, h, kh, cap, hd], pos=pos_kind,
                        window=window, softcap=cap_soft, valid_slots=n_valid,
-                       splits=ops.decode_splits(
-                           kh * b * -(-(h // kh) // 4), cap, sms)[0])
+                       splits=ops.last_decode_split()[0])
             rows[(shape, row["dtype"])] = row
             emit("kernel", name="decode_attention", **row)
     return rows
@@ -834,82 +786,19 @@ def split_ms(runtime, reps=5):
     return {"unroll_ms": unroll_ms, "learner_ms": learner_ms}
 
 
-def attention_timing(ops):
-    """K2 and K3 in bf16 at the serving shapes (Qwen3-4B's and Zamba2's
-    shared block) through ``ops``'s wrappers: events, graph and host-loop
-    times, and SDPA's graph time on the same inputs; then at a small
-    Qwen3-4B shape (64 positions or slots), where the device takes a few
-    microseconds, so that the host loop reads the wrapper's own host time.
-    Prints one JSON line per shape; no correctness check (phase 3 holds
-    that)."""
+def main():
     import torch
-    import torch.nn.functional as F
-    small = (1, 32, 8, 64, 128)
-    for b, h, kh, s, hd, _, _ in (FLASH_MAIN[0], FLASH_SHAPES[-1],
-                                  small + (0, 0.0)):
-        gen = torch.Generator(device="cuda").manual_seed(s)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                   .bfloat16() for shape in ((b, h, s, hd), (b, kh, s, hd),
-                                             (b, kh, s, hd)))
-        row = dict(ms=event_ms(lambda: ops.flash_attention(q, k, v), 20),
-                   graph_ms=graph_ms(lambda: ops.flash_attention(q, k, v)),
-                   host_loop_us=host_loop_us(
-                       lambda: ops.flash_attention(q, k, v)),
-                   library_graph_ms=graph_ms(
-                       lambda: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=True, enable_gqa=True)))
-        emit("timing", name="flash_attention", shape=[b, h, kh, s, hd],
-             dtype="bfloat16", **row)
-    for shape in (DECODE_MAIN[0], DECODE_SHAPES[-1],
-                  (8,) + small[1:] + ("rows", 0, 0.0)):
-        b, h, kh, cap, hd = shape[:5]
-        q, k, v, slot, pos = _decode_inputs(shape, 3000)
-        q, k, v = (x.bfloat16() for x in (q, k, v))
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        pos_t = pos.reshape(-1)
-        mask = ((slot >= 0) & (slot <= pos_t[:, None]))[:, None, None, :]
-
-        def kernel():
-            return ops.decode_attention(q, kt, vt, slot, pos)
-        row = dict(ms=event_ms(kernel, 20), graph_ms=graph_ms(kernel),
-                   host_loop_us=host_loop_us(kernel),
-                   library_graph_ms=graph_ms(
-                       lambda: F.scaled_dot_product_attention(
-                           q[:, :, None], kt, vt, attn_mask=mask,
-                           enable_gqa=True)))
-        emit("timing", name="decode_attention", shape=[b, h, kh, cap, hd],
-             pos="rows", dtype="bfloat16", **row)
-
-
-def main(argv=None):
-    """With no arguments, the smoke test. With ``--attention-timing SRC``,
-    only ``attention_timing`` through the port under SRC (another
-    checkout's src/), so that two versions compare in one call."""
-    import torch
-    argv = sys.argv[1:] if argv is None else argv
-    src = SRC
-    if argv:
-        if len(argv) != 2 or argv[0] != "--attention-timing":
-            print("usage: chip_smoke.py [--attention-timing SRC]",
-                  file=sys.stderr)
-            return 2
-        src = os.path.abspath(argv[1])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print(f"chip_smoke: the port's sources are missing ({src})",
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: the port's sources are missing ({SRC})",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, src)
+    sys.path.insert(0, SRC)
     import repro_torch
     from repro_torch.kernels import build, ops, ref
-    if argv:
-        repro_torch.resolve_device("cuda")
-        emit("device", nvidia_smi=smi_line(), src=src)
-        attention_timing(ops)
-        return 0
 
     # 1. device (resolve_device also pins float32: no TF32 on the card)
     repro_torch.resolve_device("cuda")
@@ -923,8 +812,10 @@ def main(argv=None):
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     for name, r in build.build_all().items():
-        emit("build", kernel=name, seconds=r["seconds"],
-             ptxas=ptxas_summary(r["log"]))
+        ptxas = [ln.strip() for ln in r["log"].splitlines()
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
+        emit("build", kernel=name, seconds=r["seconds"], ptxas=ptxas)
     emit("build", total_seconds=time.perf_counter() - t0)
 
     # 3. each kernel against its plain version
@@ -932,6 +823,10 @@ def main(argv=None):
     flash_rows = phase_flash(ops, ref)
     decode_rows = phase_decode(ops, ref)
     ssd_rows = phase_ssd(ops, ref)
+    # SDPA's graph captures left cuBLAS a workspace on each capture
+    # stream; free them so that later phases' peak memory leaves them out
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
 
     # 4. full-width learner
     phase_learner(ops)

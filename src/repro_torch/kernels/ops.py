@@ -131,7 +131,10 @@ _DECODE_ARGTYPES = ([ctypes.c_void_p] * 5
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
                     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
 _SPLIT_SLOTS = 32              # decode attention ranges are multiples of it
+_DECODE_ROWS = 4               # query heads a decode attention block holds
 _sm_counts: Dict[int, int] = {}
+# (splits, range) of decode attention's last launch
+_decode_split: Dict[str, int] = {"splits": 0, "range": 0}
 
 
 def _check_attn(name, tensors: Sequence[torch.Tensor],
@@ -206,17 +209,25 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     return out
 
 
-def decode_splits(blocks, slots, sms=132):
+def decode_splits(b, h, kh, slots, sms=132):
     """(splits, range): how decode attention cuts a cache of ``slots``
-    slots when one range per (row, KV head, query-head group) gives
-    ``blocks`` blocks. Ranges are ``range`` slots, a multiple of 32; they
-    cover the cache with none empty; and splits * blocks reaches two blocks
-    per SM (``sms``, 132 on an H100) wherever the cache has enough 32-slot
-    pieces, else every piece is its own range."""
+    slots for ``b`` rows of ``h`` query heads on ``kh`` KV heads. One range
+    per (row, KV head, group of up to four query heads) gives the base
+    count of blocks. Ranges are ``range`` slots, a multiple of 32; they
+    cover the cache with none empty; and splits times the base count
+    reaches two blocks per SM (``sms``, 132 on an H100) wherever the cache
+    has enough 32-slot pieces, else every piece is its own range."""
+    blocks = kh * b * -(-(h // kh) // _DECODE_ROWS)
     pieces = -(-slots // _SPLIT_SLOTS)
     want = -(-2 * sms // blocks)
     span = max(1, pieces // want) * _SPLIT_SLOTS
     return -(-slots // span), span
+
+
+def last_decode_split():
+    """(splits, range) with which ``decode_attention`` last launched its
+    kernel; (0, 0) before its first launch."""
+    return _decode_split["splits"], _decode_split["range"]
 
 
 def _sm_count(device):
@@ -276,9 +287,7 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
         pos_ptr, pos_stride, pos_scalar = None, 0, int(pos)
     if scale is None:
         scale = hd ** -0.5
-    group = h // kheads
-    splits, span = decode_splits(kheads * b * -(-group // 4), s,
-                                 _sm_count(device))
+    splits, span = decode_splits(b, h, kheads, s, _sm_count(device))
     out = torch.empty((b, h, hd), dtype=q.dtype, device=device)
     ws = None
     if splits > 1:   # each split's (m, l) and float32 acc
@@ -298,6 +307,7 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     _launches["decode_attention"] += 1
+    _decode_split.update(splits=splits, range=span)
     return out
 
 

@@ -271,7 +271,7 @@ def test_decode_split_and_combine_match_the_plain_version(
         b, h, kh, s, hd, pos_kind, window, softcap):
     q, k, v, slot, pos = _decode_case(b, h, kh, s, hd, pos_kind, window,
                                       seed=s + h + hd)
-    splits, span = tops.decode_splits(kh * b * -(-(h // kh) // 4), s)
+    splits, span = tops.decode_splits(b, h, kh, s)
     assert splits > 1
     kw = dict(softcap=softcap, window=window)
     got = emulate_decode_split(q, k, v, slot, pos, splits=splits, span=span,
@@ -284,7 +284,7 @@ def test_decode_split_keeps_ranges_with_no_valid_slot_out():
     """pos = 5 leaves every range but the first empty: the merge gives the
     one-range answer, whatever the other ranges' slots hold."""
     q, k, v, slot, pos = _decode_case(1, 4, 1, 160, 64, "rows", 0, seed=1)
-    splits, span = tops.decode_splits(1, 160)
+    splits, span = tops.decode_splits(1, 4, 1, 160)
     assert (splits, span) == (5, 32)
     k_junk, v_junk = k.clone(), v.clone()
     k_junk[:, :, span:] = 1e30
@@ -302,7 +302,8 @@ def test_decode_split_keeps_ranges_with_no_valid_slot_out():
 @pytest.mark.parametrize("blocks", [1, 8, 64, 100, 256, 264, 512])
 @pytest.mark.parametrize("slots", [1, 31, 32, 33, 320, 576, 1000, 4096])
 def test_decode_splits_cover_the_cache_and_fill_the_card(blocks, slots):
-    splits, span = tops.decode_splits(blocks, slots)
+    # one query head per KV head: ``blocks`` rows give ``blocks`` blocks
+    splits, span = tops.decode_splits(blocks, 1, 1, slots)
     assert span % 32 == 0 and splits >= 1
     assert (splits - 1) * span < slots <= splits * span   # none empty
     pieces = -(-slots // 32)
@@ -315,6 +316,9 @@ def test_decode_splits_cover_the_cache_and_fill_the_card(blocks, slots):
 def test_decode_splits_at_the_serving_shapes():
     # Qwen3-4B: 8 rows x 8 KV heads, 576 slots; Zamba2's shared block: 8
     # rows x 32 KV heads, 320 slots; a ring of 32 slots
-    assert tops.decode_splits(64, 576) == (6, 96)
-    assert tops.decode_splits(256, 320) == (2, 160)
-    assert tops.decode_splits(64, 32) == (1, 32)
+    assert tops.decode_splits(8, 32, 8, 576) == (6, 96)
+    assert tops.decode_splits(8, 32, 32, 320) == (2, 160)
+    assert tops.decode_splits(8, 32, 8, 32) == (1, 32)
+    # G = 8 takes two blocks per (row, KV head), as twice the rows do
+    assert tops.decode_splits(8, 64, 8, 576) \
+        == tops.decode_splits(16, 32, 8, 576) == (3, 192)

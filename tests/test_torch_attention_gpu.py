@@ -226,10 +226,12 @@ def test_decode_kernel_split_over_the_cache(cuda_device, b, h, kh, s, hd,
     q, k, v, slot, pos = _decode_split_case(b, h, kh, s, hd, pos_kind,
                                             cuda_device)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert tops.decode_splits(kh * b * -(-(h // kh) // 4), s, sms)[0] > 1
+    split = tops.decode_splits(b, h, kh, s, sms)
+    assert split[0] > 1
     q, k, v = (x.to(dtype) for x in (q, k, v))
     got = _launches_of("decode_attention", lambda: tops.decode_attention(
         q, k, v, slot, pos, window=window))
+    assert tops.last_decode_split() == split
     if dtype == torch.float32:
         torch.testing.assert_close(
             got, tref.ref_decode_attention(q, k, v, slot, pos,
