@@ -43,7 +43,13 @@ exits nonzero without printing a result:
               --attn-impl kernel --ssd-impl kernel, 24 requests of 1..256
               tokens (its SSD chunk, flash- and decode-attention launches
               are reported); then a profile of one decode step
- 11. kernels  one {"kernels": [...]} line, then the card's name and power
+ 11. grad     gradients on the card, float32: one full-width Zamba2-2.7B
+              Mamba2 layer on a 256-token chunk and one full-width Qwen3-4B
+              attention layer at S 512, the loss mean(out^2) through the
+              kernel paths (kernel forward, the plain version's VJP
+              backward) against the plain paths, on the output, the input
+              and every parameter, within MODEL_TOL
+ 12. kernels  one {"kernels": [...]} line, then the card's name and power
               limit, then the final {"ok": true, "device": {...}} line
 
 It needs CUDA and the repository's src/ beside it; it exits nonzero when
@@ -69,6 +75,7 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 VTRACE_TOL = 1e-5              # expf rounding compounds through <=200 FMAs
 VTRACE_SHAPES = [(80, 32), (20, 32), (1, 1), (33, 200), (200, 4096)]
 TRAINER_SHAPE = (20, 32)       # (T, B) of the phase-5 main path
@@ -431,19 +438,34 @@ def _ssd_inputs(shape, seed):
     return c, b, x, da, h
 
 
-def ssd_bound(shape):
-    """(bound_ms, bound_by) of one SSD chunk call: the lower triangle's
+def _ssd_work(shape):
+    """(bytes, flops) of one SSD chunk call: the lower triangle's
     multiply-adds (C B^T and the weighted sum of X, L(L+1)/2 (2N + 2P) per
     slice) and the two L x N x P products (C h^T, X^T B), against every
     input read once (B/C once per group) and both outputs written once."""
-    import torch
     slices, length, n, p, heads, _ = shape
     flops = slices * (length * (length + 1) // 2 * (2 * n + 2 * p)
                       + 4 * length * n * p)
     groups = slices // heads
     nbytes = 4 * (2 * groups * length * n + 2 * slices * length * p
                   + slices * length + 2 * slices * p * n)
-    return _bound(nbytes, flops, torch.float32)
+    return nbytes, flops
+
+
+def ssd_bound(shape):
+    """(bound_ms, bound_by) of one SSD chunk call in float32 (_ssd_work)."""
+    import torch
+    return _bound(*_ssd_work(shape), torch.float32)
+
+
+def ssd_tc_bound(shape):
+    """(bound_ms, bound_by) of the same work on the tensor cores as the
+    kernel runs it: every product three TF32 MMAs (3xTF32)."""
+    nbytes, flops = _ssd_work(shape)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
 
 
 def phase_ssd(ops, ref):
@@ -477,8 +499,11 @@ def phase_ssd(ops, ref):
                    graph_ms=graph_ms(lambda: ops.ssd_chunk(*args), 20),
                    plain_ms=event_ms(lambda: plain(*args), 5),
                    library_ms=None,
-                   library_note="no single PyTorch call computes the chunk")
+                   library_note="no single PyTorch call computes the chunk",
+                   host_loop_us=host_loop_us(lambda: ops.ssd_chunk(*args)))
         row["bound_ms"], row["bound_by"] = ssd_bound(shape)
+        row["bound_share"] = row["bound_ms"] / row["graph_ms"]
+        row["tc_bound_ms"], row["tc_bound_by"] = ssd_tc_bound(shape)
         row.update(shape=list(shape[:4]), heads=heads, decay=shape[5],
                    layout="model" if heads > 1 else "reference",
                    max_abs_err=max(e["max_abs_err"] for e in err.values()),
@@ -786,6 +811,97 @@ def split_ms(runtime, reps=5):
     return {"unroll_ms": unroll_ms, "learner_ms": learner_ms}
 
 
+def _grad_run(ops, kernel, params, x0, apply):
+    """Output, input grad and parameter grads of mean(out^2) for each impl,
+    and the kernel's launches on the kernel path."""
+    import torch
+    runs = {}
+    for impl in ("xla", "kernel"):
+        params.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_()
+        before = ops.stats()[kernel]
+        out = apply(params, x, impl)
+        torch.mean(torch.square(out)).backward()
+        torch.cuda.synchronize()
+        runs[impl] = dict(out=out.detach(), input=x.grad,
+                          params={n: p.grad.clone()
+                                  for n, p in params.named_parameters()},
+                          launches=ops.stats()[kernel] - before)
+    return runs
+
+
+def phase_grad(ops):
+    """Gradients on the card in float32: one full-width Zamba2-2.7B Mamba2
+    layer on a 256-token chunk (the SSD chunk kernel forward, one launch)
+    and one full-width Qwen3-4B attention layer at S 512 (the flash-
+    attention kernel forward, one launch), weights and input from seed 0.
+    The loss mean(out^2) through impl="kernel" (whose backward is the VJP
+    of the plain version, as the reference's) against impl="xla": the
+    output, the input's gradient and every parameter's gradient must agree
+    within MODEL_TOL, as torch.allclose(rtol=MODEL_TOL, atol=MODEL_TOL).
+    Returns the max abs errors by layer."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import mamba as mamba_lib
+
+    zcfg = dataclasses.replace(get_config("zamba2-2.7b"), dtype="float32")
+    qcfg = dataclasses.replace(get_config("qwen3-4b"), dtype="float32")
+    positions = torch.arange(512, device="cuda")
+    layers = {
+        "zamba2-2.7b mamba2": (
+            "ssd_chunk", zcfg,
+            lambda gen: mamba_lib.mamba_init(zcfg, generator=gen,
+                                             device="cuda"),
+            zcfg.ssm_chunk,
+            lambda p, x, impl: mamba_lib.mamba_apply(p, x, zcfg,
+                                                     impl=impl)[0]),
+        "qwen3-4b attention": (
+            "flash_attention", qcfg,
+            lambda gen: attn_lib.attn_init(qcfg, "attn", generator=gen,
+                                           device="cuda"),
+            512,
+            lambda p, x, impl: attn_lib.attn_apply(
+                p, x, cfg=qcfg, kind="attn", positions=positions,
+                impl=impl)[0]),
+    }
+    errors = {}
+    for name, (kernel, cfg, init, seq, apply) in layers.items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init(gen)
+        x0 = torch.randn((1, seq, cfg.d_model), generator=gen,
+                         device="cuda")
+        runs = _grad_run(ops, kernel, params, x0, apply)
+        want, got = runs["xla"], runs["kernel"]
+        pairs = [("out", got["out"], want["out"]),
+                 ("input", got["input"], want["input"])] + [
+            (f"param {n}", got["params"][n], want["params"][n])
+            for n in want["params"]]
+        err = {}
+        for label, g, w in pairs:
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"grad {name}: {label} not finite")
+            err[label] = (g - w).abs().max().item()
+            if not torch.allclose(g, w, rtol=MODEL_TOL, atol=MODEL_TOL):
+                raise AssertionError(
+                    f"grad {name}: {label} max abs err {err[label]:.3e} "
+                    f"beyond rtol = atol = {MODEL_TOL}")
+        if got["launches"] != 1 or want["launches"] != 0:
+            raise AssertionError(f"grad {name}: {kernel} launches "
+                                 f"{got['launches']} (kernel path), "
+                                 f"{want['launches']} (plain path), want 1, 0")
+        errors[name] = dict(
+            out=err["out"], input=err["input"],
+            params=max(v for k, v in err.items() if k.startswith("param")),
+            param_count=len(want["params"]), seq=seq, dtype="float32")
+        del params, runs, want, got
+        torch.cuda.empty_cache()
+    emit("grad", tol=dict(rtol=MODEL_TOL, atol=MODEL_TOL),
+         max_abs_err=errors)
+    return errors
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -884,7 +1000,10 @@ def main():
     phase_profile("zamba2-2.7b", [32 * (slot + 1) for slot in range(8)],
                   320)
 
-    # 11. kernels, card, result
+    # 11. gradients on the card: the kernel paths against the plain paths
+    phase_grad(ops)
+
+    # 12. kernels, card, result
     row = rows[TRAINER_SHAPE]
     kernels = [{
         "name": "vtrace", "route": "cuda",
@@ -929,6 +1048,9 @@ def main():
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None, "graph_ms": row["graph_ms"],
+        "bound_share": row["bound_share"],
+        "host_loop_us": row["host_loop_us"],
+        "tc_bound_ms": row["tc_bound_ms"], "tc_bound_by": row["tc_bound_by"],
         "shape": row["shape"], "heads": row["heads"], "dtype": "float32"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

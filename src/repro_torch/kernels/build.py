@@ -9,7 +9,8 @@ into a shared library for ``sm_90a`` (the H100's full feature set)::
 
 Libraries go to ``_build/`` beside this file (listed in ``.gitignore``),
 named by a hash of their source and the shared headers (``csrc/*.cuh``)
-so an edited kernel is rebuilt. ``build_all`` starts one ``nvcc`` per
+so an edited kernel is rebuilt; the compiler's output is kept beside each
+library (``<lib>.log``), so a cached build still reports its registers. ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them. Each lands
 through a temporary file and ``os.replace``, so processes that build at
 the same time never load a half-written library. Nothing here runs at
@@ -62,15 +63,17 @@ def build_all(names=None) -> Dict[str, dict]:
     """Compile every kernel in ``names`` (default: all) that is not built
     yet, one ``nvcc`` process per source, all started together. Returns
     each kernel's library path, build seconds (0.0 when it was already
-    built) and the compiler's output (``ptxas`` registers and spills).
-    Raises if any build fails."""
+    built) and the compiler's output (``ptxas`` registers and spills) from
+    the build that made the library. Raises if any build fails."""
     names = list(SOURCES if names is None else names)
     results: Dict[str, dict] = {}
     running = {}
     for name in names:
         out = library_path(name)
         if out.exists():
-            results[name] = {"path": str(out), "seconds": 0.0, "log": ""}
+            log = out.with_suffix(".log")
+            results[name] = {"path": str(out), "seconds": 0.0,
+                             "log": log.read_text() if log.exists() else ""}
             continue
         compiler = nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -88,6 +91,7 @@ def build_all(names=None) -> Dict[str, dict]:
             os.unlink(tmp)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         results[name] = {"path": str(out), "seconds": seconds, "log": log}
     if failed:

@@ -6,6 +6,13 @@ takes, launches it on the current stream, and raises on anything else:
 there is no fallback from a CUDA tensor to the plain version, and a kernel
 that fails to build is an error. Each launch adds one to the kernel's
 count in ``stats()``, so a run can show that it went through the kernel.
+
+The kernels have no backward, as the reference's ``pallas_call``s have
+none: on CUDA the attention and SSD wrappers raise when autograd would
+need one (grad mode on and an input that requires grad), rather than
+return outputs with no history. The differentiable paths are
+``ssd_chunk_trainable`` here and ``models.attention``'s flash-attention
+Function: the kernel forward, the VJP of the plain version backward.
 """
 
 from __future__ import annotations
@@ -36,16 +43,26 @@ def reset_stats() -> None:
 _fns: Dict[str, Callable[..., int]] = {}
 
 
-def _kernel_fn(name, symbol, argtypes):
+def _kernel_fn(name, symbol, argtypes, restype=ctypes.c_int):
     """Function ``symbol`` of kernel ``name``'s library, typed once and
     cached, so that a call looks it up in one dict."""
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(_build.load(name), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _fns[symbol] = fn
     return fn
+
+
+def _refuse_grad(name, tensors, instead):
+    """Raise if autograd would need the kernel's backward, which it does
+    not have: grad mode is on and an input requires grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{name} kernel: an input requires grad and the kernel has no "
+            f"backward; call it under torch.no_grad(), or use {instead}")
 
 
 def _launch(device, fn, *args):
@@ -183,6 +200,8 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     # float32 rows: 4-element vector loads; bf16 rows: 16-byte cp.async
     vec = 8 if q.dtype == torch.bfloat16 else 4
     device = _check_attn("flash_attention", (q, k, v), (vec,) * 3)
+    _refuse_grad("flash_attention", (q, k, v),
+                 "models.attention.attn_apply(impl='kernel')")
     b, h, s, hd = q.shape
     kheads = k.shape[1]
     if k.shape != (b, kheads, s, hd) or v.shape != k.shape \
@@ -260,6 +279,8 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
     piece = 16 // q.element_size()
     device = _check_attn("decode_attention", (q, k, v),
                          (hd // 32 if hd % 32 == 0 else 4, piece, piece))
+    _refuse_grad("decode_attention", (q, k, v),
+                 "the plain decode path (impl='xla')")
     b, h, _ = q.shape
     kheads, s = k.shape[1], k.shape[2]
     if k.shape != (b, kheads, s, hd) or v.shape != k.shape \
@@ -318,7 +339,52 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
 _SSD_HEAD_DIMS = (16, 32, 64)
 _SSD_MAX_SMEM = 232448          # bytes of shared memory a block may use
 _SSD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])
+                 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p] * 3)
+_ssd_smem: Dict[tuple, int] = {}
+# (state floats, flag words) of the kernel's workspaces, by launch shape
+_ssd_sizes: Dict[tuple, tuple] = {}
+# per device: the kernel's flags, zero between launches (every launch
+# leaves them zero), grown when a launch needs more
+_ssd_flags: Dict[int, torch.Tensor] = {}
+
+
+def ssd_chunk_smem_bytes(length, n, p):
+    """Bytes of shared memory a launch of the SSD chunk kernel at (L, N, P)
+    needs, as the kernel's library computes them (built if needed)."""
+    key = (length, n, p)
+    nbytes = _ssd_smem.get(key)
+    if nbytes is None:
+        fn = _kernel_fn("ssd_chunk", "ssd_chunk_smem_bytes",
+                        [ctypes.c_int] * 3, ctypes.c_size_t)
+        nbytes = _ssd_smem[key] = int(fn(length, n, p))
+    return nbytes
+
+
+def _ssd_workspaces(device, rows, length, n, p):
+    """The SSD chunk kernel's workspaces for a launch of ``rows`` slices:
+    a fresh ``states`` buffer (the state at each 64-row block's start,
+    passed from the block that computes it to the block that reads it) and
+    the device's flag words, which are zero between launches. Launches on
+    one device must not overlap in time (the port runs one stream)."""
+    key = (rows, length, n, p)
+    sizes = _ssd_sizes.get(key)
+    if sizes is None:
+        sizes = _ssd_sizes[key] = (
+            _kernel_fn("ssd_chunk", "ssd_chunk_state_floats",
+                       [ctypes.c_int] * 4, ctypes.c_longlong)(
+                           rows, length, n, p),
+            _kernel_fn("ssd_chunk", "ssd_chunk_flag_words",
+                       [ctypes.c_int] * 2, ctypes.c_longlong)(rows, length))
+    floats, words = sizes
+    flags = _ssd_flags.get(device.index)
+    if flags is None or flags.numel() < words:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ssd_chunk kernel: its flags must be allocated "
+                               "before a CUDA graph capture; call it once at "
+                               "this size (or larger) first")
+        flags = _ssd_flags[device.index] = torch.zeros(
+            words, dtype=torch.int32, device=device)
+    return torch.empty(floats, dtype=torch.float32, device=device), flags
 
 
 def ssd_chunk(c, b, xdt, da, h_prev):
@@ -334,7 +400,9 @@ def ssd_chunk(c, b, xdt, da, h_prev):
 
     c, b and xdt may have any strides whose last axis is contiguous (rows
     16-byte aligned), da any strides; h_prev must be contiguous. P is 16,
-    32 or 64 and N a multiple of 4. CPU tensors take the plain version."""
+    32 or 64 and N a multiple of 4. The kernel's blocks pass states to each
+    other through two workspaces (``_ssd_workspaces``). CPU tensors take
+    the plain version. No backward: ``ssd_chunk_trainable`` has one."""
     args = (c, b, xdt, da, h_prev)
     heads_form = xdt.dim() == 4
     if all(x.device.type == "cpu" for x in args):
@@ -384,21 +452,53 @@ def ssd_chunk(c, b, xdt, da, h_prev):
                              f"elements, got strides {x.stride()}")
     if not h_prev.is_contiguous():
         raise ValueError("ssd_chunk kernel: h_prev must be contiguous")
-    # the kernel's smem_floats: prefix sums, the C and B tiles, the X tile,
-    # the weighted scores
-    smem = 4 * ((l + 3) // 4 * 4 + 128 * (n + 4) + 64 * (p + 4) + 64 * 68)
+    _refuse_grad("ssd_chunk", args, "ssd_chunk_trainable")
+    smem = ssd_chunk_smem_bytes(l, n, p)
     if smem > _SSD_MAX_SMEM:
         raise ValueError(f"ssd_chunk kernel: L={l}, N={n} need {smem} bytes "
                          f"of shared memory, more than {_SSD_MAX_SMEM}")
 
     h_new = torch.empty_like(h_prev)
+    states, flags = _ssd_workspaces(device, bsz * heads, l, n, p)
     err = _launch(
         device, _kernel_fn("ssd_chunk", "ssd_chunk_forward", _SSD_ARGTYPES),
         c.data_ptr(), b.data_ptr(), xdt.data_ptr(), da.data_ptr(),
         h_prev.data_ptr(), y.data_ptr(), h_new.data_ptr(), bsz * heads,
         heads, l, n, p, c.stride(0), c.stride(1), b.stride(0), b.stride(1),
-        *x_st, *da_st, *y_st)
+        *x_st, *da_st, *y_st, states.data_ptr(), flags.data_ptr())
     if err != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err}")
     _launches["ssd_chunk"] += 1
     return y, h_new
+
+
+class _SSDChunk(torch.autograd.Function):
+    """``ssd_chunk`` forward; backward the VJP of its plain version,
+    recomputed from the saved inputs (the chunk is rematerialised, as
+    flash attention rematerialises its scores)."""
+
+    @staticmethod
+    def forward(ctx, c, b, xdt, da, h_prev):
+        ctx.save_for_backward(c, b, xdt, da, h_prev)
+        return ssd_chunk(c, b, xdt, da, h_prev)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        plain = (_ref.ref_ssd_chunk_heads if saved[2].dim() == 4
+                 else _ref.ref_ssd_chunk)
+        with torch.enable_grad():
+            args = [x.detach().requires_grad_(need)
+                    for x, need in zip(saved, ctx.needs_input_grad)]
+            wanted = [x for x in args if x.requires_grad]
+            grads = iter(torch.autograd.grad(plain(*args), wanted,
+                                             (dy, dh)))
+        return tuple(next(grads) if x.requires_grad else None for x in args)
+
+
+def ssd_chunk_trainable(c, b, xdt, da, h_prev):
+    """``ssd_chunk`` with a backward (the reference's
+    ``kernels.ops.ssd_chunk_trainable``): the kernel on the forward (the
+    plain version for CPU tensors), the VJP of the plain version on the
+    backward, in either layout."""
+    return _SSDChunk.apply(c, b, xdt, da, h_prev)

@@ -15,8 +15,9 @@ on the serving path) meets the float32 weight in a float32 product, and
 the result is rounded back to the activation's type.
 
 ``impl`` names the path: ``kernel`` runs the CUDA flash-attention kernel
-(prefill) and decode-attention kernel (decode) on the card, and their
-plain versions for CPU tensors; ``xla`` (dense), ``xla_chunked`` and
+(prefill; differentiable through the chunked plain path, as the
+reference's custom VJP) and decode-attention kernel (decode) on the card,
+and their plain versions for CPU tensors; ``xla`` (dense), ``xla_chunked`` and
 ``xla_chunked_skip`` keep the reference's names for its plain paths, here
 plain PyTorch; ``auto`` picks dense up to 2048 tokens.
 """
@@ -178,15 +179,48 @@ def _attend_chunked(q, k, v, q_pos, k_pos, scale, window, cap, causal,
     return torch.cat(outs, dim=1)
 
 
-def _attend_flash_kernel(q, k, v, *, scale, window, cap):
-    """Causal attention on the flash-attention kernel (the plain version for
-    CPU tensors). q (B,S,H,hd) and k, v (B,S,K,hd) go in as (B,H,S,hd)
-    views, unexpanded: the kernel reads kv head h // (H/K) itself. Forward
-    only: the port has no backward kernel yet (ROADMAP item 18)."""
-    o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), scale=scale, causal=True,
-                             window=window, softcap=cap or 0.0)
-    return o.transpose(1, 2)
+class _FlashAttention(torch.autograd.Function):
+    """Causal attention on the flash-attention kernel, differentiable: the
+    reference's ``jax.custom_vjp`` in its ``_attend_flash_kernel``.
+
+    Forward: the kernel (its plain version for CPU tensors). q (B,S,H,hd)
+    and k, v (B,S,K,hd) go in as (B,H,S,hd) views, unexpanded: the kernel
+    reads kv head h // (H/K) itself. Backward: autograd through the chunked
+    plain path (``_attend_chunked``) recomputed from the saved q, k, v, with
+    fixed trip counts (``skip=False``, as the reference) and positions
+    ``arange(S)``; K/V are expanded inside the recomputation, so dk and dv
+    sum back to the K heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, cap, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (scale, window, cap, chunk)
+        o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), scale=scale, causal=True,
+                                 window=window, softcap=cap or 0.0)
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, window, cap, chunk = ctx.opts
+        q, k, v = ctx.saved_tensors
+        group = q.shape[2] // k.shape[2]
+        pos = torch.arange(q.shape[1], device=q.device)
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+            o = _attend_chunked(q, _expand_kv(k, group), _expand_kv(v, group),
+                                pos, pos, scale, window, cap, True, chunk,
+                                skip=False)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, None, None, None, None)
+
+
+def _attend_flash_kernel(q, k, v, *, scale, window, cap, chunk):
+    """Causal attention on the flash-attention kernel, with the backward of
+    ``_FlashAttention``. q (B,S,H,hd), k, v (B,S,K,hd) -> (B,S,H,hd)."""
+    return _FlashAttention.apply(q, k, v, scale, window, cap, chunk)
 
 
 def attn_apply(params, x, *, cfg, kind, positions, impl=None):
@@ -207,7 +241,8 @@ def attn_apply(params, x, *, cfg, kind, positions, impl=None):
     group = cfg.num_heads // cfg.num_kv_heads
     if impl == "kernel":
         o = _attend_flash_kernel(q, k, v, scale=_scale(cfg), window=window,
-                                 cap=cfg.attn_logit_softcap)
+                                 cap=cfg.attn_logit_softcap,
+                                 chunk=cfg.attn_chunk)
     elif impl == "xla":
         o = _attend_dense(q, _expand_kv(k, group), _expand_kv(v, group),
                           positions, positions, _scale(cfg), window,

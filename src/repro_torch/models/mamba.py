@@ -12,7 +12,9 @@ SSD chunks and the state are float32.
 ``mamba_apply`` runs the sequence chunk by chunk, each chunk either as the
 reference's einsum math (``ssd_impl="xla"``, plain PyTorch here) or on the
 SSD chunk kernel (``"kernel"``: the CUDA kernel on the card, its plain
-version for CPU tensors), and carries the (B,H,P,N) state between chunks.
+version for CPU tensors, with the plain version's VJP as its backward, as
+the reference's ``ssd_chunk_trainable``), and carries the (B,H,P,N) state
+between chunks.
 As in the reference, a sequence longer than one chunk must be a multiple of
 it. ``mamba_decode`` is the one-token recurrence; it writes the new conv
 window and state into the cache in place.
@@ -155,7 +157,7 @@ def mamba_apply(params, x, cfg, state=None, return_state=False, impl=None):
     for i in range(0, s, chunk):
         args = (cmat[:, i:i + chunk], bmat[:, i:i + chunk],
                 xw[:, i:i + chunk], da[:, i:i + chunk], h)
-        y_i, h = (kops.ssd_chunk(*args) if impl == "kernel"
+        y_i, h = (kops.ssd_chunk_trainable(*args) if impl == "kernel"
                   else _chunk_xla(*args))
         ys.append(y_i)
     y = torch.cat(ys, dim=1) + params["d_skip"][None, None, :, None] * xh

@@ -176,3 +176,71 @@ def test_zamba2_server_on_the_card_counts_kernel_launches(cuda_device):
         == cfg.num_groups * server.admissions
     assert after["decode_attention"] - before["decode_attention"] \
         == cfg.num_groups * server.steps
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's edges: a k-tail of N zero-filled to 8, ragged
+# lengths, decays that underflow to exactly 0, strided views, 8 rows
+# ---------------------------------------------------------------------------
+
+def _model_inputs(device, rows, length, heads, n, p, decay, seed,
+                  strided=False):
+    """c, b, x, da, h_prev in the model's layout; with ``strided`` c and b
+    are column views of one wider tensor and x, da row views of longer
+    ones, as the model's convolution output and chunks hand them over."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    if strided:
+        conv = rand(rows, length + 4, 2 * n + 8)
+        c, b = conv[:, 2:2 + length, 4:4 + n], conv[:, 2:2 + length,
+                                                       n + 8:]
+        x = rand(rows, length + 3, heads, p)[:, 3:]
+        da = -decay * torch.rand((rows, length + 5, heads), generator=gen,
+                                 device=device)[:, 5:]
+    else:
+        c, b = rand(rows, length, n), rand(rows, length, n)
+        x = rand(rows, length, heads, p)
+        da = -decay * torch.rand((rows, length, heads), generator=gen,
+                                 device=device)
+    return c, b, x, da, rand(rows, heads, p, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,length,heads,n,p,decay,strided", [
+    (2, 100, 3, 36, 32, 0.1, False),     # N = 36: k-tail zero-filled to 40
+    (2, 64, 2, 36, 16, 0.1, True),
+    (1, 1, 80, 64, 64, 0.55, False),     # one token
+    (1, 37, 80, 64, 64, 0.55, False),    # ragged
+    (1, 255, 80, 64, 64, 0.55, False),   # one short of the chunk
+    (2, 200, 4, 64, 64, 2.0, False),     # decays underflow to exactly 0
+    (2, 256, 8, 64, 64, 0.55, True),     # strided views
+    (8, 256, 10, 64, 64, 0.55, False),   # 8 rows
+])
+def test_ssd_tensor_core_kernel_edges(cuda_device, rows, length, heads, n, p,
+                                      decay, strided):
+    args = _model_inputs(cuda_device, rows, length, heads, n, p, decay,
+                         seed=length * n + heads, strided=strided)
+    y, h_new = tops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h_new).all()
+    if decay >= 2.0:
+        # the decay over the whole chunk underflows: h_prev's share is 0
+        acs = torch.cumsum(args[3].double(), dim=1)
+        assert float(acs[:, -1].max()) < -104.0
+        assert (torch.exp(acs[:, -1].float()) == 0).all()
+    _assert_ssd_close((y, h_new), tref.ref_ssd_chunk_heads(*args), args,
+                      plain=tref.ref_ssd_chunk_heads)
+
+
+@pytest.mark.gpu
+def test_ssd_smem_need_comes_from_the_kernel(cuda_device):
+    """The wrapper's shared-memory check reads the kernel's own formula,
+    which grows with L, N and P and fits the card at the serving shape."""
+    need = tops.ssd_chunk_smem_bytes
+    assert 0 < need(256, 64, 64) <= 232448
+    assert need(256, 64, 64) < need(512, 64, 64)
+    assert need(256, 36, 64) == need(256, 40, 64) < need(256, 64, 64)
+    assert need(256, 64, 32) < need(256, 64, 64)
