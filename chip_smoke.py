@@ -9,9 +9,10 @@ exits nonzero without printing a result:
   1. device   the card (nvidia-smi name and power limit), torch and CUDA
   2. build    nvcc builds every kernel from csrc/, one process per source,
               all started together (ptxas registers and spills of every
-              kernel function, seconds)
+              kernel function, seconds; a spill in V-trace fails)
   3. kernel   each kernel against its plain PyTorch version on the card:
-              V-trace at the trainer's and the paper's shapes; flash
+              V-trace at the trainer's and the paper's shapes, one
+              launch's floor (1, 1) and a long unroll past the L2; flash
               attention at Qwen3-4B's prefill shapes, a windowed and
               softcapped case, head_dim 64 and 256, and Zamba2's shared
               block (head_dim 80); decode attention at the serving shapes
@@ -65,6 +66,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -77,8 +79,14 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 VTRACE_TOL = 1e-5              # expf rounding compounds through <=200 FMAs
-VTRACE_SHAPES = [(80, 32), (20, 32), (1, 1), (33, 200), (200, 4096)]
+# (T, B): the learner's and the trainer's, one launch's floor (1, 1), a
+# ragged B, and two at a long unroll: (200, 4096) moves 19.7 MB, which
+# stays in the 50 MB L2 across graph replays, (200, 16384) 78.7 MB, which
+# does not
+VTRACE_SHAPES = [(80, 32), (20, 32), (1, 1), (33, 200), (200, 4096),
+                 (200, 16384)]
 TRAINER_SHAPE = (20, 32)       # (T, B) of the phase-5 main path
+VTRACE_FLOOR = (1, 1)          # one thread, one row: a launch's floor
 # float operations per (t, b) element of the fused kernel: 3 clips, delta
 # (4), recurrence (3), vs (1), pg-advantage (4); the expf counts as one
 VTRACE_FLOPS_PER_ELEM = 15
@@ -172,7 +180,9 @@ def graph_ms(fn, launches=50):
     return event_ms(graph.replay, reps=10) / launches
 
 
-def vtrace_inputs(t, b, seed):
+def vtrace_inputs(t, b, seed, device="cuda"):
+    """log_rhos, discounts, rewards, values (T, B) and bootstrap (B,),
+    float32 on ``device``, drawn with numpy from ``seed``."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -181,7 +191,7 @@ def vtrace_inputs(t, b, seed):
               rng.normal(0, 1, (t, b)),
               rng.normal(0, 1, (t, b)),
               rng.normal(0, 1, (b,)))
-    return [torch.tensor(a, dtype=torch.float32, device="cuda")
+    return [torch.tensor(a, dtype=torch.float32, device=device)
             for a in arrays]
 
 
@@ -232,7 +242,11 @@ def phase_kernel(ops, ref):
             row = dict(T=t, B=b, max_abs_err=abs_err, max_rel_err=rel_err,
                        tol=VTRACE_TOL, ms=ms, graph_ms=dev_ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=None,
+                       bound_by=bound_by, bound_share=bound_ms / dev_ms,
+                       host_loop_us=host_loop_us(
+                           lambda: ops.vtrace_from_importance_weights_kernel(
+                               *args)),
+                       library_ms=None,
                        library_note="no single PyTorch call computes the "
                                     "V-trace recurrence")
             rows[(t, b)] = row
@@ -925,13 +939,19 @@ def main():
          allow_tf32=[torch.backends.cuda.matmul.allow_tf32,
                      torch.backends.cudnn.allow_tf32])
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source, all started together; V-trace's
+    # chunks live in registers, so a spill there fails the build phase
     t0 = time.perf_counter()
     for name, r in build.build_all().items():
         ptxas = [ln.strip() for ln in r["log"].splitlines()
                  if "entry function" in ln or "registers" in ln
                  or "spill" in ln]
-        emit("build", kernel=name, seconds=r["seconds"], ptxas=ptxas)
+        spill_bytes = sum(int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", r["log"]))
+        emit("build", kernel=name, seconds=r["seconds"], ptxas=ptxas,
+             spill_bytes=spill_bytes)
+        if name == "vtrace" and spill_bytes:
+            raise AssertionError(f"vtrace kernel spills {spill_bytes} bytes")
     emit("build", total_seconds=time.perf_counter() - t0)
 
     # 3. each kernel against its plain version
@@ -953,6 +973,7 @@ def main():
         ["--mode", "rl-agent", "--env", "gridworld", "--agent", "deep",
          "--batch", "32", "--steps", "20"])
     trainer_launches = ops.stats()
+    trainer_chunks = ops.last_vtrace_chunks()
     if trainer_launches["vtrace"] < 20:
         raise AssertionError(f"trainer made {trainer_launches} vtrace "
                              "launches, fewer than its 20 steps")
@@ -962,7 +983,8 @@ def main():
     emit("trainer", env="gridworld", agent="deep", T=TRAINER_SHAPE[0],
          B=TRAINER_SHAPE[1], steps=20, seconds=seconds,
          ms_per_step=seconds / 20 * 1e3, launches=trainer_launches,
-         fps_line=last, **split_ms(runtime))
+         vtrace_chunks=list(trainer_chunks), fps_line=last,
+         **split_ms(runtime))
 
     # 6. convergence on Catch (the quickstart settings)
     before = ops.stats()["vtrace"]
@@ -1014,6 +1036,10 @@ def main():
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None, "graph_ms": row["graph_ms"],
+        "bound_share": row["bound_share"],
+        "host_loop_us": row["host_loop_us"],
+        "floor_graph_ms": rows[VTRACE_FLOOR]["graph_ms"],
+        "chunks": list(trainer_chunks),
         "shape": list(TRAINER_SHAPE)}]
     for name, replaces, all_rows, (shape, dtype) in [
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",

@@ -80,7 +80,29 @@ def _threshold(x):
 
 
 _VTRACE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
+_VTRACE_MAX_WARPS = 16         # W at most: 512 threads a block
+_VTRACE_MAX_ROWS = 16          # L at most: the rows one thread holds
+_vtrace_chunks: Dict[str, int] = {"warps": 0, "rows": 0}
+
+
+def vtrace_chunks(t):
+    """(W, L) of the V-trace kernel for ``t`` rows: each block has W warps,
+    each warp a chunk of L consecutive rows held in registers. L is the
+    least of 1, 2, 4, 8, 16 with 16 L >= T (16 beyond T = 256) and W =
+    ceil(T / L), at most 16; a T beyond W L = 256 is walked in segments of
+    256 rows from the last. ``csrc/vtrace.cu`` says why."""
+    rows = 1
+    while rows < _VTRACE_MAX_ROWS and rows * _VTRACE_MAX_WARPS < t:
+        rows *= 2
+    return max(1, min(_VTRACE_MAX_WARPS, -(-t // rows))), rows
+
+
+def last_vtrace_chunks():
+    """(W, L) with which ``vtrace_from_importance_weights_kernel`` last
+    launched its kernel; (0, 0) before its first launch."""
+    return _vtrace_chunks["warps"], _vtrace_chunks["rows"]
 
 
 def vtrace_from_importance_weights_kernel(
@@ -88,10 +110,11 @@ def vtrace_from_importance_weights_kernel(
         clip_rho_threshold=1.0, clip_c_threshold=1.0,
         clip_pg_rho_threshold=1.0):
     """V-trace with the whole computation in one launch of the CUDA kernel
-    ``csrc/vtrace.cu`` (drop-in for ``core.vtrace.
-    vtrace_from_importance_weights``). log_rhos, discounts, rewards, values:
-    (T, B) float32; bootstrap_value: (B,). ``None`` thresholds mean no
-    clipping. Returns VTraceReturns(vs, pg_advantages), with no gradient."""
+    ``csrc/vtrace.cu``, a chunked scan over T cut by ``vtrace_chunks``
+    (drop-in for ``core.vtrace.vtrace_from_importance_weights``). log_rhos,
+    discounts, rewards, values: (T, B) float32; bootstrap_value: (B,).
+    ``None`` thresholds mean no clipping. Returns VTraceReturns(vs,
+    pg_advantages), with no gradient."""
     from repro_torch.core.vtrace import VTraceReturns
 
     args = (log_rhos, discounts, rewards, values, bootstrap_value)
@@ -119,6 +142,7 @@ def vtrace_from_importance_weights_kernel(
     if not all(x.is_contiguous() for x in args):
         raise ValueError("vtrace kernel: inputs must be contiguous")
 
+    warps, rows = vtrace_chunks(t)
     vs = torch.empty_like(values)
     pg_advantages = torch.empty_like(values)
     err = _launch(
@@ -126,10 +150,12 @@ def vtrace_from_importance_weights_kernel(
                            _VTRACE_ARGTYPES),
         *(x.data_ptr() for x in args), vs.data_ptr(),
         pg_advantages.data_ptr(), t, b, _threshold(clip_rho_threshold),
-        _threshold(clip_c_threshold), _threshold(clip_pg_rho_threshold))
+        _threshold(clip_c_threshold), _threshold(clip_pg_rho_threshold),
+        warps, rows)
     if err != 0:
         raise RuntimeError(f"vtrace kernel launch failed: CUDA error {err}")
     _launches["vtrace"] += 1
+    _vtrace_chunks.update(warps=warps, rows=rows)
     return VTraceReturns(vs, pg_advantages)
 
 
