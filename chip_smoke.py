@@ -28,29 +28,40 @@ exits nonzero without printing a result:
   5. trainer  repro_torch.launch.train.main on gridworld with the deep agent
               (the rl-agent main path: its V-trace launches are reported)
   6. converge Catch with the quickstart settings must reach "SOLVED"
-  7. model    Qwen3-4B at full width in float32, weights from seed 0: the
+  7. host     repro_torch.launch.train.main with --actors host (8 actor
+              threads stepping gridworld on the CPU, the deep agent's
+              policy batched on the card, the learner's V-trace launches
+              reported); no inference or actor thread may outlive main
+  8. resume   Catch with the minatar agent, cuDNN pinned deterministic:
+              two uninterrupted 12-step runs, a run crashed at step 7 and
+              resumed from its crash checkpoint, and a CLI run checkpointed
+              every 6 steps and resumed from step 6, each bitwise equal to
+              the uninterrupted run's final params and optimizer state;
+              then the checkpoint's bytes and the times of snapshot and
+              write
+  9. model    Qwen3-4B at full width in float32, weights from seed 0: the
               kernel attention path against the plain (dense) path on 4
               prompts of 300 tokens and 16 teacher-forced decode steps
-  8. serve    repro_torch.launch.serve.main at full Qwen3-4B width in bf16
+ 10. serve    repro_torch.launch.serve.main at full Qwen3-4B width in bf16
               with --attn-impl kernel, 24 requests (the serving main path:
               its flash- and decode-attention launches are reported); then
               a profile of one decode step (host time, device busy time by
               kernel)
-  9. zamba    Zamba2-2.7B as published in float32, weights from seed 0: the
+ 11. zamba    Zamba2-2.7B as published in float32, weights from seed 0: the
               kernel path (SSD chunk and attention kernels) against the
               plain path on 4 prompts of 512 tokens (two chunks, the state
               carried through the kernel) and 16 teacher-forced steps
- 10. zserve   repro_torch.launch.serve.main at full Zamba2-2.7B width with
+ 12. zserve   repro_torch.launch.serve.main at full Zamba2-2.7B width with
               --attn-impl kernel --ssd-impl kernel, 24 requests of 1..256
               tokens (its SSD chunk, flash- and decode-attention launches
               are reported); then a profile of one decode step
- 11. grad     gradients on the card, float32: one full-width Zamba2-2.7B
+ 13. grad     gradients on the card, float32: one full-width Zamba2-2.7B
               Mamba2 layer on a 256-token chunk and one full-width Qwen3-4B
               attention layer at S 512, the loss mean(out^2) through the
               kernel paths (kernel forward, the plain version's VJP
               backward) against the plain paths, on the output, the input
               and every parameter, within MODEL_TOL
- 12. kernels  one {"kernels": [...]} line, then the card's name and power
+ 14. kernels  one {"kernels": [...]} line, then the card's name and power
               limit, then the final {"ok": true, "device": {...}} line
 
 It needs CUDA and the repository's src/ beside it; it exits nonzero when
@@ -70,8 +81,10 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+_T0 = time.perf_counter()
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -128,6 +141,12 @@ MODEL_TOL = 1e-3               # full-width logits, kernel vs dense path
 SERVE_ARGV = ["--arch", "qwen3-4b", "--attn-impl", "kernel", "--requests",
               "24", "--prompt-len", "512", "--gen-tokens", "64",
               "--max-batch", "8"]
+HOST_ARGV = ["--mode", "rl-agent", "--actors", "host", "--env", "gridworld",
+             "--agent", "deep", "--batch", "32", "--steps", "20"]
+# the resume phase's run: Catch, the minatar agent, the quickstart settings
+RESUME_ARGV = ["--mode", "rl-agent", "--env", "catch", "--agent", "minatar",
+               "--batch", "32", "--lr", "2e-3"]
+RESUME_STEPS, CRASH_STEP, CKPT_EVERY, CLI_EVERY = 12, 7, 4, 6
 ZAMBA_SERVE_ARGV = ["--arch", "zamba2-2.7b", "--attn-impl", "kernel",
                     "--ssd-impl", "kernel", "--requests", "24",
                     "--prompt-len", "256", "--gen-tokens", "64",
@@ -135,7 +154,9 @@ ZAMBA_SERVE_ARGV = ["--arch", "zamba2-2.7b", "--attn-impl", "kernel",
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def smi_line():
@@ -804,7 +825,8 @@ def run_trainer(argv):
 
 def split_ms(runtime, reps=5):
     """Synchronised host-clock medians of the two halves of a trainer step
-    after its run: one rollout from the source, one learner step."""
+    after its run: one rollout batch from the source (restarted by its
+    first next_batch, stopped at the end), one learner step."""
     import torch
 
     def timed(fn):
@@ -823,6 +845,213 @@ def split_ms(runtime, reps=5):
         runtime.params, runtime.opt_state, runtime.total_steps, batch))
     src.stop()
     return {"unroll_ms": unroll_ms, "learner_ms": learner_ms}
+
+
+def _host_threads():
+    import threading
+    return sorted(t.name for t in threading.enumerate() if t.is_alive()
+                  and (t.name == "inference" or t.name.startswith("actor-")))
+
+
+def phase_host(ops):
+    """The MonoBeast host-actor path through its entry point; returns the
+    kernel launches of the run. Then its parts, alone: one env step on
+    the CPU (one thread), one batched policy call of 8 observations on
+    the card (to the logits on the host), and the two halves of a step (a
+    learner batch from the restarted actors, one learner step)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.envs import gridworld
+    from repro_torch.envs.base import HostEnv
+
+    ops.reset_stats()
+    runtime, seconds, last = run_trainer(HOST_ARGV)
+    launches = ops.stats()
+    left = _host_threads()
+    if left:
+        raise AssertionError(f"host actors left threads alive: {left}")
+    if launches["vtrace"] < 20:
+        raise AssertionError(f"host path made {launches} vtrace launches, "
+                             "fewer than its 20 steps")
+    loss = float(runtime.metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"host path loss not finite: {loss}")
+
+    env = HostEnv(gridworld.make(), seed=0)
+    env.reset()
+    t0 = time.perf_counter()
+    for i in range(500):
+        env.step(i % gridworld.NUM_ACTIONS)
+    env_step_us = (time.perf_counter() - t0) / 500 * 1e6
+    obs = np.zeros((8,) + gridworld.make().obs_shape, np.float32)
+    policy_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        runtime.source._policy(obs)
+        policy_ms.append((time.perf_counter() - t0) * 1e3)
+    split = split_ms(runtime, reps=3)
+    left = _host_threads()
+    if left:
+        raise AssertionError(f"host actors left threads alive: {left}")
+    emit("host", env="gridworld", agent="deep", actors=8,
+         T=TRAINER_SHAPE[0], B=TRAINER_SHAPE[1], steps=20, seconds=seconds,
+         ms_per_step=seconds / 20 * 1e3, launches=launches, fps_line=last,
+         loss=loss, threads_left=left, env_step_us=env_step_us,
+         torch_threads=torch.get_num_threads(),
+         policy_ms=statistics.median(policy_ms[5:]),
+         batch_ms=split["unroll_ms"], learner_ms=split["learner_ms"])
+    return launches
+
+
+def _learner_state(runtime):
+    """Params and optimizer state of a finished run, on the host."""
+    state = {f"params/{k}": v.cpu()
+             for k, v in runtime.params.state_dict().items()}
+    for key, tensors in runtime.opt_state.items():
+        state.update({f"opt_state/{key}/{i}": t.cpu()
+                      for i, t in enumerate(tensors)})
+    return state
+
+
+def _bitwise(name, got, want):
+    import torch
+    if list(got) != list(want):
+        raise AssertionError(f"resume {name}: state keys differ")
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"resume {name}: not bitwise equal to the "
+                             f"uninterrupted run at {bad[:4]}")
+
+
+def _quiet(fn):
+    """fn() with its stdout captured; returns (result, lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().strip().splitlines()
+
+
+def _checkpoint_cost(train, ckpt_lib, argv, directory, reps=5):
+    """Medians of the synchronised host-clock times of snapshot and of
+    write_snapshot for a Runtime checkpoint of the run ``argv`` builds
+    (learner state and a pipelined source with a rollout in flight), and
+    the bytes on disk."""
+    import torch
+    args = train._parser().parse_args(argv)
+    source, _, agent, opt_state, _ = train.build_rl_agent(args)
+    for _ in range(2):
+        source.next_batch(agent)
+    snap_ms, write_ms = [], []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = ckpt_lib.snapshot(
+            {"params": agent.state_dict(), "opt_state": opt_state},
+            structured={"source": source.state_dict()})
+        t1 = time.perf_counter()
+        path = os.path.join(directory, f"step_{i}")
+        ckpt_lib.write_snapshot(path, snap, {"step": i})
+        t2 = time.perf_counter()
+        snap_ms.append((t1 - t0) * 1e3)
+        write_ms.append((t2 - t1) * 1e3)
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    source.stop()
+    return {"snapshot_ms": statistics.median(snap_ms),
+            "write_ms": statistics.median(write_ms), "bytes": nbytes}
+
+
+def phase_resume(ops, workdir):
+    """Crash-and-resume and CLI resume on the card, each held bitwise to
+    an uninterrupted run; then what a checkpoint costs."""
+    import shutil
+
+    import torch
+
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.launch import train
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    argv = RESUME_ARGV + ["--steps", str(RESUME_STEPS)]
+    before = ops.stats()["vtrace"]
+    t0 = time.perf_counter()
+    try:
+        def run(extra=(), **kw):
+            args = train._parser().parse_args(argv + list(extra))
+            source, step_fn, agent, opt_state, extras = \
+                train.build_rl_agent(args)
+            start = 0
+            if args.resume:
+                (opt_state, start), _ = _quiet(lambda: train._resume(
+                    args, source, agent, opt_state))
+            runtime = Runtime(source, step_fn, agent, opt_state,
+                              total_steps=RESUME_STEPS, start_step=start,
+                              log_every=0, print_fn=lambda line: None,
+                              checkpoint_meta=train._checkpoint_meta(args),
+                              **kw)
+            runtime.run()
+            return runtime
+
+        want = _learner_state(run())
+        _bitwise("second uninterrupted run", _learner_state(run()), want)
+
+        # a crash raised from on_metrics after step CRASH_STEP's update
+        crash_dir = os.path.join(workdir, "crash")
+
+        def boom(step, metrics):
+            if step == CRASH_STEP:
+                raise RuntimeError("killed")
+
+        try:
+            run(checkpoint_dir=crash_dir, checkpoint_every=CKPT_EVERY,
+                on_metrics=boom)
+        except RuntimeError as exc:
+            if str(exc) != "killed":
+                raise
+        else:
+            raise AssertionError("the crashing run did not crash")
+        latest = ckpt_lib.latest_step_path(crash_dir)
+        if os.path.basename(latest) != f"step_{CRASH_STEP + 1}":
+            raise AssertionError(f"crash checkpoint is {latest}")
+        crash = run(["--checkpoint-dir", crash_dir, "--resume"])
+        _bitwise("crash-and-resume", _learner_state(crash), want)
+
+        # the CLI: checkpoints every CLI_EVERY steps, cut back to the first
+        # one (as if killed there), then --resume to the same horizon
+        cli_dir = os.path.join(workdir, "cli")
+        _quiet(lambda: train.main(argv + [
+            "--checkpoint-every", str(CLI_EVERY), "--checkpoint-dir",
+            cli_dir]))
+        shutil.rmtree(os.path.join(cli_dir, f"step_{RESUME_STEPS}"))
+        resumed, lines = _quiet(lambda: train.main(argv + [
+            "--checkpoint-dir", cli_dir, "--resume"]))
+        banner = (f"resumed {cli_dir}/step_{CLI_EVERY} at step {CLI_EVERY} "
+                  "(source state restored)")
+        if banner not in lines:
+            raise AssertionError(f"CLI resume printed {lines[:2]}")
+        _bitwise("CLI resume", _learner_state(resumed), want)
+        seconds = time.perf_counter() - t0
+        launches = ops.stats()["vtrace"] - before
+        cost = {name: _checkpoint_cost(
+                    train, ckpt_lib, cfg_argv,
+                    os.path.join(workdir, f"cost-{name}"))
+                for name, cfg_argv in [
+                    ("catch minatar", argv),
+                    ("gridworld deep", ["--env", "gridworld", "--agent",
+                                        "deep", "--batch", "32"])]}
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    emit("resume", env="catch", agent="minatar", steps=RESUME_STEPS,
+         crash_step=CRASH_STEP, checkpoint_every=CKPT_EVERY,
+         cli_every=CLI_EVERY, cudnn_deterministic=True, bitwise=True,
+         leaves=len(want), seconds=seconds, vtrace_launches=launches,
+         checkpoint=cost)
 
 
 def _grad_run(ops, kernel, params, x0, apply):
@@ -1003,35 +1232,43 @@ def main():
     del runtime
     torch.cuda.empty_cache()
 
-    # 7. full-width Qwen3-4B: kernel path against the dense path
+    # 7. the host actors through the entry point
+    host_launches = phase_host(ops)
+
+    # 8. checkpoint and resume, bitwise
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
+        phase_resume(ops, workdir)
+
+    # 9. full-width Qwen3-4B: kernel path against the dense path
     phase_model(ops, "qwen3-4b", 300)
 
-    # 8. the server through its entry point: the serving main path, then
+    # 10. the server through its entry point: the serving main path, then
     # a profile of its decode step
     serve_launches = phase_serve(ops, SERVE_ARGV)
     torch.cuda.empty_cache()
     phase_profile("qwen3-4b", [256 + 32 * slot for slot in range(8)], 576)
 
-    # 9. full-width Zamba2-2.7B: kernel path against the plain path
+    # 11. full-width Zamba2-2.7B: kernel path against the plain path
     phase_model(ops, "zamba2-2.7b", 512)
 
-    # 10. the Zamba2 server: the path through the SSD chunk kernel, then a
+    # 12. the Zamba2 server: the path through the SSD chunk kernel, then a
     # profile of its decode step and of one admission
     zamba_launches = phase_serve(ops, ZAMBA_SERVE_ARGV)
     torch.cuda.empty_cache()
     phase_profile("zamba2-2.7b", [32 * (slot + 1) for slot in range(8)],
                   320)
 
-    # 11. gradients on the card: the kernel paths against the plain paths
+    # 13. gradients on the card: the kernel paths against the plain paths
     phase_grad(ops)
 
-    # 12. kernels, card, result
+    # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     kernels = [{
         "name": "vtrace", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/vtrace.cu",
         "replaces": "src/repro/kernels/vtrace.py:38",
         "launches": trainer_launches["vtrace"],
+        "host_launches": host_launches["vtrace"],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

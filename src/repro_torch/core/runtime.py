@@ -4,12 +4,14 @@
                                   batch_size=32, seed=1, pipelined=True)
     step_fn = learner.make_train_step(opt, train_cfg)
     runtime = Runtime(source, step_fn, agent,
-                      opt.init(list(agent.parameters())), total_steps=1000)
+                      opt.init(list(agent.parameters())), total_steps=1000,
+                      checkpoint_dir="/tmp/ckpt")
     agent, opt_state = runtime.run()
 
 The learner step contract is
 ``(params, opt_state, step:int, batch) -> (params, opt_state, metrics)``;
-LR schedules advance through the ``step`` argument.
+LR schedules advance through the ``step`` argument. ``params`` is the
+learner's agent module; its checkpoint leaves are its ``state_dict()``.
 
 Off-policy note: pipelined sources hand the learner rollouts generated by
 slightly stale parameters. That is the architecture of the paper — the
@@ -33,45 +35,69 @@ class Runtime:
       step_fn: learner step (see module docstring for the contract).
       params, opt_state: initial learner state.
       total_steps: number of learner steps.
+      start_step: first step index (resume: restore {params, opt_state}
+        from a checkpoint and pass its saved step here — the LR schedule
+        advances through the step argument, so it continues unbroken).
       log_every: print metrics every N steps (default total_steps // 20;
         0/None disables printing). Reading a metric waits for the device,
         so printing sparsely keeps the host ahead of the card.
       log_keys: which metric keys to print (default: all scalar ones).
         Each line ends with ``fps``, WINDOWED (since the previous log line,
         so late slowdowns show), and the lifetime average ``fps_avg``.
-      checkpoint_dir: not ported yet (raises NotImplementedError).
+      checkpoint_dir: if set, save {params' state_dict, opt_state} plus the
+        source's ``state_dict()`` (the SourceState protocol of
+        core/sources.py) to the ``{dir}/step_{total_steps}`` checkpoint at
+        the end (and every ``checkpoint_every`` steps when > 0).
+        Checkpointing is SNAPSHOT-THEN-WRITE: the loop takes a synchronous
+        host copy (``checkpoint.snapshot``) and a background writer thread
+        persists it, so the learner never blocks on disk; the writer is
+        flushed and joined on every exit path. On a mid-training exception
+        a crash checkpoint of the last completed state is saved before
+        re-raising — unless the failure came from inside ``step_fn``,
+        whose in-place update may have left params and optimizer state
+        torn (see ``run``). Resuming from a boundary (periodic/final)
+        checkpoint replays the exact batch stream — final params are
+        bit-identical to an uninterrupted run.
+      checkpoint_meta: extra metadata recorded in every checkpoint's
+        manifest alongside ``step`` (the train CLI stores mode/env here
+        and validates them on ``--resume``).
       on_metrics: optional callback ``(step, metrics)`` invoked every step
         with the raw (device-resident) metrics dict.
       print_fn: sink for log lines.
     """
 
     def __init__(self, source, step_fn: Callable, params, opt_state, *,
-                 total_steps: int,
+                 total_steps: int, start_step: int = 0,
                  log_every: Optional[int] = None,
                  log_keys: Optional[Sequence[str]] = None,
                  checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0,
+                 checkpoint_meta: Optional[Dict[str, Any]] = None,
                  on_metrics: Optional[Callable[[int, Dict[str, Any]], None]]
                  = None,
                  print_fn: Callable[[str], None] = print):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet (ROADMAP.md, Slice A "
-                "item 11: single-process checkpoint + --resume)")
         self.source = source
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
         self.total_steps = total_steps
+        self.start_step = start_step
         if log_every is None:
             log_every = max(1, total_steps // 20)
         self.log_every = log_every
         self.log_keys = log_keys
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_meta = dict(checkpoint_meta or {})
+        self._writer = None                    # AsyncCheckpointWriter, lazy
         self.on_metrics = on_metrics
         self.print_fn = print_fn
         self.frames = 0
         self.metrics: Optional[Dict[str, Any]] = None
         self._win_t: Optional[float] = None    # windowed-FPS anchors
         self._win_frames = 0
+
+    # -- pieces -------------------------------------------------------------
 
     def _log(self, step: int, t0: float) -> None:
         parts = [f"step {step:5d}"]
@@ -95,22 +121,116 @@ class Runtime:
         self._win_t, self._win_frames = now, self.frames
         self.print_fn(" ".join(parts))
 
+    def _checkpoint(self, step: int) -> None:
+        from repro_torch import checkpoint as ckpt_lib
+        path = f"{self.checkpoint_dir}/step_{step}"
+        # SourceState rides along (self-describing): env carry, generator
+        # state, the in-flight rollout and the actors' parameter copy — so
+        # --resume replays the exact batch stream. Periodic/final
+        # checkpoints are taken at step boundaries where the source state
+        # is consistent with {params, opt_state, step}.
+        # Snapshot-then-write: only the host copy happens here; the disk
+        # I/O runs on the writer thread ("saved {path}" is printed there
+        # once the manifest lands).
+        snap = ckpt_lib.snapshot({"params": self.params.state_dict(),
+                                  "opt_state": self.opt_state},
+                                 structured={"source":
+                                             self.source.state_dict()})
+        if self._writer is None:
+            self._writer = ckpt_lib.AsyncCheckpointWriter(
+                print_fn=self.print_fn)
+        self._writer.submit(path, snap,
+                            {"step": step, **self.checkpoint_meta})
+
+    def _crash_checkpoint(self, next_step: int, in_step: bool) -> None:
+        """Persist the last completed state after a failure; every failure
+        here is logged and swallowed — the ORIGINAL exception is the one
+        the caller must see."""
+        from repro_torch import checkpoint as ckpt_lib
+        try:
+            if self._writer is not None:
+                self._writer.flush()   # in-flight periodic saves
+        except Exception as exc:
+            self.print_fn(f"crash checkpoint failed: {exc!r}")
+            return
+        path = f"{self.checkpoint_dir}/step_{next_step}"
+        if in_step:
+            # The learner updates params and optimizer state in place, so
+            # a failure inside step_fn may leave them half-updated: such a
+            # state must never be saved under any step's name.
+            self.print_fn("crash checkpoint skipped: the failure came from "
+                          "inside step_fn, whose in-place update may have "
+                          "left params/opt_state torn; resume from the last "
+                          "periodic checkpoint")
+        elif ckpt_lib.is_complete(path):
+            self.print_fn(f"crash checkpoint skipped: boundary "
+                          f"{path} already saved")
+        else:
+            try:
+                self._checkpoint(next_step)
+                self._writer.flush()
+            except Exception as exc:  # keep the original primary
+                self.print_fn(f"crash checkpoint failed: {exc!r}")
+
+    # -- the loop -----------------------------------------------------------
+
     def run(self):
         """Run the loop; returns (params, opt_state)."""
         self.source.start(self.params)
         t0 = time.time()
         self._win_t, self._win_frames = t0, self.frames
+        # The next step whose update is NOT yet in params/opt_state — the
+        # step a crash checkpoint must tell --resume to run first — and
+        # whether the failure, if any, came from inside step_fn.
+        next_step = self.start_step
+        in_step = False
         try:
-            for step in range(self.total_steps):
+            for step in range(self.start_step, self.total_steps):
                 batch = self.source.next_batch(self.params)
+                in_step = True
                 self.params, self.opt_state, self.metrics = self.step_fn(
                     self.params, self.opt_state, step, batch)
+                in_step = False
+                next_step = step + 1
                 self.frames += self.source.frames_per_batch
                 if self.on_metrics is not None:
                     self.on_metrics(step, self.metrics)
                 if self.log_every and (step % self.log_every == 0
                                        or step == self.total_steps - 1):
                     self._log(step, t0)
+                if (self.checkpoint_dir and self.checkpoint_every
+                        and (step + 1) % self.checkpoint_every == 0
+                        and step + 1 < self.total_steps):
+                    self._checkpoint(step + 1)
+            # The final checkpoint is written BEFORE source.stop(): stop()
+            # resets dispatch state, and the checkpoint must capture the
+            # LIVE source state so a later --resume continues the exact
+            # rollout stream. (No final save when no step ran — resume past
+            # the end would relabel the restored state with a smaller step
+            # number.)
+            if self.checkpoint_dir and self.start_step < self.total_steps:
+                self._checkpoint(self.total_steps)
+            # Surface background write failures on the main thread while
+            # the run is still "ours" to fail.
+            if self._writer is not None:
+                self._writer.flush()
+        except BaseException:
+            # A mid-training failure (actor TimeoutError, SIGINT, OOM) must
+            # not discard progress: persist the last COMPLETED state and
+            # re-raise. next_step distinguishes a failure before the update
+            # (re-run that step on --resume) from one after it (e.g. in a
+            # metrics hook — resuming must not re-apply the update). If a
+            # periodic checkpoint for next_step already exists it is the
+            # BOUNDARY-consistent one (source state captured before this
+            # step's dispatch) and the crash snapshot, whose source may
+            # have advanced, must not clobber it.
+            if self.checkpoint_dir:
+                self._crash_checkpoint(next_step, in_step)
+            raise
         finally:
             self.source.stop()
+            # Join the writer on every exit path; never mask an in-flight
+            # exception with an (already logged) background write failure.
+            if self._writer is not None:
+                self._writer.close(raise_on_error=False)
         return self.params, self.opt_state

@@ -17,10 +17,15 @@ draw from a ``torch.Generator`` and apply them.
 Auto-reset semantics: when an episode ends, ``step`` returns done=True and
 the obs/state of the freshly reset episode (the vectorised-RL convention
 IMPALA's episode definition needs). Obs are (B, H, W, C) float32.
+
+The host-loop (MonoBeast-style) actors wrap an Env with ``HostEnv``: one
+episode stream on the CPU behind the Gym step/reset API of TorchBeast's
+polybeast_env.py.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
@@ -59,3 +64,45 @@ class Env(NamedTuple):
         step_draws = self.draw_step(batch, gen, device)
         reset_draws = self.draw_reset(batch, gen, device)
         return self.step_from(state, action, step_draws, reset_draws)
+
+
+class HostEnv:
+    """Imperative Gym-like wrapper over a batched Env at B = 1 on the CPU
+    (one episode stream), drawing from its own generator seeded with
+    ``seed``. ``reset()`` returns a numpy observation; ``step(action)``
+    returns (obs, reward, done, info) with Python scalars.
+
+    This is the object served by the paper's environment servers; here it
+    backs the host actor loop (core/actor_pool.py).
+
+    All HostEnvs of a process step one at a time (``_ONE_AT_A_TIME``). A
+    step is some sixty tiny torch ops, each of which releases and retakes
+    the interpreter lock; with eight actor threads contending for it,
+    every handoff costs more than the op, and eight threads stepping
+    freely take several times longer per env step, in aggregate, than
+    one at a time (``tools/host_env_threads.py`` measures both; PERF.md
+    §5). The actors still overlap their env steps with their waits on the
+    inference queue.
+    """
+
+    _ONE_AT_A_TIME = threading.Lock()
+
+    def __init__(self, env: Env, seed: int = 0):
+        self._env = env
+        self._gen = torch.Generator().manual_seed(seed)
+        self._state = None
+
+    @property
+    def num_actions(self):
+        return self._env.num_actions
+
+    def reset(self):
+        with self._ONE_AT_A_TIME:
+            self._state, obs = self._env.reset(1, self._gen, "cpu")
+            return obs[0].numpy()
+
+    def step(self, action):
+        with self._ONE_AT_A_TIME:
+            self._state, obs, reward, done = self._env.step(
+                self._state, torch.tensor([int(action)]), self._gen)
+            return obs[0].numpy(), float(reward[0]), bool(done[0]), {}

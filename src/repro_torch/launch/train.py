@@ -2,8 +2,14 @@
 
 Paper-faithful IMPALA: on-device rollouts (catch/gridworld envs) + conv
 agent + V-trace learner, double-buffered by default (``--sync`` to
-disable). The V-trace recursion runs in the fused CUDA kernel by default
+disable, ``--actors host`` for the MonoBeast host actor threads). The
+V-trace recursion runs in the fused CUDA kernel by default
 (``--vtrace-impl kernel``); ``scan`` selects the plain reverse loop.
+
+``--checkpoint-dir`` saves the learner and source state at the end (and
+every ``--checkpoint-every`` steps); ``--resume`` continues from the
+latest complete checkpoint there, bit-identically to an uninterrupted run
+of the same ``--steps`` for the on-device actors.
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU and without
 ``--device cpu`` it raises. The other modes and flags of the reference's
@@ -15,6 +21,10 @@ Examples:
       --env catch --steps 1500 --batch 32 --lr 2e-3
   PYTHONPATH=src python -m repro_torch.launch.train --env gridworld \
       --agent deep --steps 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --actors host \
+      --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 6 \
+      --checkpoint-dir /tmp/ckpt --checkpoint-every 3 --device cpu
 """
 
 from __future__ import annotations
@@ -34,10 +44,10 @@ from repro_torch.optim import make_optimizer
 # Modes and flags of repro.launch.train that this package does not have.
 _NOT_PORTED_MODES = ("lm-rl", "lm")
 _NOT_PORTED_FLAGS = (
-    "--actors", "--mesh-data", "--mesh-model", "--coordinator",
+    "--mesh-data", "--mesh-model", "--coordinator",
     "--num-processes", "--process-id", "--attn-impl", "--ssd-impl",
-    "--resume", "--checkpoint-every", "--checkpoint-dir", "--replay",
-    "--replay-capacity", "--replay-ratio", "--arch", "--reduced", "--seq")
+    "--replay", "--replay-capacity", "--replay-ratio", "--arch",
+    "--reduced", "--seq")
 
 
 def build_rl_agent(args):
@@ -52,10 +62,18 @@ def build_rl_agent(args):
                 generator=torch.Generator().manual_seed(train_cfg.seed))
     agent = agent.to(device)
     opt = make_optimizer(train_cfg)
-    source = sources_lib.DeviceSource.for_env(
-        env, agent, unroll_length=train_cfg.unroll_length,
-        batch_size=train_cfg.batch_size, seed=train_cfg.seed + 1,
-        pipelined=not args.sync)
+    if args.actors == "host":
+        # the envs step on the CPU in actor threads; policy and learner
+        # run on the run's device
+        source = sources_lib.HostLoopSource(
+            env, agent, num_actors=train_cfg.num_actors,
+            unroll_length=train_cfg.unroll_length,
+            batch_size=train_cfg.batch_size, seed=train_cfg.seed)
+    else:
+        source = sources_lib.DeviceSource.for_env(
+            env, agent, unroll_length=train_cfg.unroll_length,
+            batch_size=train_cfg.batch_size, seed=train_cfg.seed + 1,
+            pipelined=not args.sync)
     step_fn = learner_lib.make_train_step(opt, train_cfg,
                                           vtrace_impl=args.vtrace_impl)
     opt_state = opt.init(list(agent.parameters()))
@@ -70,6 +88,10 @@ def _parser():
                    choices=["rl-agent", *_NOT_PORTED_MODES])
     p.add_argument("--env", choices=["catch", "gridworld"], default="catch")
     p.add_argument("--agent", choices=["minatar", "deep"], default="minatar")
+    p.add_argument("--actors", choices=["device", "host"], default="device",
+                   help="on-device batched rollouts, or the MonoBeast host "
+                        "actor threads (envs on the CPU, policy batched on "
+                        "the device)")
     p.add_argument("--sync", action="store_true",
                    help="disable double-buffered rollout dispatch")
     p.add_argument("--vtrace-impl", choices=["kernel", "scan"],
@@ -81,7 +103,61 @@ def _parser():
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to run; cuda raises when there is no GPU")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save {params, opt_state} and the source state to "
+                        "step_<N>/ here at the end of the run")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="also checkpoint every N steps (0: final/crash "
+                        "checkpoints only) — the kill/--resume safety net")
+    p.add_argument("--resume", action="store_true",
+                   help="restore {params, opt_state, step} AND the rollout "
+                        "source state from the latest checkpoint in "
+                        "--checkpoint-dir and continue from the saved step "
+                        "— bit-identical to an uninterrupted run of the "
+                        "same --steps for the on-device actors")
     return p
+
+
+def _checkpoint_meta(args):
+    """Config identity recorded in every checkpoint manifest and validated
+    on --resume: restoring a catch checkpoint into a gridworld run must
+    fail loudly up front, naming the mismatched keys."""
+    return {"mode": args.mode, "env": args.env}
+
+
+def _resume(args, source, agent, opt_state):
+    """Load the latest checkpoint under --checkpoint-dir into the agent,
+    the optimizer state and the source; returns (opt_state, start_step)."""
+    from repro_torch import checkpoint as ckpt_lib
+    path = ckpt_lib.latest_step_path(args.checkpoint_dir)
+    if path is None:
+        print(f"--resume: no checkpoint under {args.checkpoint_dir}, "
+              "starting fresh")
+        return opt_state, 0
+    # Cheap pre-flight: the manifest's recorded config identity must match
+    # this run before any shard is read.
+    saved_meta = ckpt_lib.read_metadata(path)
+    want = _checkpoint_meta(args)
+    bad = sorted(k for k in want
+                 if k in saved_meta and saved_meta[k] != want[k])
+    if bad:
+        detail = ", ".join(f"{k}: checkpoint={saved_meta[k]!r} "
+                           f"run={want[k]!r}" for k in bad)
+        raise SystemExit(f"--resume: checkpoint {path} was written by a "
+                         f"different configuration ({detail})")
+    restored, meta = ckpt_lib.restore(
+        path, {"params": agent.state_dict(), "opt_state": opt_state})
+    agent.load_state_dict(restored["params"])
+    start_step = int(meta.get("step", 0))
+    # SourceState: replay the exact rollout stream (env carry, generator,
+    # in-flight rollout, the actors' parameter copy).
+    source_state = ckpt_lib.restore_structured(path, "source")
+    if source_state is not None:
+        source.load_state_dict(source_state)
+    print(f"resumed {path} at step {start_step}"
+          + (" (source state restored)" if source_state is not None
+             else ""))
+    return restored["opt_state"], start_step
 
 
 def main(argv=None) -> Runtime:
@@ -98,9 +174,18 @@ def main(argv=None) -> Runtime:
     if args.mode != "rl-agent":
         p.error(f"--mode {args.mode} is not ported yet (rl-agent only)")
 
+    if args.resume and not args.checkpoint_dir:
+        p.error("--resume requires --checkpoint-dir")
+
     source, step_fn, params, opt_state, extras = build_rl_agent(args)
+    start_step = 0
+    if args.resume:
+        opt_state, start_step = _resume(args, source, params, opt_state)
     runtime = Runtime(source, step_fn, params, opt_state,
-                      total_steps=args.steps, **extras)
+                      total_steps=args.steps, start_step=start_step,
+                      checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every,
+                      checkpoint_meta=_checkpoint_meta(args), **extras)
     runtime.run()
     return runtime
 

@@ -147,8 +147,3 @@ def test_runtime_loop_logs_and_reports():
     assert "reward/step=" in lines[0] and "loss=" in lines[0]
     assert np.isfinite(float(runtime.metrics["loss"]))
 
-
-def test_runtime_checkpointing_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Runtime(None, None, None, None, total_steps=1,
-                checkpoint_dir="ckpt")

@@ -54,7 +54,7 @@ def test_cuda_without_gpu_raises():
 @pytest.mark.parametrize("argv,message", [
     (["--mode", "lm"], "not ported yet"),
     (["--replay", "elite"], "not ported yet: --replay"),
-    (["--checkpoint-dir=/tmp/x", "--resume"], "not ported yet"),
+    (["--mesh-data=2"], "not ported yet: --mesh-data"),
     (["--no-such-flag"], "unrecognized"),
 ])
 def test_unported_options_exit_with_a_clear_error(argv, message, capsys):
