@@ -25,20 +25,36 @@ exits nonzero without printing a result:
   4. learner  three learner steps of the IMPALA deep ResNet at full width
               (84x84x4 obs, 18 actions, T=80, B=32, Table G.1 RMSProp) on a
               seeded synthetic rollout, held against the plain-loop V-trace
+  4b. replay_learner  five such steps on replay's mixed batches: a
+              ReplaySource (elite, 64 rollouts, ratio 1.0, the baseline as
+              value_fn) over a seeded synthetic full-width source, B 32
+              fresh + 32 replayed, CLEAR costs 0.01 / 0.005; one V-trace
+              launch a step at (80, 64), the first loss held against the
+              plain-loop V-trace; next_batch split (inner, to_host,
+              sample, insert, to_device), value_fn and learner ms, peak
+              memory, bytes per step
   5. trainer  repro_torch.launch.train.main on gridworld with the deep agent
               (the rl-agent main path: its V-trace launches are reported)
+  5b. replay_trainer  the same run with --replay elite (the learner at B
+              64), its V-trace launches; then whether replay's host copy
+              waited for the unroll left in flight (CUDA events)
   6. converge Catch with the quickstart settings must reach "SOLVED"
+  6b. replay_example  the reference's example, Catch --replay elite
+              --replay-ratio 1.0 --steps 500: its final reward/step
   7. host     repro_torch.launch.train.main with --actors host (8 actor
               threads stepping gridworld on the CPU, the deep agent's
               policy batched on the card, the learner's V-trace launches
               reported); no inference or actor thread may outlive main
+  7b. replay_host  the same with --replay uniform
   8. resume   Catch with the minatar agent, cuDNN pinned deterministic:
               two uninterrupted 12-step runs, a run crashed at step 7 and
               resumed from its crash checkpoint, and a CLI run checkpointed
               every 6 steps and resumed from step 6, each bitwise equal to
               the uninterrupted run's final params and optimizer state;
               then the checkpoint's bytes and the times of snapshot and
-              write
+              write; then all of it again with --replay elite, the replay
+              buffer, its sampling generator and feedback bookkeeping
+              bitwise too (8b)
   9. model    Qwen3-4B at full width in float32, weights from seed 0: the
               kernel attention path against the plain (dense) path on 4
               prompts of 300 tokens and 16 teacher-forced decode steps
@@ -98,7 +114,13 @@ VTRACE_TOL = 1e-5              # expf rounding compounds through <=200 FMAs
 # does not
 VTRACE_SHAPES = [(80, 32), (20, 32), (1, 1), (33, 200), (200, 4096),
                  (200, 16384)]
+# the learner's and the trainer's with replay's mixed batches (B fresh + B
+# replayed columns). Phase 3 draws a shape's inputs from seed 1000 + its
+# index in VTRACE_SHAPES + REPLAY_VTRACE_SHAPES, so these come after the
+# others, whose seeds tests/test_torch_vtrace_designs.py shares
+REPLAY_VTRACE_SHAPES = [(80, 64), (20, 64)]
 TRAINER_SHAPE = (20, 32)       # (T, B) of the phase-5 main path
+REPLAY_SHAPE = (80, 64)        # (T, B) of the full-width replay learner
 VTRACE_FLOOR = (1, 1)          # one thread, one row: a launch's floor
 # float operations per (t, b) element of the fused kernel: 3 clips, delta
 # (4), recurrence (3), vs (1), pg-advantage (4); the expf counts as one
@@ -147,6 +169,17 @@ HOST_ARGV = ["--mode", "rl-agent", "--actors", "host", "--env", "gridworld",
 RESUME_ARGV = ["--mode", "rl-agent", "--env", "catch", "--agent", "minatar",
                "--batch", "32", "--lr", "2e-3"]
 RESUME_STEPS, CRASH_STEP, CKPT_EVERY, CLI_EVERY = 12, 7, 4, 6
+# its replay leg: 12 steps insert 384 rollouts, so a 256-rollout buffer
+# has written every slot (the bytes compared) and evicted by the end
+RESUME_REPLAY_ARGV = ["--replay", "elite", "--replay-capacity", "256"]
+TRAINER_ARGV = ["--mode", "rl-agent", "--env", "gridworld", "--agent", "deep",
+                "--batch", "32", "--steps", "20"]
+# replay: the reference's example (repro.launch.train's docstring), and
+# the full-width learner's buffer, cut from the reference's default 512
+# rollouts (4.68 GB of host memory at 84x84x4, T 80) to 64 (585 MB)
+REPLAY_EXAMPLE_ARGV = ["--mode", "rl-agent", "--env", "catch", "--replay",
+                       "elite", "--replay-ratio", "1.0", "--steps", "500"]
+REPLAY_LEARNER_STEPS, REPLAY_LEARNER_CAPACITY = 5, 64
 ZAMBA_SERVE_ARGV = ["--arch", "zamba2-2.7b", "--attn-impl", "kernel",
                     "--ssd-impl", "kernel", "--requests", "24",
                     "--prompt-len", "256", "--gen-tokens", "64",
@@ -227,7 +260,7 @@ def vtrace_bound(t, b):
 def phase_kernel(ops, ref):
     import torch
     rows = {}
-    for i, (t, b) in enumerate(VTRACE_SHAPES):
+    for i, (t, b) in enumerate(VTRACE_SHAPES + REPLAY_VTRACE_SHAPES):
         for clip in (1.0, None) if (t, b) == (33, 200) else (1.0,):
             args = vtrace_inputs(t, b, seed=1000 + i)
             kw = dict(clip_rho_threshold=clip, clip_c_threshold=clip,
@@ -742,6 +775,25 @@ def phase_profile(arch, prompt_lens, cap):
     torch.cuda.empty_cache()
 
 
+def synthetic_batch(gen, t, b):
+    """A full-width rollout batch (84x84x4 obs, 18 actions) drawn on the
+    card from ``gen``."""
+    import torch
+
+    from repro_torch.configs.atari_impala import NUM_ACTIONS, OBS_SHAPE
+    return {
+        "obs": torch.rand((t + 1, b) + OBS_SHAPE, generator=gen,
+                          device="cuda"),
+        "action": torch.randint(0, NUM_ACTIONS, (t, b), generator=gen,
+                                device="cuda", dtype=torch.int32),
+        "behavior_logits": torch.randn((t, b, NUM_ACTIONS), generator=gen,
+                                       device="cuda"),
+        "reward": torch.randint(-1, 2, (t, b), generator=gen,
+                                device="cuda").float(),
+        "done": torch.rand((t, b), generator=gen, device="cuda") < 0.01,
+    }
+
+
 def phase_learner(ops):
     import copy
 
@@ -753,18 +805,8 @@ def phase_learner(ops):
     from repro_torch.optim import make_optimizer
 
     t, b = TRAIN.unroll_length, TRAIN.batch_size
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    batch = {
-        "obs": torch.rand((t + 1, b) + OBS_SHAPE, generator=gen,
-                          device="cuda"),
-        "action": torch.randint(0, NUM_ACTIONS, (t, b), generator=gen,
-                                device="cuda", dtype=torch.int32),
-        "behavior_logits": torch.randn((t, b, NUM_ACTIONS), generator=gen,
-                                       device="cuda"),
-        "reward": torch.randint(-1, 2, (t, b), generator=gen,
-                                device="cuda").float(),
-        "done": torch.rand((t, b), generator=gen, device="cuda") < 0.01,
-    }
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(0),
+                            t, b)
     agent = impala_deep(OBS_SHAPE, NUM_ACTIONS,
                         generator=torch.Generator().manual_seed(0)).cuda()
     opt = make_optimizer(TRAIN)
@@ -803,6 +845,148 @@ def phase_learner(ops):
          actions=NUM_ACTIONS, T=t, B=b, losses=losses, scan_loss=scan_loss,
          step_ms=step_ms, steady_step_ms=statistics.median(step_ms[1:]),
          vtrace_launches=launches, peak_mem_bytes=peak)
+
+
+class SyntheticSource:
+    """A seeded full-width rollout source: each ``next_batch`` draws a new
+    batch on the card (``synthetic_batch``); nothing stays in flight."""
+
+    def __init__(self, t, b, seed):
+        import torch
+        self._gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.t, self.b = t, b
+        self.frames_per_batch = t * b
+
+    def start(self, params):
+        pass
+
+    def next_batch(self, params):
+        return synthetic_batch(self._gen, self.t, self.b)
+
+    def stop(self):
+        pass
+
+
+def _nbytes(batch, cols, total):
+    """Bytes of ``cols`` of the ``total`` columns of a mixed batch."""
+    return sum(v.numel() * v.element_size() * cols // total
+               for k, v in batch.items() if k != "is_replay")
+
+
+def phase_replay_learner(ops):
+    """The full-width learner on replay's mixed batches: a ReplaySource
+    (elite, ratio 1.0, the agent's baseline as value_fn) over a seeded
+    synthetic source at the IMPALA deep agent's width (84x84x4, T 80,
+    B 32 fresh + 32 replayed), REPLAY_LEARNER_STEPS learner steps with the
+    CLEAR costs on, priorities fed back. Gates: finite losses, one K1
+    launch a step, the first loss against the plain-loop V-trace path.
+    Returns K1's launches."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs.atari_impala import NUM_ACTIONS, OBS_SHAPE, TRAIN
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.replay import EliteReplay
+    from repro_torch.core.sources import ReplaySource
+    from repro_torch.models.convnet import impala_deep
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(TRAIN, clear_policy_cost=0.01,
+                              clear_value_cost=0.005)
+    t, b = cfg.unroll_length, cfg.batch_size
+    agent = impala_deep(OBS_SHAPE, NUM_ACTIONS,
+                        generator=torch.Generator().manual_seed(0)).cuda()
+
+    def value_fn(params, obs):
+        return params(obs).baseline
+
+    source = ReplaySource(SyntheticSource(t, b, seed=0),
+                          EliteReplay(REPLAY_LEARNER_CAPACITY),
+                          replay_ratio=1.0, seed=0, value_fn=value_fn)
+    opt = make_optimizer(cfg)
+    step_fn = learner_lib.make_train_step(opt, cfg, vtrace_impl="kernel")
+    opt_state = opt.init(list(agent.parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, next_ms, drain_ms, learner_ms, splits = [], [], [], [], []
+    scan_loss = None
+    ops.reset_stats()
+    for step in range(REPLAY_LEARNER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = source.next_batch(agent)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        next_ms.append((t1 - t0) * 1e3)
+        drain_ms.append((t2 - t1) * 1e3)
+        splits.append(dict(source.split_ms))
+        if step == 0:
+            # the plain-loop V-trace path from the same weights on the
+            # same first mixed batch (it launches no kernel)
+            scan_agent = copy.deepcopy(agent)
+            _, _, m = learner_lib.make_train_step(
+                opt, cfg, vtrace_impl="scan")(
+                scan_agent, opt.init(list(scan_agent.parameters())), 0,
+                batch)
+            scan_loss = float(m["loss"])
+            del scan_agent, m
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent, opt_state, metrics = step_fn(agent, opt_state, step, batch)
+        torch.cuda.synchronize()
+        learner_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        source.on_learner_metrics(step, metrics)
+    launches = ops.stats()["vtrace"]
+    chunks = ops.last_vtrace_chunks()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"replay learner loss not finite: {losses}")
+    if launches != REPLAY_LEARNER_STEPS:
+        raise AssertionError(f"replay learner made {launches} vtrace "
+                             f"launches, not {REPLAY_LEARNER_STEPS}")
+    if not math.isclose(losses[0], scan_loss, rel_tol=1e-4, abs_tol=1e-4):
+        raise AssertionError(f"replay kernel-path loss {losses[0]} != "
+                             f"scan-path loss {scan_loss}")
+    if tuple(batch["is_replay"].shape) != (2 * b,):
+        raise AssertionError(f"is_replay {tuple(batch['is_replay'].shape)}")
+    obs = batch["obs"][:-1, :b]
+    value_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            value_fn(agent, obs)
+        torch.cuda.synchronize()
+        value_ms.append((time.perf_counter() - t0) * 1e3)
+    fresh_bytes = _nbytes(batch, b, 2 * b)
+    stats = source.stats()
+    buffer_bytes = sum(a.nbytes for a in source.buffer._arrays.values())
+    source.stop()
+    steady = slice(1, None)      # the first call also pins its host pages
+    emit("replay_learner", agent="impala_deep", obs=list(OBS_SHAPE),
+         actions=NUM_ACTIONS, T=t, B_fresh=b, B_replayed=b,
+         buffer="elite", capacity=REPLAY_LEARNER_CAPACITY,
+         buffer_host_bytes=buffer_bytes,
+         clear_costs=[cfg.clear_policy_cost, cfg.clear_value_cost],
+         losses=losses, scan_loss=scan_loss, vtrace_launches=launches,
+         vtrace_chunks=list(chunks),
+         next_batch_ms=statistics.median(next_ms[steady]),
+         first_next_batch_ms=next_ms[0],
+         split_ms={k: statistics.median(s[k] for s in splits[steady])
+                   for k in splits[-1]},
+         drain_ms=statistics.median(drain_ms[steady]),
+         value_fn_ms=statistics.median(value_ms[1:]),
+         learner_ms=statistics.median(learner_ms[steady]),
+         peak_mem_bytes=peak,
+         bytes_per_step={"to_host": fresh_bytes, "to_device": fresh_bytes,
+                         "host_copies": 3 * fresh_bytes},
+         replay_stats=stats)
+    del agent, opt_state, batch, source
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_trainer(argv):
@@ -845,6 +1029,121 @@ def split_ms(runtime, reps=5):
         runtime.params, runtime.opt_state, runtime.total_steps, batch))
     src.stop()
     return {"unroll_ms": unroll_ms, "learner_ms": learner_ms}
+
+
+def replay_overlap(runtime, reps=4):
+    """Whether replay's host copy of the fresh batch waited for the unroll
+    that the double-buffered DeviceSource leaves in flight. After a
+    synchronize, ``next_batch`` is timed on the host, and on the card from
+    an event just before the call to two events: the end of the host copy
+    (``ReplaySource.copy_event``, on its side stream) and one recorded
+    behind the unroll in flight (on the main stream, as soon as the inner
+    source returns). A copy that ended first did not wait; one that ended
+    later may only have been queued after the card had caught up with the
+    host (``unroll_lag_ms``, the unroll's device work left when the host
+    had queued all of it, tells which). The first call after the source's
+    restart dispatches two unrolls; it is left out of the medians."""
+    import torch
+    src = runtime.source
+    inner_next = src.inner.next_batch
+    marks = {}
+
+    def marked(params):
+        out = inner_next(params)
+        marks["unroll"] = torch.cuda.Event(enable_timing=True)
+        marks["unroll"].record()
+        return out
+
+    src.inner.next_batch = marked
+    rows = []
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            src.next_batch(runtime.params)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            rows.append(dict(
+                host_ms=host_ms,
+                copy_done_ms=start.elapsed_time(src.copy_event),
+                unroll_done_ms=start.elapsed_time(marks["unroll"]),
+                **{f"{k}_ms": v for k, v in src.split_ms.items()}))
+    finally:
+        del src.inner.next_batch
+        src.stop()
+    steady = rows[1:]
+    return {"next_batch_host_ms": statistics.median(r["host_ms"]
+                                                     for r in steady),
+            "copy_done_ms": statistics.median(r["copy_done_ms"]
+                                              for r in steady),
+            "unroll_done_ms": statistics.median(r["unroll_done_ms"]
+                                                for r in steady),
+            # device work of the unroll left when the host had queued it
+            # (the start event ran on an idle card at the host's t0)
+            "unroll_lag_ms": statistics.median(
+                r["unroll_done_ms"] - r["inner_ms"] for r in steady),
+            "copy_ended_before_unroll": [
+                r["copy_done_ms"] < r["unroll_done_ms"] for r in steady],
+            "split_ms": {k: statistics.median(r[f"{k}_ms"] for r in steady)
+                         for k in src.split_ms}}
+
+
+def phase_replay_trainer(ops, base):
+    """repro_torch.launch.train.main with --replay elite on the phase-5
+    run (the device actors, double-buffered), then the overlap check;
+    ``base`` is phase 5's record, set beside it. Returns K1's launches."""
+    ops.reset_stats()
+    runtime, seconds, last = run_trainer(TRAINER_ARGV + ["--replay",
+                                                         "elite"])
+    launches = ops.stats()
+    chunks = ops.last_vtrace_chunks()
+    if launches["vtrace"] < 20:
+        raise AssertionError(f"replay trainer made {launches} vtrace "
+                             "launches, fewer than its 20 steps")
+    left = _host_threads()
+    if left:
+        raise AssertionError(f"replay trainer left threads alive: {left}")
+    loss = float(runtime.metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"replay trainer loss not finite: {loss}")
+    emit("replay_trainer", env="gridworld", agent="deep", replay="elite",
+         T=TRAINER_SHAPE[0], B_fresh=TRAINER_SHAPE[1],
+         B_learner=2 * TRAINER_SHAPE[1], steps=20, seconds=seconds,
+         ms_per_step=seconds / 20 * 1e3, launches=launches,
+         vtrace_chunks=list(chunks), fps_line=last, loss=loss,
+         overlap=replay_overlap(runtime),
+         **split_ms(runtime),
+         without_replay={k: base[k] for k in ("ms_per_step", "fps_line",
+                                              "unroll_ms", "learner_ms")})
+    return launches["vtrace"]
+
+
+def phase_replay_host(ops, base):
+    """--actors host --replay uniform through the entry point (the fresh
+    batch crosses to the card and back); ``base`` is phase 7's record.
+    Returns K1's launches."""
+    ops.reset_stats()
+    runtime, seconds, last = run_trainer(HOST_ARGV + ["--replay",
+                                                      "uniform"])
+    launches = ops.stats()
+    left = _host_threads()
+    if left:
+        raise AssertionError(f"host replay left threads alive: {left}")
+    if launches["vtrace"] < 20:
+        raise AssertionError(f"host replay made {launches} vtrace "
+                             "launches, fewer than its 20 steps")
+    loss = float(runtime.metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"host replay loss not finite: {loss}")
+    emit("replay_host", env="gridworld", agent="deep", replay="uniform",
+         actors=8, T=TRAINER_SHAPE[0], B_fresh=TRAINER_SHAPE[1], steps=20,
+         seconds=seconds, ms_per_step=seconds / 20 * 1e3, launches=launches,
+         fps_line=last, loss=loss, split_ms=runtime.source.split_ms,
+         threads_left=left,
+         without_replay={k: base[k] for k in ("ms_per_step", "fps_line")})
+    return launches["vtrace"]
 
 
 def _host_threads():
@@ -894,14 +1193,16 @@ def phase_host(ops):
     left = _host_threads()
     if left:
         raise AssertionError(f"host actors left threads alive: {left}")
-    emit("host", env="gridworld", agent="deep", actors=8,
-         T=TRAINER_SHAPE[0], B=TRAINER_SHAPE[1], steps=20, seconds=seconds,
-         ms_per_step=seconds / 20 * 1e3, launches=launches, fps_line=last,
-         loss=loss, threads_left=left, env_step_us=env_step_us,
-         torch_threads=torch.get_num_threads(),
-         policy_ms=statistics.median(policy_ms[5:]),
-         batch_ms=split["unroll_ms"], learner_ms=split["learner_ms"])
-    return launches
+    record = dict(
+        env="gridworld", agent="deep", actors=8, T=TRAINER_SHAPE[0],
+        B=TRAINER_SHAPE[1], steps=20, seconds=seconds,
+        ms_per_step=seconds / 20 * 1e3, launches=launches, fps_line=last,
+        loss=loss, threads_left=left, env_step_us=env_step_us,
+        torch_threads=torch.get_num_threads(),
+        policy_ms=statistics.median(policy_ms[5:]),
+        batch_ms=split["unroll_ms"], learner_ms=split["learner_ms"])
+    emit("host", **record)
+    return record
 
 
 def _learner_state(runtime):
@@ -962,9 +1263,36 @@ def _checkpoint_cost(train, ckpt_lib, argv, directory, reps=5):
             "write_ms": statistics.median(write_ms), "bytes": nbytes}
 
 
-def phase_resume(ops, workdir):
+_REPLAY_STATE = ("buffer", "rng", "last_ids", "served", "hits",
+                 "prio_drops")
+
+
+def _flat_state(tree, path=""):
+    """A source state tree as (path, value) pairs, arrays as (dtype,
+    shape, bytes): equal lists mean bitwise-equal states."""
+    import numpy as np
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat_state(tree[k],
+                                                             f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _flat_state(v, f"{path}/{i}")]
+    if isinstance(tree, np.ndarray):
+        return [(path, tree.dtype.str, tree.shape, tree.tobytes())]
+    return [(path, tree)]
+
+
+def _replay_state(state):
+    """The replay part of a ReplaySource state: the whole buffer, the
+    sampling generator and the feedback bookkeeping."""
+    return _flat_state({k: state[k] for k in _REPLAY_STATE})
+
+
+def phase_resume(ops, workdir, extra_argv=()):
     """Crash-and-resume and CLI resume on the card, each held bitwise to
-    an uninterrupted run; then what a checkpoint costs."""
+    an uninterrupted run; then what a checkpoint costs. With ``--replay``
+    in ``extra_argv`` the replay state at the end (buffer, sampling
+    generator, feedback bookkeeping) must be bitwise equal too."""
     import shutil
 
     import torch
@@ -977,7 +1305,8 @@ def phase_resume(ops, workdir):
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    argv = RESUME_ARGV + ["--steps", str(RESUME_STEPS)]
+    argv = RESUME_ARGV + list(extra_argv) + ["--steps", str(RESUME_STEPS)]
+    replay = "--replay" in extra_argv
     before = ops.stats()["vtrace"]
     t0 = time.perf_counter()
     try:
@@ -994,11 +1323,25 @@ def phase_resume(ops, workdir):
                               log_every=0, print_fn=lambda line: None,
                               checkpoint_meta=train._checkpoint_meta(args),
                               **kw)
+            stop, final = source.stop, {}
+            if replay:   # stop() recycles the slots: read them first
+                source.stop = lambda: (final.update(source.state_dict()),
+                                       stop())
             runtime.run()
-            return runtime
+            return runtime, final
 
-        want = _learner_state(run())
-        _bitwise("second uninterrupted run", _learner_state(run()), want)
+        def check(name, got):
+            runtime, final = got
+            _bitwise(name, _learner_state(runtime), want)
+            if replay and _replay_state(final) != want_replay:
+                raise AssertionError(f"resume {name}: replay state not "
+                                     "bitwise equal to the uninterrupted "
+                                     "run's")
+
+        first, final = run()
+        want = _learner_state(first)
+        want_replay = _replay_state(final) if replay else None
+        check("second uninterrupted run", run())
 
         # a crash raised from on_metrics after step CRASH_STEP's update
         crash_dir = os.path.join(workdir, "crash")
@@ -1018,8 +1361,8 @@ def phase_resume(ops, workdir):
         latest = ckpt_lib.latest_step_path(crash_dir)
         if os.path.basename(latest) != f"step_{CRASH_STEP + 1}":
             raise AssertionError(f"crash checkpoint is {latest}")
-        crash = run(["--checkpoint-dir", crash_dir, "--resume"])
-        _bitwise("crash-and-resume", _learner_state(crash), want)
+        check("crash-and-resume", run(["--checkpoint-dir", crash_dir,
+                                       "--resume"]))
 
         # the CLI: checkpoints every CLI_EVERY steps, cut back to the first
         # one (as if killed there), then --resume to the same horizon
@@ -1034,24 +1377,29 @@ def phase_resume(ops, workdir):
                   "(source state restored)")
         if banner not in lines:
             raise AssertionError(f"CLI resume printed {lines[:2]}")
-        _bitwise("CLI resume", _learner_state(resumed), want)
+        # the CLI's final checkpoint holds the replay state at the end
+        final = ckpt_lib.restore_structured(
+            os.path.join(cli_dir, f"step_{RESUME_STEPS}"), "source") \
+            if replay else None
+        check("CLI resume", (resumed, final))
         seconds = time.perf_counter() - t0
         launches = ops.stats()["vtrace"] - before
+        configs = [("catch minatar", argv)] + ([] if replay else [
+            ("gridworld deep", ["--env", "gridworld", "--agent", "deep",
+                                "--batch", "32"])])
         cost = {name: _checkpoint_cost(
                     train, ckpt_lib, cfg_argv,
                     os.path.join(workdir, f"cost-{name}"))
-                for name, cfg_argv in [
-                    ("catch minatar", argv),
-                    ("gridworld deep", ["--env", "gridworld", "--agent",
-                                        "deep", "--batch", "32"])]}
+                for name, cfg_argv in configs}
     finally:
         torch.backends.cudnn.deterministic, \
             torch.backends.cudnn.benchmark = flags
     emit("resume", env="catch", agent="minatar", steps=RESUME_STEPS,
-         crash_step=CRASH_STEP, checkpoint_every=CKPT_EVERY,
-         cli_every=CLI_EVERY, cudnn_deterministic=True, bitwise=True,
-         leaves=len(want), seconds=seconds, vtrace_launches=launches,
-         checkpoint=cost)
+         extra_argv=list(extra_argv), crash_step=CRASH_STEP,
+         checkpoint_every=CKPT_EVERY, cli_every=CLI_EVERY,
+         cudnn_deterministic=True, bitwise=True, leaves=len(want),
+         replay_state_entries=len(want_replay) if replay else 0,
+         seconds=seconds, vtrace_launches=launches, checkpoint=cost)
 
 
 def _grad_run(ops, kernel, params, x0, apply):
@@ -1193,14 +1541,13 @@ def main():
     torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
 
-    # 4. full-width learner
+    # 4. full-width learner, then on replay's mixed batches (4b)
     phase_learner(ops)
+    replay_learner_launches = phase_replay_learner(ops)
 
     # 5. the trainer through its entry point: the rl-agent main path
     ops.reset_stats()
-    runtime, seconds, last = run_trainer(
-        ["--mode", "rl-agent", "--env", "gridworld", "--agent", "deep",
-         "--batch", "32", "--steps", "20"])
+    runtime, seconds, last = run_trainer(TRAINER_ARGV)
     trainer_launches = ops.stats()
     trainer_chunks = ops.last_vtrace_chunks()
     if trainer_launches["vtrace"] < 20:
@@ -1209,11 +1556,15 @@ def main():
     loss = float(runtime.metrics["loss"])
     if not math.isfinite(loss):
         raise AssertionError(f"trainer loss not finite: {loss}")
-    emit("trainer", env="gridworld", agent="deep", T=TRAINER_SHAPE[0],
-         B=TRAINER_SHAPE[1], steps=20, seconds=seconds,
-         ms_per_step=seconds / 20 * 1e3, launches=trainer_launches,
-         vtrace_chunks=list(trainer_chunks), fps_line=last,
-         **split_ms(runtime))
+    trainer = dict(env="gridworld", agent="deep", T=TRAINER_SHAPE[0],
+                   B=TRAINER_SHAPE[1], steps=20, seconds=seconds,
+                   ms_per_step=seconds / 20 * 1e3, launches=trainer_launches,
+                   vtrace_chunks=list(trainer_chunks), fps_line=last,
+                   **split_ms(runtime))
+    emit("trainer", **trainer)
+
+    # 5b. the same run with --replay elite, and the overlap check
+    replay_launches = phase_replay_trainer(ops, trainer)
 
     # 6. convergence on Catch (the quickstart settings)
     before = ops.stats()["vtrace"]
@@ -1232,12 +1583,29 @@ def main():
     del runtime
     torch.cuda.empty_cache()
 
-    # 7. the host actors through the entry point
-    host_launches = phase_host(ops)
+    # 6b. the reference's replay example (no solve is claimed at 500 steps)
+    before = ops.stats()["vtrace"]
+    runtime, seconds, last = run_trainer(REPLAY_EXAMPLE_ARGV)
+    final = float(runtime.metrics["reward_per_step"])
+    if not math.isfinite(final):
+        raise AssertionError(f"replay example reward/step {final}")
+    emit("replay_example", argv=REPLAY_EXAMPLE_ARGV, seconds=seconds,
+         ms_per_step=seconds / 500 * 1e3,
+         vtrace_launches=ops.stats()["vtrace"] - before,
+         final_reward_per_step=final, fps_line=last)
+    del runtime
+    torch.cuda.empty_cache()
 
-    # 8. checkpoint and resume, bitwise
+    # 7. the host actors through the entry point, then with replay (7b)
+    host = phase_host(ops)
+    host_launches = host["launches"]
+    replay_host_launches = phase_replay_host(ops, host)
+
+    # 8. checkpoint and resume, bitwise; then with replay (8b)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
         phase_resume(ops, workdir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
+        phase_resume(ops, workdir, RESUME_REPLAY_ARGV)
 
     # 9. full-width Qwen3-4B: kernel path against the dense path
     phase_model(ops, "qwen3-4b", 300)
@@ -1263,12 +1631,16 @@ def main():
 
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
+    replay_row = rows[REPLAY_SHAPE]
     kernels = [{
         "name": "vtrace", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/vtrace.cu",
         "replaces": "src/repro/kernels/vtrace.py:38",
         "launches": trainer_launches["vtrace"],
         "host_launches": host_launches["vtrace"],
+        "replay_launches": replay_launches,
+        "replay_host_launches": replay_host_launches,
+        "replay_learner_launches": replay_learner_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1277,7 +1649,13 @@ def main():
         "host_loop_us": row["host_loop_us"],
         "floor_graph_ms": rows[VTRACE_FLOOR]["graph_ms"],
         "chunks": list(trainer_chunks),
-        "shape": list(TRAINER_SHAPE)}]
+        "shape": list(TRAINER_SHAPE),
+        "replay_shape": list(REPLAY_SHAPE),
+        "replay_ms": replay_row["ms"], "replay_plain_ms":
+        replay_row["plain_ms"], "replay_graph_ms": replay_row["graph_ms"],
+        "replay_bound_ms": replay_row["bound_ms"],
+        "replay_bound_by": replay_row["bound_by"],
+        "replay_bound_share": replay_row["bound_share"]}]
     for name, replaces, all_rows, (shape, dtype) in [
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",
              flash_rows, FLASH_MAIN),

@@ -196,7 +196,8 @@ class TrainConfig:
     vtrace_rho_clip: float = 1.0
     vtrace_c_clip: float = 1.0
 
-    # CLEAR cloning costs on replayed rows (read once replay is ported)
+    # CLEAR cloning costs on replayed rows (active only when the batch
+    # carries an is_replay mask — i.e. behind a ReplaySource)
     clear_policy_cost: float = 0.0
     clear_value_cost: float = 0.0
 

@@ -1,7 +1,7 @@
 """IMPALA core: V-trace, losses, rollouts, sources, learner, the
-actor/learner runtime, and the host actors' queueing (``batcher``,
-``actor_pool``, ``rollout_buffers``); decoding sessions (``generate``)
-for serving."""
+actor/learner runtime, the host actors' queueing (``batcher``,
+``actor_pool``, ``rollout_buffers``) and off-policy replay (``replay``);
+decoding sessions (``generate``) for serving."""
 from repro_torch.core import (vtrace, losses, rollout, batcher,  # noqa: F401
-                              actor_pool, rollout_buffers, learner, sources,
-                              runtime)
+                              actor_pool, rollout_buffers, replay, learner,
+                              sources, runtime)

@@ -22,7 +22,14 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
 
     batch: time-major dict (see core/rollout.py):
       obs (T+1,B,...), action (T,B), behavior_logits (T,B,A),
-      reward (T,B), done (T,B)
+      reward (T,B), done (T,B) [, is_replay (B,), behavior_value (T,B) —
+      ReplaySource batches]
+
+    With an ``is_replay`` mask present, the CLEAR cloning terms
+    (losses.clear_auxiliary_loss) are applied to the replayed columns at
+    ``train_cfg.clear_policy_cost`` / ``clear_value_cost``, and the
+    reported ``reward_per_step`` covers the fresh columns only (replayed
+    rewards are not new environment signal).
 
     vtrace_impl: 'kernel' (the fused CUDA V-trace kernel) or 'scan' (the
     plain reverse loop).
@@ -41,6 +48,10 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
             entropy_cost=train_cfg.entropy_cost,
             clip_rho=train_cfg.vtrace_rho_clip,
             clip_c=train_cfg.vtrace_c_clip,
+            is_replay=batch.get("is_replay"),
+            behavior_values=batch.get("behavior_value"),
+            clear_policy_cost=train_cfg.clear_policy_cost,
+            clear_value_cost=train_cfg.clear_value_cost,
             vtrace_impl=vtrace_impl)
 
     def train_step(params, opt_state, step, batch):
@@ -49,6 +60,13 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
         grads = torch.autograd.grad(loss_out.total, plist)
         updates, opt_state = opt.update(grads, opt_state, plist, step)
         apply_updates(plist, updates)
+        if "is_replay" in batch:
+            fresh = (~batch["is_replay"]).float()[None, :]
+            reward_per_step = (batch["reward"] * fresh).sum() \
+                / torch.clamp(fresh.sum() * batch["reward"].shape[0],
+                              min=1.0)
+        else:
+            reward_per_step = batch["reward"].mean()
         metrics = {
             "loss": loss_out.total.detach(),
             "pg_loss": loss_out.pg_loss.detach(),
@@ -56,9 +74,12 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
             "entropy_loss": loss_out.entropy_loss.detach(),
             "vs_mean": loss_out.vs_mean,
             "rho_mean": loss_out.rho_mean,
-            "reward_per_step": batch["reward"].mean(),
+            "reward_per_step": reward_per_step,
             "priority": loss_out.priority,
         }
+        if "is_replay" in batch:
+            metrics["clear_policy_loss"] = loss_out.clear_policy_loss.detach()
+            metrics["clear_value_loss"] = loss_out.clear_value_loss.detach()
         return params, opt_state, metrics
 
     return train_step

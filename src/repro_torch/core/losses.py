@@ -28,6 +28,9 @@ class ImpalaLossOutput(NamedTuple):
     rho_mean: torch.Tensor
     # per-column mean |pg_advantage| — the elite-replay priority signal
     priority: torch.Tensor
+    # CLEAR cloning terms (zero without an is_replay mask and a cost)
+    clear_policy_loss: torch.Tensor
+    clear_value_loss: torch.Tensor
 
 
 def _reduce(x):
@@ -49,14 +52,51 @@ def _vtrace_fn(vtrace_impl):
                      f"{vtrace_impl!r}")
 
 
+def clear_auxiliary_loss(target_lp_all, behavior_logits, values,
+                         behavior_values, is_replay):
+    """CLEAR-style behavioral + value cloning on replayed rows only
+    (Rolnick et al. 2019, "Experience Replay for Continual Learning"):
+
+      policy cloning  sum_t KL(mu || pi)         — keep pi close to the
+                                                   behavior policy that
+                                                   generated the replayed
+                                                   data
+      value cloning   0.5 * sum_t (V_mu - V)^2   — anchor V on the value
+                                                   estimates RECORDED when
+                                                   the data was generated
+                                                   (behavior_values; None
+                                                   disables the term)
+
+    is_replay: (B,) bool column mask; fresh rows contribute nothing.
+    target_lp_all/values carry gradients; behavior_logits/behavior_values
+    are data.
+    """
+    behavior_lp = F.log_softmax(behavior_logits.float(), dim=-1)
+    kl = torch.sum(torch.exp(behavior_lp) * (behavior_lp - target_lp_all),
+                   dim=-1)                                  # (T, B)
+    mask = is_replay.float()[None, :]                       # (1, B)
+    policy_cloning = _reduce(kl * mask)
+    value_cloning = torch.zeros((), device=values.device)
+    if behavior_values is not None:
+        value_cloning = 0.5 * _reduce(
+            torch.square(behavior_values - values) * mask)
+    return policy_cloning, value_cloning
+
+
 def impala_loss_from_logits(target_logits, behavior_logits, actions,
                             rewards, discounts, values, bootstrap_value,
                             *, baseline_cost=0.5, entropy_cost=0.01,
-                            clip_rho=1.0, clip_c=1.0,
-                            vtrace_impl="kernel"):
+                            clip_rho=1.0, clip_c=1.0, is_replay=None,
+                            behavior_values=None, clear_policy_cost=0.0,
+                            clear_value_cost=0.0, vtrace_impl="kernel"):
     """Paper-faithful path (full logits, small action spaces). All (T,B,...).
 
     target_logits/values carry gradients; behavior_* are data.
+    is_replay: optional (B,) bool mask of replayed columns; when given
+    together with nonzero clear_*_cost, the CLEAR cloning terms are added
+    for those columns (core/replay.py). behavior_values (T,B): the acting
+    network's value estimates recorded at generation time — the
+    value-cloning anchor (without it only policy cloning is applied).
     """
     target_lp_all = F.log_softmax(target_logits.float(), dim=-1)
     target_lp = torch.gather(target_lp_all, -1,
@@ -78,7 +118,16 @@ def impala_loss_from_logits(target_logits, behavior_logits, actions,
     total = pg_loss + baseline_cost * baseline_loss \
         + entropy_cost * entropy_loss
 
+    clear_pc = clear_vc = torch.zeros((), device=total.device)
+    if is_replay is not None and (clear_policy_cost or clear_value_cost):
+        clear_pc, clear_vc = clear_auxiliary_loss(
+            target_lp_all, behavior_logits, values, behavior_values,
+            is_replay)
+        total = total + clear_policy_cost * clear_pc \
+            + clear_value_cost * clear_vc
+
     rho = torch.exp(log_rhos)
     priority = torch.mean(torch.abs(vt.pg_advantages), dim=0)     # (B,)
     return ImpalaLossOutput(total, pg_loss, baseline_loss, entropy_loss,
-                            vt.vs.mean(), rho.mean(), priority)
+                            vt.vs.mean(), rho.mean(), priority,
+                            clear_pc, clear_vc)

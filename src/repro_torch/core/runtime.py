@@ -62,7 +62,9 @@ class Runtime:
         manifest alongside ``step`` (the train CLI stores mode/env here
         and validates them on ``--resume``).
       on_metrics: optional callback ``(step, metrics)`` invoked every step
-        with the raw (device-resident) metrics dict.
+        with the raw (device-resident) metrics dict, after the source's own
+        ``on_learner_metrics(step, metrics)`` hook where it has one (replay
+        priorities); a source's ``stats()`` gauges join the log line.
       print_fn: sink for log lines.
     """
 
@@ -96,6 +98,9 @@ class Runtime:
         self.metrics: Optional[Dict[str, Any]] = None
         self._win_t: Optional[float] = None    # windowed-FPS anchors
         self._win_frames = 0
+        # Sources that learn from the learner (replay priorities) expose an
+        # on_learner_metrics hook; the loop calls it after every step.
+        self._feedback = getattr(source, "on_learner_metrics", None)
 
     # -- pieces -------------------------------------------------------------
 
@@ -109,6 +114,15 @@ class Runtime:
             if value is not None and value.dim() == 0:
                 label = _METRIC_LABELS.get(k, k)
                 parts.append(f"{label}={float(value):+.3f}")
+        # Source-side gauges (ReplaySource: occupancy, mean priority, hit
+        # rate) ride along on the same line.
+        stats_fn = getattr(self.source, "stats", None)
+        if stats_fn is not None:
+            stats = stats_fn()
+            for k in ("replay_occupancy", "replay_mean_priority",
+                      "replay_hit_rate"):
+                if k in stats:
+                    parts.append(f"{k.removeprefix('replay_')}={stats[k]:.3f}")
         now = time.time()
         if self.frames:
             # Windowed throughput (since the previous log line) is the
@@ -193,6 +207,8 @@ class Runtime:
                 in_step = False
                 next_step = step + 1
                 self.frames += self.source.frames_per_batch
+                if self._feedback is not None:
+                    self._feedback(step, self.metrics)
                 if self.on_metrics is not None:
                     self.on_metrics(step, self.metrics)
                 if self.log_every and (step % self.log_every == 0
@@ -203,11 +219,11 @@ class Runtime:
                         and step + 1 < self.total_steps):
                     self._checkpoint(step + 1)
             # The final checkpoint is written BEFORE source.stop(): stop()
-            # resets dispatch state, and the checkpoint must capture the
-            # LIVE source state so a later --resume continues the exact
-            # rollout stream. (No final save when no step ran — resume past
-            # the end would relabel the restored state with a smaller step
-            # number.)
+            # resets dispatch state and recycles replay slots, and the
+            # checkpoint must capture the LIVE source state so a later
+            # --resume continues the exact rollout stream. (No final save
+            # when no step ran — resume past the end would relabel the
+            # restored state with a smaller step number.)
             if self.checkpoint_dir and self.start_step < self.total_steps:
                 self._checkpoint(self.total_steps)
             # Surface background write failures on the main thread while

@@ -22,6 +22,9 @@ exactly the learner-input layout of the paper's §2, so the ``Runtime``
   ``HostLoopSource`` — MonoBeast/PolyBeast host actor threads feeding the
                        inference queue (DynamicBatcher) and the learner
                        queue (BatchingQueue).
+  ``ReplaySource``   — off-policy replay over either: fresh columns mixed
+                       with columns replayed from a ``core/replay.py``
+                       buffer, tagged by an ``is_replay`` mask.
 
 SourceState: every source is a stateful, checkpointable object.
 ``state_dict()`` captures everything the rollout stream depends on — env
@@ -34,15 +37,19 @@ every checkpoint (checkpoint.save ``structured=``) and ``train.py
 batch stream of an uninterrupted one (bit-identical final params). The
 one exception is the host-loop path: thread scheduling is not replayable,
 so ``HostLoopSource`` restarts its actors fresh and only the learner state
-resumes exactly. Replay and the sharded source are not ported yet.
+resumes exactly. ``ReplaySource`` wraps either and checkpoints its buffer
+with the inner source's state. The sharded source is not ported yet
+(ROADMAP item 14).
 """
 
 from __future__ import annotations
 
 import copy
 import threading
+import time
 import warnings
-from typing import Any, Callable, Dict, Protocol, runtime_checkable
+from typing import (Any, Callable, Dict, Optional, Protocol,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -82,13 +89,14 @@ class RolloutSource(Protocol):
 def _check_kind(state: Dict[str, Any], obj) -> None:
     """Loud resume-composition guard: a checkpoint written by one source
     shape must not be loaded into another (e.g. saved with --actors host,
-    resumed with device actors)."""
+    resumed with device actors; or --replay elite saved, resumed without
+    --replay)."""
     kind = state.get("kind") if hasattr(state, "get") else None
     if kind != type(obj).__name__:
         raise ValueError(
             f"checkpoint source state is {kind!r} but this run built "
             f"{type(obj).__name__} — resume with the same source flags "
-            "(--actors)")
+            "(--actors/--replay)")
 
 
 def _like(template, tree):
@@ -147,6 +155,13 @@ class DeviceSource:
     ``param_sync_every=k`` refreshes the behavior params only every k-th
     dispatch — the actor-lag knob.
 
+    ``ready_event`` (CUDA only, else None) is recorded on the stream by
+    every ``next_batch`` after the returned rollout and before the unroll
+    it leaves in flight: waiting on it waits for the returned batch (and
+    for whatever the caller queued before the call, such as the learner's
+    last update), never for the unroll in flight. ``ReplaySource`` copies
+    the batch to the host behind it.
+
     The actors act with their own copy of the agent (TorchBeast's
     ``actor_model`` beside the ``learner_model``). The learner updates its
     parameters in place, so each sync copies the learner's ``state_dict``
@@ -170,6 +185,7 @@ class DeviceSource:
         self._dispatches = 0
         self._pending = None
         self._device = next(actor.parameters()).device
+        self.ready_event = None
 
     @classmethod
     def for_env(cls, env, agent: torch.nn.Module, *, unroll_length: int,
@@ -197,11 +213,19 @@ class DeviceSource:
     def start(self, params) -> None:
         del params  # first dispatch happens lazily in next_batch
 
+    def _mark_ready(self) -> None:
+        if self._device.type == "cuda":
+            self.ready_event = torch.cuda.current_stream(
+                self._device).record_event()
+
     def next_batch(self, params):
         if not self.pipelined:
-            return self._dispatch(params)
+            rollout = self._dispatch(params)
+            self._mark_ready()
+            return rollout
         if self._pending is None:
             self._pending = self._dispatch(params)
+        self._mark_ready()
         rollout, self._pending = self._pending, self._dispatch(params)
         return rollout
 
@@ -246,6 +270,247 @@ class DeviceSource:
             for k, v in pending.items()}
         self._actor.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state["actor"].items()})
+
+
+# ---------------------------------------------------------------------------
+# Off-policy replay composition
+
+
+class ReplaySource:
+    """Compose a replay buffer over any ``RolloutSource``.
+
+    Every ``next_batch`` (1) pulls one fresh rollout batch from the inner
+    source, (2) inserts its B columns into the buffer, (3) samples
+    ``round(B * replay_ratio)`` stored rollouts and (4) emits the
+    concatenation along the batch axis, tagged with a per-column
+    ``is_replay`` mask. Replayed columns keep the ``behavior_logits``
+    recorded when they were generated, so the V-trace importance weights
+    in the learner stay correct for stale data — no special-casing in the
+    loss beyond the optional CLEAR terms (core/losses.py) gated on
+    ``is_replay``.
+
+    ``replay_ratio`` is replayed:fresh — 1.0 means a 1:1 mixed batch of
+    2B columns. ``frames_per_batch`` counts only the B fresh columns
+    (replayed rows cost no new environment frames; that is the
+    sample-efficiency argument). Sampling happens BEFORE the fresh batch
+    is inserted, so replayed rows always predate the current step — except
+    the very first batch, which warm-starts from its own columns.
+
+    ``value_fn(params, obs) -> (T, B) values`` (optional) records the
+    acting network's value estimates on every fresh rollout at insert
+    time; replayed columns then carry them back as ``behavior_value``, the
+    cloning target of the CLEAR value-cloning term (core/losses.py).
+
+    The learner step feeds per-column priorities back through
+    ``on_learner_metrics`` (the Runtime calls it after every step when the
+    metrics dict carries a ``priority`` vector aligned with the emitted
+    columns: fresh first, then replayed).
+
+    On the card the buffer stays in host memory. The fresh batch goes to
+    the host on a side stream behind the inner source's ``ready_event``
+    (or an event recorded when the batch came back), into pinned memory,
+    and only that copy is waited for: a double-buffered inner source keeps
+    its next unroll running meanwhile. ``value_fn`` runs on the same side
+    stream. The replayed columns go back from pinned memory without
+    waiting. ``split_ms`` holds the host-clock milliseconds of the parts
+    of the last ``next_batch``: ``inner`` (the inner source's
+    ``next_batch``), ``to_host`` (the wait and the copy, with
+    ``value_fn``), ``sample``, ``insert`` and ``to_device`` (the enqueue
+    of the replayed columns' copy and of the mixed batch); ``copy_event``
+    (timing-enabled) marks on the card where the last host copy ended.
+    """
+
+    def __init__(self, source, buffer, *, replay_ratio: float = 1.0,
+                 seed: int = 0, value_fn: Optional[Callable] = None):
+        self.inner = source
+        self.buffer = buffer
+        self.replay_ratio = float(replay_ratio)
+        self.frames_per_batch = source.frames_per_batch
+        self._value_fn = value_fn
+        self._rng = np.random.default_rng(seed)
+        self._last_ids: list = []
+        self._served = 0        # replayed columns emitted
+        self._hits = 0          # ... that were NOT inserted this very step
+        self._prio_drops = 0    # priority vectors discarded (shape drift)
+        self._prio_warned = False
+        self._stream = None     # the side stream of the host copies, lazy
+        self.copy_event = None  # recorded after the last host copy
+        self.split_ms: Dict[str, float] = {}
+
+    def start(self, params) -> None:
+        self.inner.start(params)
+
+    def _with_values(self, fresh, params):
+        if self._value_fn is None or "behavior_value" in fresh:
+            return fresh
+        # ≈ the behavior network's values (exact up to the source's
+        # parameter lag) — the CLEAR value-cloning anchor; data, not a
+        # graph
+        with torch.no_grad():
+            values = self._value_fn(params, fresh["obs"][:-1])
+        return dict(fresh, behavior_value=values.float())
+
+    def _to_host(self, fresh, params):
+        """(fresh with ``behavior_value``, its numpy host copy)."""
+        device = fresh["action"].device
+        if device.type != "cuda":
+            fresh = self._with_values(fresh, params)
+            return fresh, {k: v.numpy() for k, v in fresh.items()}
+        main = torch.cuda.current_stream(device)
+        ready = getattr(self.inner, "ready_event", None)
+        if ready is None:
+            ready = main.record_event()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        self._stream.wait_event(ready)
+        with torch.cuda.stream(self._stream):
+            fresh = self._with_values(fresh, params)
+            if "behavior_value" in fresh:
+                # made on the side stream, read later on the main one
+                fresh["behavior_value"].record_stream(main)
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in fresh.items()}
+            for k, v in fresh.items():
+                host[k].copy_(v, non_blocking=True)
+        self.copy_event = torch.cuda.Event(enable_timing=True)
+        self.copy_event.record(self._stream)
+        self.copy_event.synchronize()
+        return fresh, {k: v.numpy() for k, v in host.items()}
+
+    def _mix(self, fresh, replayed, b: int, k: int):
+        """The fresh-first mixed batch on the fresh batch's device. The
+        fresh/replayed schemas must agree — a key present on one side only
+        would silently vanish from the emitted batch (and the learner
+        would train without it), so schema drift fails loudly instead."""
+        missing = sorted(set(fresh) - set(replayed))
+        extra = sorted(set(replayed) - set(fresh))
+        if missing or extra:
+            raise KeyError(
+                f"fresh/replayed batch schemas diverge: fresh-only keys "
+                f"{missing}, replay-only keys {extra} — the emitted batch "
+                "would silently drop columns")
+        device = fresh["action"].device
+        pin = device.type == "cuda"
+        batch = {}
+        for key, x in fresh.items():
+            r = torch.from_numpy(replayed[key])
+            if pin:
+                r = r.pin_memory()
+            batch[key] = torch.cat(
+                [x, r.to(device, non_blocking=True)], dim=1)
+        batch["is_replay"] = torch.arange(b + k, device=device) >= b
+        return batch
+
+    def _sample(self, k: int, query):
+        t0 = time.perf_counter()
+        out = self.buffer.sample(k, self._rng, query=query)
+        self.split_ms["sample"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def next_batch(self, params):
+        self.split_ms = {"sample": 0.0}
+        t0 = time.perf_counter()
+        fresh = self.inner.next_batch(params)
+        t1 = time.perf_counter()
+        fresh, host = self._to_host(fresh, params)
+        self.split_ms["inner"] = (t1 - t0) * 1e3
+        self.split_ms["to_host"] = (time.perf_counter() - t1) * 1e3
+        b = host["action"].shape[1]
+        k = int(round(b * self.replay_ratio))
+        query = host["obs"] \
+            if k and getattr(self.buffer, "needs_query", False) else None
+        replayed = None
+        if k and len(self.buffer):   # sample strictly-older data first
+            replayed, replay_ids = self._sample(k, query)
+        t0 = time.perf_counter()
+        fresh_ids = self.buffer.insert(host)
+        self.split_ms["insert"] = (time.perf_counter() - t0) * 1e3
+        if k == 0:
+            self._last_ids = list(fresh_ids)
+            self.split_ms["to_device"] = 0.0
+            return dict(fresh, is_replay=torch.zeros(
+                (b,), dtype=torch.bool, device=fresh["action"].device))
+        if replayed is None:         # first batch: warm-start from itself
+            replayed, replay_ids = self._sample(k, query)
+        t0 = time.perf_counter()
+        batch = self._mix(fresh, replayed, b, k)
+        self.split_ms["to_device"] = (time.perf_counter() - t0) * 1e3
+        self._last_ids = list(fresh_ids) + list(replay_ids)
+        self._served += k
+        fresh_set = set(fresh_ids)
+        self._hits += sum(1 for i in replay_ids if i not in fresh_set)
+        return batch
+
+    def on_learner_metrics(self, step, metrics) -> None:
+        """Runtime feedback hook: route the learner's per-column priority
+        vector to the slots that produced the last batch. A vector that
+        does not align with the emitted columns cannot be routed — that
+        silently degrades elite replay to uniform, so it warns (once) and
+        counts the drop in ``stats()``. A tensor is read to the host here:
+        the one wait for the learner step that replay adds."""
+        del step
+        prio = metrics.get("priority") if hasattr(metrics, "get") else None
+        if prio is None or not self._last_ids:
+            return
+        if isinstance(prio, torch.Tensor):
+            prio = prio.detach().cpu().numpy()
+        prio = np.asarray(prio, np.float64)
+        if prio.shape[0] != len(self._last_ids):
+            self._prio_drops += 1
+            if not self._prio_warned:
+                self._prio_warned = True
+                warnings.warn(
+                    f"replay priority vector has {prio.shape[0]} entries "
+                    f"but the last batch emitted {len(self._last_ids)} "
+                    "columns; feedback dropped — elite replay is degrading "
+                    "to uniform (drops counted in stats()['replay_"
+                    "priority_drops'])", RuntimeWarning, stacklevel=2)
+            return
+        self.buffer.update_priorities(self._last_ids, prio)
+
+    def stats(self):
+        s = {f"replay_{k}": v for k, v in self.buffer.stats().items()}
+        s["replay_hit_rate"] = self._hits / max(self._served, 1)
+        s["replay_priority_drops"] = float(self._prio_drops)
+        return s
+
+    # -- SourceState protocol --------------------------------------------------
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Nested checkpoint: inner-source state + buffer slots/priorities
+        + the sampling generator's state (its 128-bit PCG64 integers stay
+        Python ints) and the feedback bookkeeping."""
+        return {
+            "kind": type(self).__name__,
+            "inner": self.inner.state_dict(),
+            "buffer": self.buffer.state_dict(),
+            "rng": self._rng.bit_generator.state,
+            "last_ids": list(self._last_ids),
+            "served": self._served,
+            "hits": self._hits,
+            "prio_drops": self._prio_drops,
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        _check_kind(state, self)
+        self.inner.load_state_dict(state["inner"])
+        self.buffer.load_state_dict(state["buffer"])
+        rng = np.random.default_rng()
+        rng.bit_generator.state = state["rng"]
+        self._rng = rng
+        self._last_ids = [int(i) for i in state["last_ids"]]
+        self._served = int(state["served"])
+        self._hits = int(state["hits"])
+        self._prio_drops = int(state["prio_drops"])
+
+    def stop(self) -> None:
+        """Stop the inner source and recycle every buffer slot back to the
+        free list — even when the learner died mid-batch."""
+        try:
+            self.inner.stop()
+        finally:
+            self._last_ids = []
+            self.buffer.clear()
 
 
 # ---------------------------------------------------------------------------

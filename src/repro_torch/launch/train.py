@@ -6,10 +6,16 @@ disable, ``--actors host`` for the MonoBeast host actor threads). The
 V-trace recursion runs in the fused CUDA kernel by default
 (``--vtrace-impl kernel``); ``scan`` selects the plain reverse loop.
 
-``--checkpoint-dir`` saves the learner and source state at the end (and
-every ``--checkpoint-every`` steps); ``--resume`` continues from the
-latest complete checkpoint there, bit-identically to an uninterrupted run
-of the same ``--steps`` for the on-device actors.
+``--replay {uniform,elite,attentive}`` wraps either source in
+off-policy replay (``ReplaySource``): each learner batch is the fresh
+columns plus ``--replay-ratio`` times as many replayed from a buffer of
+``--replay-capacity`` rollouts in host memory, and the learner adds the
+CLEAR cloning terms on the replayed columns.
+
+``--checkpoint-dir`` saves the learner and source state (with the replay
+buffer) at the end (and every ``--checkpoint-every`` steps); ``--resume``
+continues from the latest complete checkpoint there, bit-identically to
+an uninterrupted run of the same ``--steps`` for the on-device actors.
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU and without
 ``--device cpu`` it raises. The other modes and flags of the reference's
@@ -25,11 +31,16 @@ Examples:
       --steps 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --steps 6 \
       --checkpoint-dir /tmp/ckpt --checkpoint-every 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --env catch \
+      --replay elite --replay-ratio 1.0 --steps 500
+  PYTHONPATH=src python -m repro_torch.launch.train --actors host \
+      --replay uniform --steps 2 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -46,8 +57,7 @@ _NOT_PORTED_MODES = ("lm-rl", "lm")
 _NOT_PORTED_FLAGS = (
     "--mesh-data", "--mesh-model", "--coordinator",
     "--num-processes", "--process-id", "--attn-impl", "--ssd-impl",
-    "--replay", "--replay-capacity", "--replay-ratio", "--arch",
-    "--reduced", "--seq")
+    "--arch", "--reduced", "--seq")
 
 
 def build_rl_agent(args):
@@ -57,6 +67,9 @@ def build_rl_agent(args):
     train_cfg = small_train(total_steps=args.steps,
                             learning_rate=args.lr or 2e-3,
                             batch_size=args.batch or 32)
+    if args.replay != "off":
+        train_cfg = dataclasses.replace(train_cfg, clear_policy_cost=0.01,
+                                        clear_value_cost=0.005)
     net = impala_deep if args.agent == "deep" else minatar_net
     agent = net(env.obs_shape, env.num_actions,
                 generator=torch.Generator().manual_seed(train_cfg.seed))
@@ -74,6 +87,12 @@ def build_rl_agent(args):
             env, agent, unroll_length=train_cfg.unroll_length,
             batch_size=train_cfg.batch_size, seed=train_cfg.seed + 1,
             pipelined=not args.sync)
+    if args.replay != "off":
+        from repro_torch.core import replay as replay_lib
+        source = sources_lib.ReplaySource(
+            source, replay_lib.make_buffer(args.replay, args.replay_capacity),
+            replay_ratio=args.replay_ratio, seed=train_cfg.seed,
+            value_fn=lambda params, obs: params(obs).baseline)
     step_fn = learner_lib.make_train_step(opt, train_cfg,
                                           vtrace_impl=args.vtrace_impl)
     opt_state = opt.init(list(agent.parameters()))
@@ -98,6 +117,14 @@ def _parser():
                    default="kernel",
                    help="V-trace: the fused CUDA kernel (its plain version "
                         "on the CPU) or the plain reverse loop")
+    p.add_argument("--replay", choices=["off", "uniform", "elite",
+                                        "attentive"], default="off",
+                   help="off-policy replay strategy (mixed batches with "
+                        "CLEAR cloning on the replayed columns)")
+    p.add_argument("--replay-capacity", type=int, default=512,
+                   help="rollouts the replay buffer holds (host memory)")
+    p.add_argument("--replay-ratio", type=float, default=1.0,
+                   help="replayed:fresh columns per learner batch")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)

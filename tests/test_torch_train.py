@@ -53,7 +53,7 @@ def test_cuda_without_gpu_raises():
 
 @pytest.mark.parametrize("argv,message", [
     (["--mode", "lm"], "not ported yet"),
-    (["--replay", "elite"], "not ported yet: --replay"),
+    (["--attn-impl", "kernel"], "not ported yet: --attn-impl"),
     (["--mesh-data=2"], "not ported yet: --mesh-data"),
     (["--no-such-flag"], "unrecognized"),
 ])
