@@ -16,7 +16,8 @@ exits nonzero without printing a result:
               attention at Qwen3-4B's prefill shapes, a windowed and
               softcapped case, head_dim 64 and 256, and Zamba2's shared
               block (head_dim 80); decode attention at the serving shapes
-              of both (bf16 and float32), with events and graph times,
+              of both; then both at the LM trainers' shapes (phases 15,
+              16); each in bf16 and float32, with events and graph times,
               bounds and the share of them reached, SDPA's events and
               graph times, the wrapper's host time per call, and the split
               count decode attention launched with; the SSD chunk at a
@@ -77,8 +78,27 @@ exits nonzero without printing a result:
               kernel paths (kernel forward, the plain version's VJP
               backward) against the plain paths, on the output, the input
               and every parameter, within MODEL_TOL
- 14. kernels  one {"kernels": [...]} line, then the card's name and power
-              limit, then the final {"ok": true, "device": {...}} line
+ 15. lm_rl    repro_torch.launch.train.main --mode lm-rl at full Qwen3-4B
+              width (bf16 activations on float32 weights, AdamW, remat):
+              4 steps of 8 episodes of 64 tokens from the decode session
+              (K2 in each prefill, K3 in every layer of every step), the
+              learner through K2 under autograd and K1; ms per step split
+              into next_batch (generation) and the learner, fps, peak
+              memory, launches against layers x steps; then one float32
+              step on a batch of the run, kernel paths against plain
+              paths: the kernel path's launches exact, loss and gradient
+              norm within MODEL_TOL, each parameter's gradient within
+              LM_GRAD_TOL of its largest
+ 16. lm       --mode lm at full Zamba2-2.7B width: 4 steps of 4 x 512
+              tokens, K4 in every Mamba2 layer (two chunks) and K2 in the
+              shared block under autograd (remat: per group, and per layer
+              inside Zamba2's six-layer groups); tok/s, ms per step, peak
+              memory, launches against layers x chunks x passes; then the
+              same float32 check
+ 14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
+              row; lm_rl_launches / lm_launches: phases 15 and 16), then
+              the card's name and power limit, then the final
+              {"ok": true, "device": {...}} line
 
 It needs CUDA and the repository's src/ beside it; it exits nonzero when
 either is missing. Times are CUDA-event or synchronised host-clock times
@@ -119,7 +139,11 @@ VTRACE_SHAPES = [(80, 32), (20, 32), (1, 1), (33, 200), (200, 4096),
 # index in VTRACE_SHAPES + REPLAY_VTRACE_SHAPES, so these come after the
 # others, whose seeds tests/test_torch_vtrace_designs.py shares
 REPLAY_VTRACE_SHAPES = [(80, 64), (20, 64)]
+# the lm-rl learner's (T = --seq, B = --batch), after those for the same
+# reason
+LM_RL_VTRACE_SHAPES = [(64, 8)]
 TRAINER_SHAPE = (20, 32)       # (T, B) of the phase-5 main path
+LM_RL_SHAPE = (64, 8)          # (T, B) of the phase-15 learner
 REPLAY_SHAPE = (80, 64)        # (T, B) of the full-width replay learner
 VTRACE_FLOOR = (1, 1)          # one thread, one row: a launch's floor
 # float operations per (t, b) element of the fused kernel: 3 clips, delta
@@ -130,22 +154,29 @@ ATTN_TOL = 2e-5                # float32, as tests/test_kernels.py holds them
 BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
 # (B, H, K, S, hd, window, softcap): Qwen3-4B prefill (32 query heads over
 # 8 KV heads, hd 128) at bucket and exact prompt lengths, a gemma2-like
-# windowed and softcapped case, and the other two head_dims
+# windowed and softcapped case, and the other two head_dims; then, after
+# those so that no earlier seed moves, the LM trainers' own: the lm-rl
+# prefill of 8 one-token prompts (bucket 1), its learner's forward (B 8,
+# S = --seq 64), and Zamba2's shared block in --mode lm (B 4, S 512)
 FLASH_SHAPES = [(1, 32, 8, s, 128, 0, 0.0) for s in (1, 16, 256, 300, 512)] \
     + [(1, 32, 16, 4608, 128, 4096, 50.0), (1, 8, 2, 256, 64, 0, 0.0),
-       (1, 8, 2, 256, 256, 0, 0.0), (1, 32, 32, 256, 80, 0, 0.0)]
+       (1, 8, 2, 256, 256, 0, 0.0), (1, 32, 32, 256, 80, 0, 0.0)] \
+    + [(8, 32, 8, 1, 128, 0, 0.0), (8, 32, 8, 64, 128, 0, 0.0),
+       (4, 32, 32, 512, 80, 0, 0.0)]
 FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
 # (B, H, K, cap, hd, pos, window, softcap): the serving decode (8 slots at
 # their own positions in 576-slot caches), scalar pos, 4096-slot caches, a
 # ring buffer with window 32, softcap; Zamba2's shared block (no GQA, hd
-# 80, 8 slots of 320)
+# 80, 8 slots of 320); last, the lm-rl episodes' 65-slot caches (--seq + 1:
+# ranges of 32, 32 and a ragged 1)
 DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 8, 576, 128, "scalar", 0, 0.0),
                  (8, 32, 8, 4096, 128, "rows", 0, 0.0),
                  (8, 32, 8, 4096, 128, "scalar", 0, 0.0),
                  (8, 32, 8, 32, 128, "ring", 32, 0.0),
                  (8, 32, 8, 576, 128, "rows", 0, 50.0),
-                 (8, 32, 32, 320, 80, "rows", 0, 0.0)]
+                 (8, 32, 32, 320, 80, "rows", 0, 0.0),
+                 (8, 32, 8, 65, 128, "rows", 0, 0.0)]
 DECODE_MAIN = ((8, 32, 8, 576, 128, "rows", 0, 0.0), "bfloat16")
 # (slices, L, N, P, heads, decay): heads > 1 is the model's layout, one B/C
 # group per batch row read by all its heads; da = -U(0, decay) per step.
@@ -160,6 +191,11 @@ SSD_SHAPES = [(80, 256, 64, 64, 80, 0.55), (640, 256, 64, 64, 80, 0.55),
               (1, 128, 128, 64, 1, 0.1), (3, 96, 64, 32, 1, 0.1)]
 SSD_MAIN = (80, 256, 64, 64, 80, 0.55)
 MODEL_TOL = 1e-3               # full-width logits, kernel vs dense path
+# one float32 LM learner step, kernel vs plain paths: each leaf's largest
+# gradient difference over that leaf's largest gradient; about five times
+# the largest measured on an H100 (4.1e-5, a Zamba2 dt_bias; PERF.md)
+LM_GRAD_TOL = 2e-4
+LM_SPLIT_REPS = 3              # timed next_batch / learner calls after a run
 SERVE_ARGV = ["--arch", "qwen3-4b", "--attn-impl", "kernel", "--requests",
               "24", "--prompt-len", "512", "--gen-tokens", "64",
               "--max-batch", "8"]
@@ -184,6 +220,13 @@ ZAMBA_SERVE_ARGV = ["--arch", "zamba2-2.7b", "--attn-impl", "kernel",
                     "--ssd-impl", "kernel", "--requests", "24",
                     "--prompt-len", "256", "--gen-tokens", "64",
                     "--max-batch", "8"]
+# the LM trainers at full published width (phases 15, 16)
+LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
+              "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
+              "64", "--steps", "4"]
+LM_ARGV = ["--mode", "lm", "--arch", "zamba2-2.7b", "--attn-impl", "kernel",
+           "--ssd-impl", "kernel", "--batch", "4", "--seq", "512", "--steps",
+           "4"]
 
 
 def emit(phase, **fields):
@@ -260,7 +303,8 @@ def vtrace_bound(t, b):
 def phase_kernel(ops, ref):
     import torch
     rows = {}
-    for i, (t, b) in enumerate(VTRACE_SHAPES + REPLAY_VTRACE_SHAPES):
+    for i, (t, b) in enumerate(VTRACE_SHAPES + REPLAY_VTRACE_SHAPES
+                               + LM_RL_VTRACE_SHAPES):
         for clip in (1.0, None) if (t, b) == (33, 200) else (1.0,):
             args = vtrace_inputs(t, b, seed=1000 + i)
             kw = dict(clip_rho_threshold=clip, clip_c_threshold=clip,
@@ -1010,7 +1054,8 @@ def run_trainer(argv):
 def split_ms(runtime, reps=5):
     """Synchronised host-clock medians of the two halves of a trainer step
     after its run: one rollout batch from the source (restarted by its
-    first next_batch, stopped at the end), one learner step."""
+    first next_batch, stopped at the end), one learner step. Returns them
+    and the last batch."""
     import torch
 
     def timed(fn):
@@ -1028,7 +1073,7 @@ def split_ms(runtime, reps=5):
     _, learner_ms = timed(lambda: runtime.step_fn(
         runtime.params, runtime.opt_state, runtime.total_steps, batch))
     src.stop()
-    return {"unroll_ms": unroll_ms, "learner_ms": learner_ms}
+    return {"unroll_ms": unroll_ms, "learner_ms": learner_ms}, batch
 
 
 def replay_overlap(runtime, reps=4):
@@ -1114,7 +1159,7 @@ def phase_replay_trainer(ops, base):
          ms_per_step=seconds / 20 * 1e3, launches=launches,
          vtrace_chunks=list(chunks), fps_line=last, loss=loss,
          overlap=replay_overlap(runtime),
-         **split_ms(runtime),
+         **split_ms(runtime)[0],
          without_replay={k: base[k] for k in ("ms_per_step", "fps_line",
                                               "unroll_ms", "learner_ms")})
     return launches["vtrace"]
@@ -1189,7 +1234,7 @@ def phase_host(ops):
         t0 = time.perf_counter()
         runtime.source._policy(obs)
         policy_ms.append((time.perf_counter() - t0) * 1e3)
-    split = split_ms(runtime, reps=3)
+    split, _ = split_ms(runtime, reps=3)
     left = _host_threads()
     if left:
         raise AssertionError(f"host actors left threads alive: {left}")
@@ -1493,6 +1538,202 @@ def phase_grad(ops):
     return errors
 
 
+def remat_step_launches(cfg, seq):
+    """Flash-attention and SSD-chunk launches of one learner step over
+    ``seq`` tokens with ``cfg.remat``: each layer runs in the forward pass
+    and again in its group's recomputation, and a layer of a multi-layer
+    group once more in its own (the nested checkpoint); the shared block
+    after each group is a one-layer group. An attention layer launches
+    flash attention once a pass, a Mamba2 layer the SSD chunk kernel once
+    a chunk."""
+    passes = 3 if len(cfg.block_pattern) > 1 else 2
+    chunks = -(-seq // cfg.ssm_chunk)
+    out = {"flash_attention": 0, "ssd_chunk": 0}
+    for mixer, _ in cfg.block_pattern:
+        if mixer == "mamba":
+            out["ssd_chunk"] += passes * chunks * cfg.num_groups
+        else:
+            out["flash_attention"] += passes * cfg.num_groups
+    if cfg.shared_attn_every:
+        out["flash_attention"] += 2 * cfg.num_groups
+    return out
+
+
+def _lm_main(ops, argv):
+    """``train.main(argv)`` with its kernel launches and peak device
+    memory; then ``split_ms`` on the trained runtime (its medians and last
+    batch). The model and optimizer state are freed before it returns."""
+    import gc
+
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_stats()
+    runtime, seconds, last = run_trainer(argv)
+    launches = ops.stats()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in runtime.metrics.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{argv}: metrics not finite: {metrics}")
+    frames, steps = runtime.frames, runtime.total_steps
+    split, batch = split_ms(runtime, reps=LM_SPLIT_REPS)
+    del runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = split["unroll_ms"] + split["learner_ms"]
+    run = dict(argv=argv, seconds=seconds, fps_line=last, metrics=metrics,
+               launches=launches, peak_mem_bytes=peak, frames=frames,
+               split_reps=LM_SPLIT_REPS, **split, step_ms=step_ms,
+               frames_per_s=frames / steps / step_ms * 1e3)
+    return run, batch, steps
+
+
+def _lm_step_check(ops, arch, batch, make_step, want):
+    """One learner step on ``batch`` from seed-0 weights of ``arch`` at
+    full width in float32 activations, through the kernel paths and
+    through the plain paths (attention ``xla``, SSD ``xla``, V-trace
+    ``scan``). The kernel run must launch exactly ``want``, the plain run
+    nothing; the loss and the gradients' global norm must agree within
+    MODEL_TOL, and every leaf's largest gradient difference within
+    LM_GRAD_TOL of that leaf's largest gradient. The optimizer is a probe
+    that keeps the gradients and moves no weight."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import optimizers
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    names = [n for n, _ in params.named_parameters()]
+    runs, grads = {}, {}
+    for path, impl, vtrace in (("kernel", "kernel", "kernel"),
+                               ("plain", "xla", "scan")):
+        def keep(g, state, plist, step, path=path):
+            grads[path] = list(g)
+            g.clear()
+            return state
+
+        opt = optimizers.Optimizer(init=lambda p: {}, step=keep)
+        icfg = dataclasses.replace(cfg, attn_impl=impl, ssd_impl=impl)
+        ops.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = make_step(icfg, opt, vtrace)(params, {}, 0, batch)
+        torch.cuda.synchronize()
+        runs[path] = dict(loss=float(metrics["loss"]),
+                          grad_norm=float(optimizers.global_norm(
+                              grads[path])),
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          launches=ops.stats())
+        del metrics
+        gc.collect()
+    worst = dict(rel=0.0, leaf=None, abs=0.0, scale=0.0)
+    for name, gk, gp in zip(names, grads["kernel"], grads["plain"]):
+        diff = (gk - gp).abs().max().item()
+        scale = gp.abs().max().item()
+        rel = diff / scale if scale else (0.0 if not diff else math.inf)
+        if not math.isfinite(diff) or rel > worst["rel"]:
+            worst = dict(rel=rel, leaf=name, abs=diff, scale=scale)
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    k, p = runs["kernel"], runs["plain"]
+    for key in ("loss", "grad_norm"):
+        if not (math.isfinite(k[key]) and math.isclose(
+                k[key], p[key], rel_tol=MODEL_TOL, abs_tol=MODEL_TOL)):
+            raise AssertionError(
+                f"{arch} float32 step: kernel-path {key} {k[key]} against "
+                f"the plain path's {p[key]}, beyond {MODEL_TOL}")
+    if not worst["rel"] <= LM_GRAD_TOL:
+        raise AssertionError(
+            f"{arch} float32 step: leaf {worst['leaf']} gradients differ by "
+            f"{worst['abs']:.3e}, {worst['rel']:.3e} of its largest "
+            f"{worst['scale']:.3e}, beyond {LM_GRAD_TOL}")
+    want = {**dict.fromkeys(k["launches"], 0), **want}
+    if k["launches"] != want:
+        raise AssertionError(f"{arch} kernel path launched {k['launches']}, "
+                             f"want {want}")
+    if any(p["launches"].values()):
+        raise AssertionError(f"{arch} plain path launched {p['launches']}")
+    return dict(dtype="float32", tol=MODEL_TOL, grad_tol=LM_GRAD_TOL,
+                kernel=k, plain=p, loss_diff=abs(k["loss"] - p["loss"]),
+                grad_norm_diff=abs(k["grad_norm"] - p["grad_norm"]),
+                worst_leaf=worst)
+
+
+def phase_lm_rl(ops):
+    """``--mode lm-rl`` at full Qwen3-4B width through the entry point
+    (bf16 activations on float32 weights, AdamW, the settings of
+    ``train.build_lm_rl``): 4 steps of 8 episodes of 64 tokens, each
+    generated by the decode session (flash attention in the prefill,
+    decode attention in every layer of every step) and learned from with
+    the flash-attention kernel under autograd (twice a layer: remat) and
+    the V-trace kernel. Then the kernel-against-plain check of one float32
+    step on the last batch that ``split_ms`` drew. Returns the main run's
+    launches."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import learner, sources
+
+    run, batch, steps = _lm_main(ops, LM_RL_ARGV)
+    t, b = LM_RL_SHAPE
+    cfg = get_config("qwen3-4b")
+    layers, _ = kernel_layers(cfg)
+    learner_launches = {**remat_step_launches(cfg, t), "vtrace": 1}
+    want = {"vtrace": steps, "ssd_chunk": 0,
+            "flash_attention": (layers + learner_launches["flash_attention"])
+            * steps, "decode_attention": layers * (t - 1) * steps}
+    loss_cfg = TrainConfig(entropy_cost=0.003)  # build_lm_rl's loss costs
+
+    def make_step(cfg, opt, vtrace):
+        return sources.lm_rl_step_from_rollout(learner.make_lm_train_step(
+            cfg, opt, loss_cfg, loss_chunk=t, vtrace_impl=vtrace))
+
+    check = _lm_step_check(ops, "qwen3-4b", batch, make_step,
+                           learner_launches)
+    emit("lm_rl", arch="qwen3-4b", T=t, B=b, want_launches=want,
+         check=check, **run)
+    if run["launches"] != want:
+        raise AssertionError(f"lm-rl launches {run['launches']}, want "
+                             f"{want} ({layers} layers, {steps} steps)")
+    return run["launches"]
+
+
+def phase_lm(ops):
+    """``--mode lm`` at full Zamba2-2.7B width through the entry point:
+    4 pretraining steps of 4 x 512 tokens on the synthetic corpus (bf16
+    activations on float32 weights, AdamW), the SSD chunk kernel in every
+    Mamba2 layer (two chunks a sequence) and flash attention in the shared
+    block, both under autograd and run again by remat's recomputation.
+    Then the kernel-against-plain check of one float32 step on the last
+    batch that ``split_ms`` drew. Returns the main run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import learner
+
+    run, batch, steps = _lm_main(ops, LM_ARGV)
+    launches = run["launches"]
+    seq = int(LM_ARGV[LM_ARGV.index("--seq") + 1])
+    per_step = remat_step_launches(get_config("zamba2-2.7b"), seq)
+    want = {"vtrace": 0, "decode_attention": 0,
+            **{k: v * steps for k, v in per_step.items()}}
+
+    def make_step(cfg, opt, vtrace):
+        del vtrace
+        return learner.make_lm_pretrain_step(cfg, opt, loss_chunk=seq)
+
+    check = _lm_step_check(ops, "zamba2-2.7b", batch, make_step, per_step)
+    emit("lm", arch="zamba2-2.7b", seq=seq,
+         tokens_per_step=run["frames"] // steps,
+         tokens_per_s=run.pop("frames_per_s"), want_launches=want,
+         check=check, **run)
+    if launches != want:
+        raise AssertionError(f"lm launches {launches}, want {want}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1560,7 +1801,7 @@ def main():
                    B=TRAINER_SHAPE[1], steps=20, seconds=seconds,
                    ms_per_step=seconds / 20 * 1e3, launches=trainer_launches,
                    vtrace_chunks=list(trainer_chunks), fps_line=last,
-                   **split_ms(runtime))
+                   **split_ms(runtime)[0])
     emit("trainer", **trainer)
 
     # 5b. the same run with --replay elite, and the overlap check
@@ -1577,7 +1818,7 @@ def main():
          vtrace_launches=ops.stats()["vtrace"] - before,
          final_reward_per_step=final, optimum=0.1, fps_line=last,
          verdict="SOLVED" if final > 0.05 else "not solved",
-         **split_ms(runtime))
+         **split_ms(runtime)[0])
     if not final > 0.05:
         raise AssertionError(f"Catch not solved: reward/step {final:+.3f}")
     del runtime
@@ -1629,9 +1870,15 @@ def main():
     # 13. gradients on the card: the kernel paths against the plain paths
     phase_grad(ops)
 
+    # 15. LLM-policy IMPALA at full Qwen3-4B width (K1, K2, K3); 16. LM
+    # pretraining at full Zamba2-2.7B width (K4, K2)
+    lm_rl_launches = phase_lm_rl(ops)
+    lm_launches = phase_lm(ops)
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
+    lm_rl_row = rows[LM_RL_SHAPE]
     kernels = [{
         "name": "vtrace", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/vtrace.cu",
@@ -1655,7 +1902,14 @@ def main():
         replay_row["plain_ms"], "replay_graph_ms": replay_row["graph_ms"],
         "replay_bound_ms": replay_row["bound_ms"],
         "replay_bound_by": replay_row["bound_by"],
-        "replay_bound_share": replay_row["bound_share"]}]
+        "replay_bound_share": replay_row["bound_share"],
+        "lm_rl_launches": lm_rl_launches["vtrace"],
+        "lm_rl_shape": list(LM_RL_SHAPE), "lm_rl_ms": lm_rl_row["ms"],
+        "lm_rl_plain_ms": lm_rl_row["plain_ms"],
+        "lm_rl_graph_ms": lm_rl_row["graph_ms"],
+        "lm_rl_bound_ms": lm_rl_row["bound_ms"],
+        "lm_rl_bound_by": lm_rl_row["bound_by"],
+        "lm_rl_bound_share": lm_rl_row["bound_share"]}]
     for name, replaces, all_rows, (shape, dtype) in [
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",
              flash_rows, FLASH_MAIN),
@@ -1668,6 +1922,9 @@ def main():
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": serve_launches[name],
+            "lm_rl_launches": lm_rl_launches[name],
+            **({"lm_launches": lm_launches[name]}
+               if name == "flash_attention" else {}),
             "max_abs_err": max(errs.values()),
             "max_abs_err_bf16": errs["bfloat16"],
             "max_abs_err_f32": errs["float32"],
@@ -1685,6 +1942,7 @@ def main():
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_chunk.py:68",
         "launches": zamba_launches["ssd_chunk"],
+        "lm_launches": lm_launches["ssd_chunk"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

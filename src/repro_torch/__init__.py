@@ -1,8 +1,9 @@
 """PyTorch port of the IMPALA/V-trace platform in ``repro`` for one
 NVIDIA H100.
 
-The package mirrors ``repro``'s layout module for module (configs, envs,
-models, kernels, core, optim, launch) and imports nothing of it, nor JAX.
+The package mirrors ``repro``'s layout module for module (configs, data,
+envs, models, kernels, core, optim, launch) and imports nothing of it, nor
+JAX.
 Its hot kernels are hand-written CUDA C++ for ``sm_90a`` under
 ``kernels/csrc/``: V-trace for the trainer, flash attention and decode
 attention for the decoder and the server, and the Mamba2 SSD chunk for the

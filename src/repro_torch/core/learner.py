@@ -1,9 +1,10 @@
-"""IMPALA learner step (the paper-faithful agent path; TorchBeast
-polybeast.py learner loop body).
+"""IMPALA learner steps: the paper-faithful agent path (TorchBeast
+polybeast.py learner loop body), the LLM-policy path and LM pretraining.
 
 ``make_train_step`` returns a function with the reference's contract
   (params, opt_state, step, batch) -> (params, opt_state, metrics)
-where ``params`` is the learner's agent ``nn.Module``, updated in place
+where ``params`` is the learner's ``nn.Module`` (the agent, or the
+decoder's parameter tree), updated in place leaf by leaf (``opt.step``)
 and returned, ``step`` a host integer (it drives the LR schedule), and
 ``metrics`` a dict of device tensors: reading one is the caller's choice
 of when to synchronise with the device.
@@ -14,7 +15,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import losses
-from repro_torch.optim.optimizers import apply_updates
+from repro_torch.models import model as model_lib
+
+
+def _grads(loss, plist):
+    """d loss / d params as a list for ``opt.step`` to consume; a
+    parameter the loss does not reach (the baseline head under plain LM
+    training) gets zeros, as under ``jax.grad``."""
+    return list(torch.autograd.grad(loss, plist, allow_unused=True,
+                                    materialize_grads=True))
 
 
 def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
@@ -57,9 +66,8 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
     def train_step(params, opt_state, step, batch):
         plist = list(params.parameters())
         loss_out = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss_out.total, plist)
-        updates, opt_state = opt.update(grads, opt_state, plist, step)
-        apply_updates(plist, updates)
+        opt_state = opt.step(_grads(loss_out.total, plist), opt_state,
+                             plist, step)
         if "is_replay" in batch:
             fresh = (~batch["is_replay"]).float()[None, :]
             reward_per_step = (batch["reward"] * fresh).sum() \
@@ -81,5 +89,83 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
             metrics["clear_policy_loss"] = loss_out.clear_policy_loss.detach()
             metrics["clear_value_loss"] = loss_out.clear_value_loss.detach()
         return params, opt_state, metrics
+
+    return train_step
+
+
+def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
+                       vtrace_impl="kernel"):
+    """IMPALA learner step for LLM policies.
+
+    ``params`` is the decoder's parameter tree (``models.model.init``),
+    updated in place. Attention/SSD impls come from ``cfg.attn_impl`` /
+    ``cfg.ssd_impl`` (``ImplContext`` at the CLI boundary): 'kernel'
+    runs the flash-attention and SSD chunk kernels under autograd, their
+    backward the plain version's VJP. vtrace_impl: 'kernel' (the V-trace
+    kernel) or 'scan' (the plain reverse loop).
+
+    batch (batch-major; transposed internally for V-trace):
+      tokens            (B, S+1) int   obs[0..S]; actions are tokens[1:]
+      behavior_logprob  (B, S) float32 mu(a_t|s_t) of the generating policy
+      reward            (B, S) float32
+      done              (B, S) bool
+
+    The reference adds the MoE router's auxiliary terms to the loss; they
+    are zero without MoE, which is not ported (ROADMAP item 16).
+    """
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]          # (B, S+1); model sees first S
+        # hidden[t] is the state after consuming token t => predicts t+1.
+        hidden, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg)
+        logprob, entropy = losses.chunked_logprob_entropy(
+            hidden, model_lib.unembed_matrix(params, cfg), tokens[:, 1:],
+            chunk=loss_chunk, final_softcap=cfg.final_logit_softcap)
+        values_all = model_lib.baseline_from_hidden(params, cfg, hidden)
+        bootstrap = torch.zeros((tokens.shape[0],), dtype=torch.float32,
+                                device=tokens.device)
+
+        def tm(x):                        # batch -> time major
+            return x.transpose(0, 1)
+
+        discounts = (~batch["done"]).float() * train_cfg.discount
+        return losses.impala_loss_from_logprobs(
+            tm(logprob), tm(entropy), tm(batch["behavior_logprob"]),
+            tm(batch["reward"]), tm(discounts), tm(values_all), bootstrap,
+            baseline_cost=train_cfg.baseline_cost,
+            entropy_cost=train_cfg.entropy_cost,
+            clip_rho=train_cfg.vtrace_rho_clip,
+            clip_c=train_cfg.vtrace_c_clip,
+            vtrace_impl=vtrace_impl)
+
+    def train_step(params, opt_state, step, batch):
+        plist = list(params.parameters())
+        loss_out = loss_fn(params, batch)
+        opt_state = opt.step(_grads(loss_out.total, plist), opt_state,
+                             plist, step)
+        metrics = {
+            "loss": loss_out.total.detach(),
+            "pg_loss": loss_out.pg_loss.detach(),
+            "baseline_loss": loss_out.baseline_loss.detach(),
+            "entropy_loss": loss_out.entropy_loss.detach(),
+            "reward_per_step": batch["reward"].mean(),
+        }
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_lm_pretrain_step(cfg, opt, *, loss_chunk=512):
+    """Plain next-token-prediction step (the LM pretraining driver; also
+    the non-RL baseline). batch: {"tokens": (B, S+1) int}. Impls come from
+    the config as in ``make_lm_train_step``."""
+    def train_step(params, opt_state, step, batch):
+        plist = list(params.parameters())
+        tokens = batch["tokens"]
+        hidden, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg)
+        loss = losses.chunked_softmax_xent(
+            hidden, model_lib.unembed_matrix(params, cfg), tokens[:, 1:],
+            chunk=loss_chunk, final_softcap=cfg.final_logit_softcap)
+        opt_state = opt.step(_grads(loss, plist), opt_state, plist, step)
+        return params, opt_state, {"loss": loss.detach()}
 
     return train_step

@@ -1,4 +1,6 @@
-"""IMPALA losses (policy gradient + baseline + entropy).
+"""IMPALA losses (policy gradient + baseline + entropy), over full logits
+(the agent) or over per-token log-probs and entropies from the chunked
+vocab head (the LLM policy).
 
 Loss definitions match TorchBeast's polybeast.py:
   pg_loss       = sum_t  -log pi(a_t|s_t) * stop_grad(pg_advantage_t)
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import vtrace as vtrace_lib
+from repro_torch.models.common import remat, softcap
 
 
 class ImpalaLossOutput(NamedTuple):
@@ -131,3 +134,80 @@ def impala_loss_from_logits(target_logits, behavior_logits, actions,
     return ImpalaLossOutput(total, pg_loss, baseline_loss, entropy_loss,
                             vt.vs.mean(), rho.mean(), priority,
                             clear_pc, clear_vc)
+
+
+def impala_loss_from_logprobs(target_logprobs, target_entropy,
+                              behavior_logprobs, rewards, discounts, values,
+                              bootstrap_value, *, baseline_cost=0.5,
+                              entropy_cost=0.01, clip_rho=1.0, clip_c=1.0,
+                              vtrace_impl="kernel"):
+    """LLM-scale path: (T,B) chosen-action log-probs + per-step entropy
+    (computed chunked by the caller, ``chunked_logprob_entropy``).
+    target_logprobs/values/target_entropy carry gradients; the rest are
+    data. vtrace_impl as in ``impala_loss_from_logits``. The CLEAR terms
+    are zero here, as in the reference."""
+    log_rhos = (target_logprobs.detach() - behavior_logprobs).contiguous()
+    vt = _vtrace_fn(vtrace_impl)(
+        log_rhos, discounts.float().contiguous(),
+        rewards.float().contiguous(), values.detach().float().contiguous(),
+        bootstrap_value.detach().float().contiguous(),
+        clip_rho_threshold=clip_rho, clip_c_threshold=clip_c)
+    pg_loss = _reduce(-target_logprobs * vt.pg_advantages)
+    baseline_loss = 0.5 * _reduce(torch.square(vt.vs - values))
+    entropy_loss = _reduce(-target_entropy)
+    total = pg_loss + baseline_cost * baseline_loss \
+        + entropy_cost * entropy_loss
+    rho = torch.exp(log_rhos)
+    priority = torch.mean(torch.abs(vt.pg_advantages), dim=0)     # (B,)
+    zero = torch.zeros((), device=total.device)
+    return ImpalaLossOutput(total, pg_loss, baseline_loss, entropy_loss,
+                            vt.vs.mean(), rho.mean(), priority, zero, zero)
+
+
+# ---------------------------------------------------------------------------
+# chunked vocab head: per-token log-prob of chosen action + entropy
+# ---------------------------------------------------------------------------
+
+def _logprob_entropy_chunk(h, unembed, a, final_softcap):
+    """One chunk's (log p(a), entropy) under the reference's mixed
+    precision: the unembedding rounded to the hidden's type, the product
+    and everything after it in float32."""
+    logits = h.float() @ unembed.to(h.dtype).float()
+    if final_softcap:
+        logits = softcap(logits, final_softcap)
+    lp = F.log_softmax(logits, dim=-1)
+    alp = torch.gather(lp, -1, a.long()[..., None])[..., 0]
+    ent = -torch.sum(torch.exp(lp) * lp, dim=-1)
+    return alp, ent
+
+
+def chunked_logprob_entropy(hidden, unembed, actions, *, chunk=512,
+                            final_softcap=None):
+    """hidden: (B,S,d); unembed: (d,V); actions: (B,S) int.
+
+    Runs over S-chunks so the (B,chunk,V) logits stay transient: each
+    chunk is a checkpoint region (the reference's ``@jax.checkpoint``),
+    its logits and log-softmax recomputed in the backward pass instead of
+    kept for every chunk.
+    Returns (logprob (B,S), entropy (B,S)) — both differentiable.
+    """
+    s = hidden.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"the loss chunk {c} must divide the sequence {s}")
+    lps, ents = [], []
+    for i in range(0, s, c):
+        args = (hidden[:, i:i + c], unembed, actions[:, i:i + c],
+                final_softcap)
+        alp, ent = remat(_logprob_entropy_chunk, *args)
+        lps.append(alp)
+        ents.append(ent)
+    return torch.cat(lps, dim=1), torch.cat(ents, dim=1)
+
+
+def chunked_softmax_xent(hidden, unembed, labels, *, chunk=512,
+                         final_softcap=None):
+    """Standard LM cross-entropy, chunked over S. Returns mean nats/token."""
+    lp, _ = chunked_logprob_entropy(hidden, unembed, labels, chunk=chunk,
+                                    final_softcap=final_softcap)
+    return -lp.mean()

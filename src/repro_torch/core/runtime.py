@@ -42,8 +42,10 @@ class Runtime:
         0/None disables printing). Reading a metric waits for the device,
         so printing sparsely keeps the host ahead of the card.
       log_keys: which metric keys to print (default: all scalar ones).
-        Each line ends with ``fps``, WINDOWED (since the previous log line,
-        so late slowdowns show), and the lifetime average ``fps_avg``.
+      fps_label: label for the throughput column (``fps``, or ``tok/s`` for
+        LM pretraining). Each line ends with it, WINDOWED (since the
+        previous log line, so late slowdowns show), and the lifetime
+        average ``{fps_label}_avg``.
       checkpoint_dir: if set, save {params' state_dict, opt_state} plus the
         source's ``state_dict()`` (the SourceState protocol of
         core/sources.py) to the ``{dir}/step_{total_steps}`` checkpoint at
@@ -72,6 +74,7 @@ class Runtime:
                  total_steps: int, start_step: int = 0,
                  log_every: Optional[int] = None,
                  log_keys: Optional[Sequence[str]] = None,
+                 fps_label: str = "fps",
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0,
                  checkpoint_meta: Optional[Dict[str, Any]] = None,
@@ -88,6 +91,7 @@ class Runtime:
             log_every = max(1, total_steps // 20)
         self.log_every = log_every
         self.log_keys = log_keys
+        self.fps_label = fps_label
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.checkpoint_meta = dict(checkpoint_meta or {})
@@ -129,9 +133,11 @@ class Runtime:
             # headline number — a lifetime average masks late slowdowns.
             win_t0 = self._win_t if self._win_t is not None else t0
             win_dt = max(now - win_t0, 1e-9)
-            parts.append(f"fps={(self.frames - self._win_frames) / win_dt:.0f}")
+            parts.append(
+                f"{self.fps_label}="
+                f"{(self.frames - self._win_frames) / win_dt:.0f}")
             dt = max(now - t0, 1e-9)
-            parts.append(f"fps_avg={self.frames / dt:.0f}")
+            parts.append(f"{self.fps_label}_avg={self.frames / dt:.0f}")
         self._win_t, self._win_frames = now, self.frames
         self.print_fn(" ".join(parts))
 

@@ -25,6 +25,11 @@ exactly the learner-input layout of the paper's §2, so the ``Runtime``
   ``ReplaySource``   — off-policy replay over either: fresh columns mixed
                        with columns replayed from a ``core/replay.py``
                        buffer, tagged by an ``is_replay`` mask.
+  ``GeneratorSource`` — the LLM policy's token-MDP episodes from the
+                       decode session (obs and action are tokens, the
+                       behavior policy is a log-prob per step).
+  ``DataSource``     — ready batches from a checkpointable iterator (LM
+                       pretraining).
 
 SourceState: every source is a stateful, checkpointable object.
 ``state_dict()`` captures everything the rollout stream depends on — env
@@ -626,3 +631,163 @@ class HostLoopSource:
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         _check_kind(state, self)
+
+
+# ---------------------------------------------------------------------------
+# LLM-policy token-MDP actors
+
+
+def token_task_reward(tokens, vocab_size: int, a_mod: int = 5,
+                      b_mod: int = 3):
+    """The synthetic token-MDP reward: +1 when token t+1 equals the affine
+    target (a*token_t + b) mod V. tokens (B, S+1) -> reward (B, S)."""
+    target = (a_mod * tokens[:, :-1] + b_mod) % vocab_size
+    return (tokens[:, 1:] == target).float()
+
+
+class GeneratorSource:
+    """Episodes from the autoregressive decode path: the LM *is* the policy,
+    tokens are actions, and the recorded sampling log-probs are the behavior
+    policy outputs V-trace needs. Emitted time-major (obs[t] is the token
+    consumed at step t; action[t] == obs[t+1]):
+
+      obs               (T+1, B) int32   the one-token prompt, then T tokens
+      action            (T, B) int32
+      behavior_logprob  (T, B) float32
+      reward            (T, B) float32
+      done              (T, B) bool      set at the last step only
+
+    Runs through ``generate.DecodeSession`` — the slot API the server
+    drives. Each episode admits every slot in one batched prefill, steps
+    the session in lockstep, then evicts. The session reads the learner's
+    parameter tree itself, which the learner updates in place: the actors
+    act with the current weights, and no copy of them is made. The
+    attention/SSD impls come from the config (see ImplContext).
+
+    Tokens are sampled at temperature 1 and rewarded by
+    ``token_task_reward``. Every episode's prompts and per-slot sampling
+    seeds are drawn from one host ``torch.Generator`` seeded with
+    ``seed``; its state is the source's state for ``--resume``.
+    """
+
+    def __init__(self, cfg, *, batch_size: int, episode_length: int,
+                 seed: int):
+        self._cfg = cfg
+        self.batch_size = batch_size
+        self.episode_length = episode_length
+        self.frames_per_batch = batch_size * episode_length
+        self._gen = torch.Generator().manual_seed(seed)
+        self._session = None
+
+    def start(self, params) -> None:
+        del params
+
+    def _get_session(self, params):
+        from repro_torch.core import generate as gen_lib
+        if self._session is None:
+            self._session = gen_lib.DecodeSession(
+                params, self._cfg, max_batch=self.batch_size,
+                max_len=self.episode_length + 1)
+        self._session.params = params
+        return self._session
+
+    def next_batch(self, params):
+        b, t = self.batch_size, self.episode_length
+        prompt = torch.randint(0, self._cfg.vocab_size, (b, 1),
+                               generator=self._gen)
+        seeds = torch.randint(0, 2 ** 62, (b,), generator=self._gen)
+        sess = self._get_session(params)
+        # batched admit: every episode reset is one prefill (the prompts
+        # share a prefill bucket), not one per slot
+        first = sess.prefill_many(range(b), list(prompt.numpy()),
+                                  seeds=seeds.tolist())
+        toks = [[f["token"] for f in first]]          # time-major lists
+        lps = [[f["logprob"] for f in first]]
+        for _ in range(t - 1):
+            o = sess.step()
+            toks.append(o["token"])
+            lps.append(o["logprob"])
+        for i in range(b):
+            sess.evict(i)
+        dev = sess.device
+        obs = torch.cat([prompt.T, torch.as_tensor(np.asarray(toks))],
+                        dim=0).to(dev)                 # (T+1, B)
+        reward = token_task_reward(obs.T, self._cfg.vocab_size).T
+        done = torch.zeros((t, b), dtype=torch.bool, device=dev)
+        done[-1] = True
+        return {
+            "obs": obs.int(),
+            "action": obs[1:].int(),
+            "behavior_logprob": torch.as_tensor(
+                np.asarray(lps, np.float32), device=dev),
+            "reward": reward.float(),
+            "done": done,
+        }
+
+    def stop(self) -> None:
+        pass
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"kind": type(self).__name__,
+                "generator": self._gen.get_state()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        _check_kind(state, self)
+        self._gen.set_state(torch.as_tensor(state["generator"],
+                                            dtype=torch.uint8).cpu())
+
+
+def lm_rl_step_from_rollout(lm_train_step: Callable) -> Callable:
+    """Adapt ``learner.make_lm_train_step`` (batch-major token dict) to the
+    canonical time-major rollout emitted by GeneratorSource."""
+
+    def step(params, opt_state, step_i, rollout):
+        batch = {
+            "tokens": rollout["obs"].T,
+            "behavior_logprob": rollout["behavior_logprob"].T,
+            "reward": rollout["reward"].T,
+            "done": rollout["done"].T,
+        }
+        return lm_train_step(params, opt_state, step_i, batch)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Supervised data (LM pretraining)
+
+
+class DataSource:
+    """A RolloutSource over an iterator of ready batches — the non-RL
+    substrate (LM pretraining) runs through the same Runtime loop.
+
+    SourceState: the iterator is checkpointable (``state_dict`` /
+    ``load_state_dict``, as data.PackedBatchIterator's seed and offset),
+    and its state rides inside the source state — extending the bit-exact
+    ``--resume`` guarantee to ``--mode lm``.
+
+    Each batch's numpy arrays become tensors on ``device``; ``stop``
+    closes the iterator, which reopens at its offset on the next batch."""
+
+    def __init__(self, iterator, *, frames_per_batch: int, device):
+        self._it = iterator
+        self.frames_per_batch = frames_per_batch
+        self._device = device
+
+    def start(self, params) -> None:
+        del params
+
+    def next_batch(self, params):
+        return {k: torch.from_numpy(v).to(self._device)
+                for k, v in next(self._it).items()}
+
+    def stop(self) -> None:
+        self._it.close()
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"kind": type(self).__name__,
+                "iterator": self._it.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        _check_kind(state, self)
+        self._it.load_state_dict(state["iterator"])

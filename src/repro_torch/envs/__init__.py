@@ -1,1 +1,1 @@
-from repro_torch.envs import base, catch, gridworld  # noqa: F401
+from repro_torch.envs import base, catch, gridworld, token_mdp  # noqa: F401

@@ -7,6 +7,8 @@ for CPU tensors. On a CUDA tensor the main path never calls them.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # The float32 mask value shared by every masked-attention path: the model
@@ -84,7 +86,10 @@ def ref_ssd_chunk(c, b, xdt, da, h_prev):
     seg = acs[:, :, None] - acs[:, None, :]
     l = c.shape[1]
     mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=c.device))
-    lmat = torch.where(mask, torch.exp(seg), 0.0)
+    # masked BEFORE the exp (the same values as masking after it): above
+    # the diagonal seg = acs_l - acs_s > 0 overflows exp once a chunk's
+    # decay passes about 88.7, and exp's VJP there would be inf * 0 = NaN
+    lmat = torch.exp(torch.where(mask, seg, -math.inf))
     scores = torch.einsum("gln,gsn->gls", c, b) * lmat
     y = torch.einsum("gls,gsp->glp", scores, x)
     y = y + torch.einsum("gln,gpn->glp", c, h) * torch.exp(acs)[..., None]

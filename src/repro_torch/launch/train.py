@@ -1,26 +1,43 @@
-"""Training entry point, ``--mode rl-agent``: config -> Runtime assembly.
+"""Training entry point: config -> Runtime assembly, one builder per mode.
 
-Paper-faithful IMPALA: on-device rollouts (catch/gridworld envs) + conv
-agent + V-trace learner, double-buffered by default (``--sync`` to
-disable, ``--actors host`` for the MonoBeast host actor threads). The
-V-trace recursion runs in the fused CUDA kernel by default
-(``--vtrace-impl kernel``); ``scan`` selects the plain reverse loop.
+Modes:
+  rl-agent  — paper-faithful IMPALA: on-device rollouts (catch/gridworld
+              envs) + conv agent + V-trace learner, double-buffered by
+              default (``--sync`` to disable, ``--actors host`` for the
+              MonoBeast host actor threads).
+  lm-rl     — IMPALA with an LLM policy on the token-MDP: the decode
+              session generates episodes (behavior log-probs recorded),
+              the learner applies V-trace; AdamW.
+  lm        — plain next-token pretraining on the synthetic Markov corpus;
+              AdamW, and the log line's throughput is ``tok/s``.
 
-``--replay {uniform,elite,attentive}`` wraps either source in
+The V-trace recursion runs in the fused CUDA kernel by default
+(``--vtrace-impl kernel``); ``scan`` selects the plain reverse loop. The
+LM modes take ``--arch`` (full published width, or ``--reduced``),
+``--seq`` and ``--attn-impl`` / ``--ssd-impl`` (default: the config's);
+``kernel`` runs the flash-attention kernel in the learner and the prefill,
+the decode-attention kernel in every generated token, and the SSD chunk
+kernel in every Mamba2 layer, each under autograd where the learner needs
+it (backward: the plain version's VJP).
+
+``--replay {uniform,elite,attentive}`` (rl-agent) wraps either source in
 off-policy replay (``ReplaySource``): each learner batch is the fresh
 columns plus ``--replay-ratio`` times as many replayed from a buffer of
 ``--replay-capacity`` rollouts in host memory, and the learner adds the
 CLEAR cloning terms on the replayed columns.
 
 ``--checkpoint-dir`` saves the learner and source state (with the replay
-buffer) at the end (and every ``--checkpoint-every`` steps); ``--resume``
+buffer, the LM data iterator's position or the episode generator's state)
+at the end (and every ``--checkpoint-every`` steps); ``--resume``
 continues from the latest complete checkpoint there, bit-identically to
-an uninterrupted run of the same ``--steps`` for the on-device actors.
+an uninterrupted run of the same ``--steps`` for the on-device actors and
+both LM modes.
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU and without
-``--device cpu`` it raises. The other modes and flags of the reference's
-``repro.launch.train`` are not ported yet and exit with an error that says
-so.
+``--device cpu`` it raises. The reference's mesh and multi-host flags
+(``--mesh-data``, ``--mesh-model``, ``--coordinator``,
+``--num-processes``, ``--process-id``) are not ported yet and exit with an
+error that says so.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode rl-agent \
@@ -35,6 +52,13 @@ Examples:
       --replay elite --replay-ratio 1.0 --steps 500
   PYTHONPATH=src python -m repro_torch.launch.train --actors host \
       --replay uniform --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm-rl \
+      --arch qwen3-4b --reduced --steps 3 --batch 4 --seq 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+      --arch zamba2-2.7b --reduced --steps 4 --batch 4 --seq 32 \
+      --attn-impl kernel --ssd-impl kernel --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm-rl \
+      --arch qwen3-4b --attn-impl kernel --batch 8 --seq 64 --steps 4
 """
 
 from __future__ import annotations
@@ -45,19 +69,20 @@ import dataclasses
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.atari_impala import small_train
+from repro_torch.configs.base import ImplContext, TrainConfig
 from repro_torch.core import learner as learner_lib
 from repro_torch.core import sources as sources_lib
 from repro_torch.core.runtime import Runtime
+from repro_torch.models import model as model_lib
 from repro_torch.models.convnet import impala_deep, minatar_net
 from repro_torch.optim import make_optimizer
 
-# Modes and flags of repro.launch.train that this package does not have.
-_NOT_PORTED_MODES = ("lm-rl", "lm")
+# Flags of repro.launch.train that this package does not have yet.
 _NOT_PORTED_FLAGS = (
     "--mesh-data", "--mesh-model", "--coordinator",
-    "--num-processes", "--process-id", "--attn-impl", "--ssd-impl",
-    "--arch", "--reduced", "--seq")
+    "--num-processes", "--process-id")
 
 
 def build_rl_agent(args):
@@ -100,11 +125,64 @@ def build_rl_agent(args):
     return source, step_fn, agent, opt_state, extras
 
 
+def _lm_config(args):
+    """The arch's config (published or ``--reduced``) with --attn-impl /
+    --ssd-impl folded in (the one ImplContext every path below reads)."""
+    cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
+    return ImplContext.from_args(args).apply(cfg)
+
+
+def build_lm_rl(args):
+    device = resolve_device(args.device)
+    cfg = _lm_config(args)
+    train_cfg = TrainConfig(optimizer="adamw", learning_rate=args.lr or 3e-4,
+                            grad_clip=1.0, total_steps=args.steps,
+                            lr_schedule="constant", entropy_cost=0.003)
+    params = model_lib.init(cfg, seed=train_cfg.seed, device=device)
+    opt = make_optimizer(train_cfg)
+    opt_state = opt.init(list(params.parameters()))
+    source = sources_lib.GeneratorSource(
+        cfg, batch_size=args.batch or 16, episode_length=args.seq, seed=7)
+    step_fn = sources_lib.lm_rl_step_from_rollout(
+        learner_lib.make_lm_train_step(cfg, opt, train_cfg,
+                                       loss_chunk=args.seq,
+                                       vtrace_impl=args.vtrace_impl))
+    extras = {"log_keys": ("reward_per_step", "pg_loss", "entropy_loss")}
+    return source, step_fn, params, opt_state, extras
+
+
+def build_lm(args):
+    from repro_torch.data import PackedBatchIterator, markov_corpus
+    device = resolve_device(args.device)
+    cfg = _lm_config(args)
+    train_cfg = TrainConfig(optimizer="adamw", learning_rate=args.lr or 3e-4,
+                            grad_clip=1.0, total_steps=args.steps,
+                            lr_schedule="cosine", warmup_steps=10)
+    params = model_lib.init(cfg, seed=0, device=device)
+    opt = make_optimizer(train_cfg)
+    opt_state = opt.init(list(params.parameters()))
+    step_fn = learner_lib.make_lm_pretrain_step(
+        cfg, opt, loss_chunk=min(512, args.seq))
+    b = args.batch or 16
+    corpus = markov_corpus(cfg.vocab_size, 200_000, seed=1)
+    # Checkpointable iterator (seed + offset): its state rides in every
+    # checkpoint through DataSource.state_dict, so --resume replays the
+    # exact batch sequence (bit-identical to an uninterrupted run).
+    it = PackedBatchIterator(corpus, b, args.seq, seed=train_cfg.seed)
+
+    source = sources_lib.DataSource(it, frames_per_batch=b * args.seq,
+                                    device=device)
+    extras = {"log_keys": ("loss",), "fps_label": "tok/s"}
+    return source, step_fn, params, opt_state, extras
+
+
+_BUILDERS = {"rl-agent": build_rl_agent, "lm-rl": build_lm_rl,
+             "lm": build_lm}
+
+
 def _parser():
-    p = argparse.ArgumentParser(
-        description="IMPALA trainer (PyTorch port; --mode rl-agent only)")
-    p.add_argument("--mode", default="rl-agent",
-                   choices=["rl-agent", *_NOT_PORTED_MODES])
+    p = argparse.ArgumentParser(description="IMPALA trainer (PyTorch port)")
+    p.add_argument("--mode", default="rl-agent", choices=sorted(_BUILDERS))
     p.add_argument("--env", choices=["catch", "gridworld"], default="catch")
     p.add_argument("--agent", choices=["minatar", "deep"], default="minatar")
     p.add_argument("--actors", choices=["device", "host"], default="device",
@@ -115,8 +193,26 @@ def _parser():
                    help="disable double-buffered rollout dispatch")
     p.add_argument("--vtrace-impl", choices=["kernel", "scan"],
                    default="kernel",
-                   help="V-trace: the fused CUDA kernel (its plain version "
-                        "on the CPU) or the plain reverse loop")
+                   help="rl-agent/lm-rl V-trace: the fused CUDA kernel (its "
+                        "plain version on the CPU) or the plain reverse loop")
+    p.add_argument("--arch", default="qwen3-4b",
+                   help="lm/lm-rl: the decoder's config")
+    p.add_argument("--reduced", action="store_true",
+                   help="lm/lm-rl: the arch's small same-family variant")
+    p.add_argument("--seq", type=int, default=64,
+                   help="lm/lm-rl: sequence (episode) length")
+    p.add_argument("--attn-impl", default=None,
+                   choices=["xla", "xla_chunked", "xla_chunked_skip",
+                            "kernel"],
+                   help="lm/lm-rl: 'kernel' runs the flash-attention kernel "
+                        "in the learner and the prefill and the decode-"
+                        "attention kernel per generated token (their plain "
+                        "versions on the CPU); the others name plain "
+                        "PyTorch paths; default: the config's")
+    p.add_argument("--ssd-impl", default=None, choices=["xla", "kernel"],
+                   help="lm/lm-rl: Mamba2 chunk-scan impl — 'kernel' runs "
+                        "the SSD chunk kernel once per chunk (its plain "
+                        "version on the CPU); default: the config's")
     p.add_argument("--replay", choices=["off", "uniform", "elite",
                                         "attentive"], default="off",
                    help="off-policy replay strategy (mixed batches with "
@@ -147,14 +243,21 @@ def _parser():
 
 def _checkpoint_meta(args):
     """Config identity recorded in every checkpoint manifest and validated
-    on --resume: restoring a catch checkpoint into a gridworld run must
-    fail loudly up front, naming the mismatched keys."""
-    return {"mode": args.mode, "env": args.env}
+    on --resume: restoring an lm checkpoint into an rl-agent run (or a
+    different arch/env) must fail loudly up front, naming the mismatched
+    keys."""
+    meta = {"mode": args.mode}
+    if args.mode == "rl-agent":
+        meta["env"] = args.env
+    else:
+        meta["arch"] = args.arch
+    return meta
 
 
-def _resume(args, source, agent, opt_state):
-    """Load the latest checkpoint under --checkpoint-dir into the agent,
-    the optimizer state and the source; returns (opt_state, start_step)."""
+def _resume(args, source, params, opt_state):
+    """Load the latest checkpoint under --checkpoint-dir into the learner's
+    module, the optimizer state and the source; returns (opt_state,
+    start_step)."""
     from repro_torch import checkpoint as ckpt_lib
     path = ckpt_lib.latest_step_path(args.checkpoint_dir)
     if path is None:
@@ -173,11 +276,12 @@ def _resume(args, source, agent, opt_state):
         raise SystemExit(f"--resume: checkpoint {path} was written by a "
                          f"different configuration ({detail})")
     restored, meta = ckpt_lib.restore(
-        path, {"params": agent.state_dict(), "opt_state": opt_state})
-    agent.load_state_dict(restored["params"])
+        path, {"params": params.state_dict(), "opt_state": opt_state})
+    params.load_state_dict(restored["params"])
     start_step = int(meta.get("step", 0))
     # SourceState: replay the exact rollout stream (env carry, generator,
-    # in-flight rollout, the actors' parameter copy).
+    # in-flight rollout, the actors' parameter copy; the LM iterator's
+    # position or the episode generator).
     source_state = ckpt_lib.restore_structured(path, "source")
     if source_state is not None:
         source.load_state_dict(source_state)
@@ -189,7 +293,8 @@ def _resume(args, source, agent, opt_state):
 
 def main(argv=None) -> Runtime:
     """Parse ``argv``, train, and return the finished Runtime (its
-    ``params`` are the trained agent, ``metrics`` the last step's)."""
+    ``params`` are the trained agent or decoder, ``metrics`` the last
+    step's)."""
     p = _parser()
     args, unknown = p.parse_known_args(argv)
     not_ported = sorted({a.split("=")[0] for a in unknown
@@ -198,13 +303,10 @@ def main(argv=None) -> Runtime:
         p.error(f"not ported yet: {' '.join(not_ported)}")
     if unknown:
         p.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if args.mode != "rl-agent":
-        p.error(f"--mode {args.mode} is not ported yet (rl-agent only)")
-
     if args.resume and not args.checkpoint_dir:
         p.error("--resume requires --checkpoint-dir")
 
-    source, step_fn, params, opt_state, extras = build_rl_agent(args)
+    source, step_fn, params, opt_state, extras = _BUILDERS[args.mode](args)
     start_step = 0
     if args.resume:
         opt_state, start_step = _resume(args, source, params, opt_state)

@@ -15,7 +15,7 @@ that ports them. A layer's decode cache is {"k", "v"} for attention and
 from __future__ import annotations
 
 from repro_torch.models import attention, mamba, mlp
-from repro_torch.models.common import Params, make_norm
+from repro_torch.models.common import Params, make_norm, remat, remat_active
 
 # xattn raises in models/attention.py
 _NOT_PORTED = {
@@ -68,13 +68,19 @@ def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
                 build_cache=False, seq_len=None, dtype=None):
     """Full-sequence super-block. Returns (x, cache|None); with
     ``build_cache`` (prefill) the cache holds this block's decode caches.
-    ``impl`` is the attention impl; Mamba2 reads ``cfg.ssd_impl``."""
+    ``impl`` is the attention impl; Mamba2 reads ``cfg.ssd_impl``.
+
+    Nested remat, as the reference: with ``cfg.remat`` and autograd
+    recording, each LAYER of a multi-layer super-block (Zamba2's six
+    Mamba2 layers, gemma2's pairs) is its own checkpoint region, so the
+    block's backward holds one layer's intermediates at a time. Its
+    kernels then run again in the backward pass."""
     pattern = pattern if pattern is not None else cfg.block_pattern
     _, norm_fn = make_norm(cfg)
-    cache = {} if build_cache else None
-    for idx, (mixer, ffn) in enumerate(pattern):
-        layer = params[f"l{idx}"]
+
+    def layer_fn(layer, x, mixer, ffn):
         h = norm_fn(layer["pre_norm"], x)
+        lcache = None
         if mixer == "mamba":
             h, lcache = mamba.mamba_apply(layer["mixer"], h, cfg,
                                           return_state=build_cache)
@@ -85,13 +91,23 @@ def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
             if build_cache:
                 lcache = attention.attn_prefill_cache(cfg, mixer, kv,
                                                       seq_len, dtype)
-        if build_cache:
-            cache[f"l{idx}"] = lcache
         if cfg.sandwich_norm:
             h = norm_fn(layer["post_norm"], h)
         x = x + h
         if ffn != "none":
             x = _apply_ffn(layer, x, cfg, ffn, norm_fn)
+        return x, lcache
+
+    nested = len(pattern) > 1 and remat_active(cfg, build_cache)
+    cache = {} if build_cache else None
+    for idx, (mixer, ffn) in enumerate(pattern):
+        layer = params[f"l{idx}"]
+        if nested:
+            x, _ = remat(layer_fn, layer, x, mixer, ffn)
+        else:
+            x, lcache = layer_fn(layer, x, mixer, ffn)
+            if build_cache:
+                cache[f"l{idx}"] = lcache
     return x, cache
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -44,6 +45,20 @@ def param(shape, *, generator, device=None, scale=None, init="normal"):
     v = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return v.mul_(scale)
+
+
+def remat_active(cfg, build_cache=False) -> bool:
+    """Whether a full-sequence pass checkpoints its regions: the config
+    asks for it (``cfg.remat``, the reference's ``jax.checkpoint``), no
+    decode cache is being built, and autograd is recording."""
+    return cfg.remat and not build_cache and torch.is_grad_enabled()
+
+
+def remat(fn, *args):
+    """``fn(*args)`` as one checkpoint region (non-reentrant): its
+    intermediates are dropped after the forward pass and recomputed in the
+    backward pass, which runs ``fn`` (and its kernels) a second time."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from torch import nn
 
 from repro_torch.models import blocks
 from repro_torch.models.common import (Params, dtype_of, make_norm, param,
+                                       remat, remat_active,
                                        sinusoidal_pos_emb, softcap, tree_map)
 
 SHARED_PATTERN = (("attn", "swiglu"),)  # zamba-style shared global block
@@ -99,20 +100,35 @@ def forward(params, tokens, *, cfg, impl=None, build_cache=False,
     Returns (hidden (B,S,d), cache|None); with ``build_cache`` the decode
     cache of every layer, capacity ``cache_seq_len``. (The reference also
     returns MoE auxiliary losses; MoE is not ported yet, ROADMAP item 16.)
+
+    With ``cfg.remat`` and autograd recording, each group (its super-block
+    and the shared block after it) is one checkpoint region, as the
+    reference's ``jax.checkpoint`` of its scan body: the values are the
+    same, the group's intermediates are recomputed in the backward pass,
+    and so are its kernel launches.
     """
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     x = _embed(params, cfg, tokens, positions)
     kw = dict(cfg=cfg, positions=positions, impl=impl,
               build_cache=build_cache, seq_len=cache_seq_len, dtype=x.dtype)
-    caches = []
-    for block_params in params["blocks"]:
+
+    def body(block_params, x):
         x, cache = blocks.block_apply(block_params, x, **kw)
         cache = {"block": cache}
         if cfg.shared_attn_every:
             x, cache["shared"] = blocks.block_apply(
                 params["shared"], x, pattern=SHARED_PATTERN, **kw)
-        caches.append(cache)
+        return x, cache
+
+    checkpointed = remat_active(cfg, build_cache)
+    caches = []
+    for block_params in params["blocks"]:
+        if checkpointed:
+            x, _ = remat(body, block_params, x)
+        else:
+            x, cache = body(block_params, x)
+            caches.append(cache)
     _, norm_fn = make_norm(cfg)
     x = norm_fn(params["final_norm"], x)
     if not build_cache:

@@ -229,6 +229,59 @@ def test_trainable_wrappers_leave_no_grad_behind_on_the_cpu():
     assert all(a.grad is not None for a in args)
 
 
+def _steep_decay_chunk(seed=0, bsz=2, l=64, heads=3, p=32, n=16):
+    """One SSD chunk in the model's layout whose decay passes the point
+    where exp overflows float32: acs falls to about -100 over the chunk,
+    as it does over a full-width Zamba2 chunk of 256 tokens (-89.7 at
+    seed 0 of a Mamba2 layer; the chip's phase 16)."""
+    rng = np.random.default_rng(seed)
+    c, b = (rng.normal(0, 1, (bsz, l, n)).astype(np.float32)
+            for _ in range(2))
+    xdt = rng.normal(0, 1, (bsz, l, heads, p)).astype(np.float32)
+    da = -rng.uniform(1.2, 2.0, (bsz, l, heads)).astype(np.float32)
+    h = rng.normal(0, 1, (bsz, heads, p, n)).astype(np.float32)
+    return c, b, xdt, da, h
+
+
+def test_ssd_chunk_grad_stays_finite_past_exp_overflow(jx):
+    """The SSD chunk's backward (the VJP of its plain version) at a decay
+    whose segment sums above the diagonal overflow exp: the port's
+    gradient is finite and equals the plain einsum path's (masked before
+    the exp, as the reference's ``mamba._segsum``) within 1e-5, where the
+    reference's ``kernels/ref.py::ref_ssd_chunk`` masks after the exp and
+    its VJP is inf * 0 = NaN (ROADMAP.md §3 records the fault)."""
+    inputs = _steep_decay_chunk()
+    assert np.cumsum(inputs[3], axis=1).min() < -89.0
+    grads = {}
+    for name, fn in (("kernel", tops.ssd_chunk_trainable),
+                     ("xla", TM._chunk_xla)):
+        args = [torch.tensor(a, requires_grad=True) for a in inputs]
+        y, h_new = fn(*args)
+        (y.square().mean() + h_new.square().mean()).backward()
+        grads[name] = [a.grad for a in args]
+    for i, (g, w) in enumerate(zip(grads["kernel"], grads["xla"])):
+        assert torch.isfinite(g).all(), i
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=str(i),
+                                   **TOL)
+
+    from repro.kernels import ref as jref
+    jnp = jx.jnp
+    c, b, xdt, da, h = inputs
+    rows = c.shape[0] * xdt.shape[2]
+
+    def loss(*args):      # the reference's slice layout of the same chunk
+        y, h_new = jref.ref_ssd_chunk(*args)
+        return jnp.mean(jnp.square(y)) + jnp.mean(jnp.square(h_new))
+
+    per_head = [np.repeat(t, xdt.shape[2], axis=0) for t in (c, b)]
+    jgrads = jx.jax.grad(loss, argnums=3)(
+        *(jnp.asarray(t) for t in per_head),
+        jnp.asarray(xdt.transpose(0, 2, 1, 3).reshape(rows, -1, xdt.shape[3])),
+        jnp.asarray(da.transpose(0, 2, 1).reshape(rows, -1, 1)),
+        jnp.asarray(h.reshape(rows, h.shape[2], h.shape[3])))
+    assert not np.isfinite(np.asarray(jgrads)).all()
+
+
 # ---------------------------------------------------------------------------
 # the card: gradients through the CUDA kernels, and the raw wrappers' refusal
 # ---------------------------------------------------------------------------

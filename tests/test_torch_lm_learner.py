@@ -1,0 +1,174 @@
+"""The LM learner steps against the JAX reference, from the same weights
+(converted with ``repro_torch.convert``), on fixed numpy inputs made from
+a seed:
+
+* ``make_lm_train_step`` on the reduced ``qwen3-4b``, through
+  ``lm_rl_step_from_rollout`` on a time-major token rollout: loss, every
+  metric and every parameter after each of two AdamW steps;
+* ``make_lm_pretrain_step`` on the reduced ``zamba2-2.7b`` (two Mamba2
+  layers and the shared attention block, S = 32: two SSD chunks, the
+  state carried between them): loss and every parameter after each of two
+  AdamW steps.
+
+Each through the kernel paths (the JAX Pallas kernels in interpret mode;
+the port's kernel wrappers, which on CPU tensors run their plain versions)
+and through the plain paths, with ``remat`` on as in the published
+configs (the port's checkpoint regions: per group, and per layer of the
+two-layer Zamba2 group); float32 at 1e-5, bf16 activations at the
+known 6e-2 limit (ROADMAP.md §3: XLA keeps float32 between fused ops).
+
+AdamW runs with the reference CLI's settings (eps 1e-8). Its first update
+of an element is -lr * g / (|g| + eps): where |g| is near eps, a float32
+difference of summation order in g (about 3e-9) moves that element by up
+to lr / eps times it. So the loss and every metric are held at the
+tolerance, and so is every parameter but at most one element in 10,000
+of each leaf, which must lie within half a step (``STEP_ATOL``, lr / 2).
+In the float32 lm-rl cases 1 to 3 elements of six of the reduced qwen3's
+leaves land there (``ffn/wg``, ``ffn/wo``, ``mixer/wk``, ``mixer/wo``,
+``embed``), at most 5.7e-5 apart (0.19 lr); the pretraining cases have
+none. The optimizer's own arithmetic is held against the reference in
+tests/test_torch_optim.py."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.configs.base import TrainConfig as JTrainConfig
+from repro.core import learner as jlearner
+from repro.core import sources as jsources
+from repro.models import model as jmodel
+from repro.optim import make_optimizer as jmake_optimizer
+from repro_torch import configs as tconfigs
+from repro_torch.configs.base import TrainConfig as TTrainConfig
+from repro_torch.convert import lm_state_dict_from_jax, lm_state_dict_to_jax
+from repro_torch.core import learner as tlearner
+from repro_torch.core import sources as tsources
+from repro_torch.models import model as tmodel
+from repro_torch.optim import make_optimizer as tmake_optimizer
+
+# The suite runs several test processes side by side: one intra-op thread
+# each keeps torch from oversubscribing the cores.
+torch.set_num_threads(1)
+
+TOLS = {"float32": dict(rtol=1e-5, atol=1e-5),
+        "bfloat16": dict(rtol=6e-2, atol=6e-2)}
+# the reference's --mode lm-rl / --mode lm optimizer settings
+LR = 3e-4
+RL_TRAIN = dict(optimizer="adamw", learning_rate=LR, grad_clip=1.0,
+                total_steps=2, lr_schedule="constant", entropy_cost=0.003)
+LM_TRAIN = dict(optimizer="adamw", learning_rate=LR, grad_clip=1.0,
+                total_steps=2, lr_schedule="cosine", warmup_steps=10)
+# half of AdamW's largest first step of an element (module docstring)
+STEP_ATOL = LR / 2
+
+
+def _setup(arch, dtype, attn, ssd="xla"):
+    over = dict(dtype=dtype, attn_impl=attn, ssd_impl=ssd, remat=True)
+    jcfg = dataclasses.replace(jconfigs.get_reduced_config(arch), **over)
+    tcfg = dataclasses.replace(tconfigs.get_reduced_config(arch), **over)
+    jparams, _ = jmodel.init(jax.random.PRNGKey(0), jcfg)
+    tparams = tmodel.init(tcfg, seed=0)
+    tparams.load_state_dict(lm_state_dict_from_jax(jparams), strict=True)
+    return jcfg, tcfg, jparams, tparams
+
+
+def _leaves(tree, prefix=""):
+    for key, child in tree.items():
+        if isinstance(child, dict):
+            yield from _leaves(child, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", child
+
+
+def _assert_params_close(tparams, jparams, tol, what):
+    """Every parameter within ``tol``, but at most one element in 10,000
+    of a leaf, which must lie within STEP_ATOL (module docstring)."""
+    got = dict(_leaves(lm_state_dict_to_jax(tparams.state_dict())))
+    want = dict(_leaves(jax.tree.map(np.asarray, jparams)))
+    assert set(got) == set(want)
+    for path, w in want.items():
+        g = np.asarray(got[path])
+        np.testing.assert_allclose(
+            g, w, rtol=tol["rtol"], atol=max(tol["atol"], STEP_ATOL),
+            err_msg=f"{path} {what}")
+        outside = int((~np.isclose(g, w, **tol)).sum())
+        assert outside <= max(1, w.size // 10_000), (
+            f"{path} {what}: {outside} of {w.size} elements beyond {tol}")
+
+
+def _rollout(vocab, t, b, seed):
+    """A time-major token rollout: obs (T+1, B), behavior log-probs near
+    the uniform policy's, the token task's reward, done at the end."""
+    rng = np.random.default_rng(seed)
+    obs = rng.integers(0, vocab, (t + 1, b)).astype(np.int32)
+    reward = np.asarray(jsources.token_task_reward(jnp.asarray(obs.T),
+                                                   vocab)).T
+    done = np.zeros((t, b), bool)
+    done[-1] = True
+    return {"obs": obs, "action": obs[1:],
+            "behavior_logprob": (-np.log(vocab) + rng.normal(
+                0, 0.1, (t, b))).astype(np.float32),
+            "reward": np.ascontiguousarray(reward), "done": done}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attn,vtrace", [("kernel", "kernel"),
+                                         ("xla", "scan")])
+def test_lm_rl_train_step_matches_jax(dtype, attn, vtrace):
+    t, b = 16, 4
+    jcfg, tcfg, jparams, tparams = _setup("qwen3-4b", dtype, attn)
+    jtc, ttc = JTrainConfig(**RL_TRAIN), TTrainConfig(**RL_TRAIN)
+    jopt, topt = jmake_optimizer(jtc), tmake_optimizer(ttc)
+    jstep = jax.jit(jsources.lm_rl_step_from_rollout(
+        jlearner.make_lm_train_step(jcfg, jopt, jtc, loss_chunk=8,
+                                    vtrace_impl=vtrace)))
+    tstep = tsources.lm_rl_step_from_rollout(
+        tlearner.make_lm_train_step(tcfg, topt, ttc, loss_chunk=8,
+                                    vtrace_impl=vtrace))
+    jstate = jopt.init(jparams)
+    tstate = topt.init(list(tparams.parameters()))
+    tol = TOLS[dtype]
+    for step in range(2):
+        rollout = _rollout(tcfg.vocab_size, t, b, seed=10 + step)
+        jparams, jstate, jm = jstep(
+            jparams, jstate, jnp.int32(step),
+            {k: jnp.asarray(v) for k, v in rollout.items()})
+        tparams, tstate, tm = tstep(
+            tparams, tstate, step,
+            {k: torch.from_numpy(v) for k, v in rollout.items()})
+        assert set(tm) == set(jm)
+        for k in jm:
+            np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]),
+                                       err_msg=f"{k} step {step}", **tol)
+        _assert_params_close(tparams, jparams, tol, f"after step {step}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_lm_pretrain_step_matches_jax(dtype, impl):
+    b, s = 2, 32
+    jcfg, tcfg, jparams, tparams = _setup("zamba2-2.7b", dtype, impl, impl)
+    jtc, ttc = JTrainConfig(**LM_TRAIN), TTrainConfig(**LM_TRAIN)
+    jopt, topt = jmake_optimizer(jtc), tmake_optimizer(ttc)
+    jstep = jax.jit(jlearner.make_lm_pretrain_step(jcfg, jopt,
+                                                   loss_chunk=16))
+    tstep = tlearner.make_lm_pretrain_step(tcfg, topt, loss_chunk=16)
+    jstate = jopt.init(jparams)
+    tstate = topt.init(list(tparams.parameters()))
+    tol = TOLS[dtype]
+    rng = np.random.default_rng(5)
+    for step in range(2):
+        tokens = rng.integers(0, tcfg.vocab_size, (b, s + 1)).astype(
+            np.int32)
+        jparams, jstate, jm = jstep(jparams, jstate, jnp.int32(step),
+                                    {"tokens": jnp.asarray(tokens)})
+        tparams, tstate, tm = tstep(tparams, tstate, step,
+                                    {"tokens": torch.from_numpy(tokens)})
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
+                                   err_msg=f"loss step {step}", **tol)
+        _assert_params_close(tparams, jparams, tol, f"after step {step}")

@@ -287,3 +287,28 @@ def test_teacher_forced_generate_stream_matches_jax(arch):
                      (bases, "baseline")]:
         np.testing.assert_allclose(torch.stack(got, 1).numpy(), ref[key],
                                    rtol=1e-4, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("impl", ["xla", "kernel"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", "zamba2-2.7b"])
+def test_remat_on_and_off_give_the_same_values_and_grads(arch, impl):
+    """``cfg.remat`` (checkpoint regions per group, and per layer of a
+    multi-layer group: gemma2's pair, zamba2's Mamba2 layers) changes what
+    autograd keeps, not what it computes: the hidden states and every
+    parameter's gradient are bitwise those without it."""
+    runs = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(tconfigs.get_reduced_config(arch),
+                                  remat=remat, attn_impl=impl, ssd_impl=impl)
+        params = tmodel.init(cfg, seed=0)
+        tokens = torch.from_numpy(_tokens(cfg, (2, FORWARD_LEN.get(arch, 40))))
+        hidden, _ = tmodel.forward(params, tokens, cfg=cfg)
+        loss = torch.sum(torch.square(hidden)) \
+            + tmodel.baseline_from_hidden(params, cfg, hidden).sum()
+        names, plist = zip(*params.named_parameters())
+        runs[remat] = (hidden.detach(), names,
+                       torch.autograd.grad(loss, plist))
+    (h0, n0, g0), (h1, n1, g1) = runs[False], runs[True]
+    assert torch.equal(h0, h1) and n0 == n1
+    for name, a, b in zip(n0, g0, g1):
+        assert torch.equal(a, b), name

@@ -51,9 +51,36 @@ def test_cuda_without_gpu_raises():
         train.main(["--steps", "1", "--batch", "4"])
 
 
+@pytest.mark.parametrize("mode", ["lm-rl", "lm"])
+def test_lm_modes_without_gpu_raise(mode):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--mode", mode, "--reduced", "--steps", "1"])
+
+
+@pytest.mark.parametrize("argv,label,keys", [
+    (["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl", "kernel"],
+     "fps", ("reward/step=", "pg_loss=", "entropy_loss=")),
+    (["--mode", "lm", "--arch", "zamba2-2.7b", "--attn-impl", "kernel",
+      "--ssd-impl", "kernel"], "tok/s", ("loss=",)),
+])
+def test_lm_modes_train_on_cpu(argv, label, keys, capsys):
+    runtime = train.main(argv + ["--reduced", "--device", "cpu", "--steps",
+                                 "2", "--batch", "2", "--seq", "16"])
+    assert runtime.frames == 2 * 2 * 16
+    assert all(np.isfinite(float(v)) for v in runtime.metrics.values())
+    assert next(runtime.params.parameters()).device.type == "cpu"
+    out = capsys.readouterr().out
+    assert "step     1" in out and f" {label}=" in out \
+        and f" {label}_avg=" in out
+    assert all(k in out for k in keys)
+
+
 @pytest.mark.parametrize("argv,message", [
-    (["--mode", "lm"], "not ported yet"),
-    (["--attn-impl", "kernel"], "not ported yet: --attn-impl"),
+    (["--mode", "lm", "--mesh-model", "2"], "not ported yet: --mesh-model"),
+    (["--mode", "lm-rl", "--num-processes", "2"],
+     "not ported yet: --num-processes"),
     (["--mesh-data=2"], "not ported yet: --mesh-data"),
     (["--no-such-flag"], "unrecognized"),
 ])
