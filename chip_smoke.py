@@ -95,8 +95,25 @@ exits nonzero without printing a result:
               inside Zamba2's six-layer groups); tok/s, ms per step, peak
               memory, launches against layers x chunks x passes; then the
               same float32 check
+ 17. dp       data parallel (--mesh-data), cuDNN pinned deterministic:
+              17a world size 1 through NCCL in this process, 3 steps of
+              phase 4's learner and batch, losses and learner state
+              bitwise the plain step's, K1 once a step at (80, 32), ms a
+              step beside the plain step's and a gradient all-reduce's
+              ms; 17b two ranks sharing the card through gloo (rank 1
+              spawned), B 16 each, the first loss within 1e-5 of 17a's
+              and the later ones within that or twice the gap a reversed
+              batch gives the plain step (17a), both ranks' state
+              bitwise equal, K1 once a step a rank at (80,
+              16), gloo's staging times (not a speed figure); 17c
+              train.main --mesh-data 1 on phase 5's run, with --replay
+              elite and with --actors host, K1 launches = steps; 17d
+              phase 8's CLI resume with --mesh-data 1, bitwise (learner
+              and sharded source state; the learner state also the
+              single-process run's)
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
-              row; lm_rl_launches / lm_launches: phases 15 and 16), then
+              row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
+              phase 17's launches), then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
 
@@ -216,6 +233,17 @@ TRAINER_ARGV = ["--mode", "rl-agent", "--env", "gridworld", "--agent", "deep",
 REPLAY_EXAMPLE_ARGV = ["--mode", "rl-agent", "--env", "catch", "--replay",
                        "elite", "--replay-ratio", "1.0", "--steps", "500"]
 REPLAY_LEARNER_STEPS, REPLAY_LEARNER_CAPACITY = 5, 64
+# phase 17, data parallel: learner steps of 17a/17b, 17b's bar against
+# 17a, and the (T, B) each rank's V-trace runs at in 17a and 17b. The
+# bar is DP_RTOL / DP_ATOL, widened after the first update to
+# DP_REORDER_FACTOR times the gap that reversing the batch's columns
+# gives the plain step (17a measures it): Table G.1's learner on one
+# repeated random batch grows its loss 33x in two steps, and a reorder
+# of its float32 sums alone then moves the third loss by about 2e-5
+DP_STEPS = 3
+DP_RTOL, DP_ATOL = 1e-5, 1e-6
+DP_REORDER_FACTOR = 2.0
+DP_SHAPE, DP2_SHAPE = (80, 32), (80, 16)
 ZAMBA_SERVE_ARGV = ["--arch", "zamba2-2.7b", "--attn-impl", "kernel",
                     "--ssd-impl", "kernel", "--requests", "24",
                     "--prompt-len", "256", "--gen-tokens", "64",
@@ -1734,6 +1762,304 @@ def phase_lm(ops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 17. data parallel (--mesh-data)
+
+
+@contextlib.contextmanager
+def vtrace_shapes(ops):
+    """Records the (T, B) of every V-trace wrapper call made inside (the
+    losses look the wrapper up at each call)."""
+    shapes = []
+    fn = ops.vtrace_from_importance_weights_kernel
+
+    def recorded(log_rhos, *args, **kwargs):
+        shapes.append(tuple(log_rhos.shape))
+        return fn(log_rhos, *args, **kwargs)
+
+    ops.vtrace_from_importance_weights_kernel = recorded
+    try:
+        yield shapes
+    finally:
+        ops.vtrace_from_importance_weights_kernel = fn
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    import torch
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+
+
+def _dp_steps(ops, mesh, reverse=False):
+    """DP_STEPS learner steps of the full-width deep agent (weights from
+    seed 0, Table G.1 RMSProp) on this rank's block of phase 4's seeded
+    batch (``reverse``: its columns in reverse order, the same losses in
+    exact arithmetic); ``mesh`` None is the plain step. Returns the
+    losses, the final learner state on the host, the V-trace shapes,
+    synchronised step ms and (under a mesh) the CUDA-event ms of one
+    gradient all-reduce."""
+    import torch
+
+    from repro_torch.configs.atari_impala import NUM_ACTIONS, OBS_SHAPE, TRAIN
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.distributed import sharding
+    from repro_torch.models.convnet import impala_deep
+    from repro_torch.optim import make_optimizer
+
+    device = torch.device("cuda") if mesh is None else mesh.device
+    batch = synthetic_batch(torch.Generator(device=device).manual_seed(0),
+                            TRAIN.unroll_length, TRAIN.batch_size)
+    if reverse:
+        batch = {k: v.flip(1) for k, v in batch.items()}
+    if mesh is not None:
+        batch = sharding.shard_rollout(batch, mesh)
+    agent = impala_deep(OBS_SHAPE, NUM_ACTIONS,
+                        generator=torch.Generator().manual_seed(0)).to(device)
+    opt = make_optimizer(TRAIN)
+    step_fn = learner_lib.make_train_step(opt, TRAIN, vtrace_impl="kernel",
+                                          mesh=mesh)
+    opt_state = opt.init(list(agent.parameters()))
+    losses, step_ms = [], []
+    with vtrace_shapes(ops) as shapes:
+        for step in range(DP_STEPS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            agent, opt_state, metrics = step_fn(agent, opt_state, step,
+                                                batch)
+            torch.cuda.synchronize(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+    allreduce_ms = None
+    if mesh is not None:
+        grads = [torch.randn_like(p) for p in agent.parameters()]
+        allreduce_ms = event_ms(lambda: sharding.replicate(grads, mesh),
+                                reps=20)
+    state = {f"params/{k}": v.cpu() for k, v in agent.state_dict().items()}
+    for key, tensors in opt_state.items():
+        state.update({f"opt_state/{key}/{i}": t.cpu()
+                      for i, t in enumerate(tensors)})
+    return {"losses": losses, "state": state, "shapes": shapes,
+            "step_ms": step_ms, "allreduce_ms": allreduce_ms}
+
+
+def phase_dp(ops):
+    """17a: world size 1 through NCCL, in this process: DP_STEPS steps of
+    the data-parallel learner, bitwise the plain step's losses and
+    learner state on the same batch (cuDNN pinned deterministic for
+    both), one K1 launch a step at DP_SHAPE; then the plain step on the
+    batch's columns reversed, whose loss gaps measure how far a reorder
+    of float32 sums alone moves this learner. Returns its record."""
+    from repro_torch.launch import mesh as mesh_lib
+    with cudnn_deterministic():
+        plain = _dp_steps(ops, None)
+        reverse = _dp_steps(ops, None, reverse=True)
+        with mesh_lib.make_data_mesh(1, "cuda:0",
+                                     port=mesh_lib.free_port()) as mesh:
+            backend = mesh.backend
+            ops.reset_stats()
+            dp = _dp_steps(ops, mesh)
+            launches = ops.stats()["vtrace"]
+    if dp["losses"] != plain["losses"]:
+        raise AssertionError(f"17a: losses {dp['losses']} are not bitwise "
+                             f"the plain step's {plain['losses']}")
+    _bitwise("17a: data-parallel learner at world size 1",
+             dp["state"], plain["state"])
+    if launches != DP_STEPS or dp["shapes"] != [DP_SHAPE] * DP_STEPS:
+        raise AssertionError(f"17a: {launches} V-trace launches at "
+                             f"{dp['shapes']}, not {DP_STEPS} at {DP_SHAPE}")
+    record = dict(world_size=1, backend=backend, steps=DP_STEPS,
+                  losses=dp["losses"], bitwise=True, launches=launches,
+                  shapes=[list(x) for x in dp["shapes"]],
+                  step_ms=dp["step_ms"], plain_step_ms=plain["step_ms"],
+                  steady_step_ms=statistics.median(dp["step_ms"][1:]),
+                  plain_steady_step_ms=statistics.median(
+                      plain["step_ms"][1:]),
+                  allreduce_ms=dp["allreduce_ms"],
+                  reverse_losses=reverse["losses"],
+                  reverse_gaps=[abs(a - b) for a, b in zip(
+                      reverse["losses"], plain["losses"])],
+                  grad_floats=sum(v.numel() for k, v in dp["state"].items()
+                                  if k.startswith("params/")))
+    emit("dp", **record)
+    return record
+
+
+def _dp2_rank(mesh):
+    """17b's body in each rank (spawned: it pins float32 and cuDNN itself
+    and counts its own launches); returns every rank's record on rank
+    0."""
+    import repro_torch
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    repro_torch.resolve_device("cuda")
+    with cudnn_deterministic():
+        ops.reset_stats()
+        out = _dp_steps(ops, mesh)
+        out["launches"] = ops.stats()["vtrace"]
+    return sharding.gather_to_main(out, mesh)
+
+
+def phase_dp2(base):
+    """17b: two ranks sharing cuda:0 through gloo over CUDA tensors (NCCL
+    refuses two ranks on one device), rank 1 spawned: DP_STEPS steps of
+    B 16 each on phase 4's batch. The first loss (before any update) must
+    lie within DP_RTOL / DP_ATOL of 17a's (``base``), each later one
+    within that or DP_REORDER_FACTOR times 17a's reverse gap at its step;
+    both ranks' learner state must be bitwise equal, and each rank must
+    launch K1 once a step at DP2_SHAPE. Gloo stages CUDA tensors through
+    the host: its times are not a speed figure. Returns each rank's
+    launches."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    ranks = mesh_lib.launch(_dp2_rank, 2, device="cuda",
+                            devices=["cuda:0", "cuda:0"], backend="gloo",
+                            timeout_s=300)
+    seconds = time.perf_counter() - t0
+    bars = [DP_ATOL + DP_RTOL * abs(b) if s == 0 else max(
+        DP_ATOL + DP_RTOL * abs(b), DP_REORDER_FACTOR * gap)
+        for s, (b, gap) in enumerate(zip(base["losses"],
+                                         base["reverse_gaps"]))]
+    for rank, r in enumerate(ranks):
+        if r["launches"] != DP_STEPS or \
+                r["shapes"] != [DP2_SHAPE] * DP_STEPS:
+            raise AssertionError(
+                f"17b rank {rank}: {r['launches']} V-trace launches at "
+                f"{r['shapes']}, not {DP_STEPS} at {DP2_SHAPE}")
+        if not all(abs(a - b) <= bar for a, b, bar in zip(
+                r["losses"], base["losses"], bars)):
+            raise AssertionError(f"17b rank {rank}: losses {r['losses']} "
+                                 f"against 17a's {base['losses']}, bars "
+                                 f"{bars}")
+    _bitwise("17b: rank 1 against rank 0", ranks[1]["state"],
+             ranks[0]["state"])
+    emit("dp2", world_size=2, backend="gloo", device="cuda:0 (both ranks)",
+         steps=DP_STEPS, losses=ranks[0]["losses"],
+         losses_17a=base["losses"],
+         gaps=[abs(a - b) for a, b in zip(ranks[0]["losses"],
+                                          base["losses"])],
+         reverse_gaps_17a=base["reverse_gaps"], bars=bars,
+         ranks_bitwise=True,
+         launches=[r["launches"] for r in ranks],
+         shapes=[list(x) for x in ranks[0]["shapes"]],
+         step_ms=[r["step_ms"] for r in ranks],
+         allreduce_ms=[r["allreduce_ms"] for r in ranks],
+         timing="gloo's host-staging path, not a speed figure",
+         seconds=seconds, cuda_visible=torch.cuda.device_count())
+    return [r["launches"] for r in ranks]
+
+
+def phase_dp_trainer(ops):
+    """17c: repro_torch.launch.train.main with --mesh-data 1 (NCCL) on
+    phase 5's run, then with --replay elite and with --actors host; each
+    run's K1 launches must equal its steps. Returns them by run."""
+    runs, launches = {}, {}
+    for name, argv in (("trainer", TRAINER_ARGV),
+                       ("replay", TRAINER_ARGV + ["--replay", "elite"]),
+                       ("host", HOST_ARGV)):
+        steps = int(argv[argv.index("--steps") + 1])
+        ops.reset_stats()
+        runtime, seconds, last = run_trainer(argv + ["--mesh-data", "1"])
+        launches[name] = ops.stats()["vtrace"]
+        left = _host_threads()
+        loss = float(runtime.metrics["loss"])
+        source = type(getattr(runtime.source, "inner", runtime.source))
+        if runtime.mesh is None or runtime.mesh.size != 1:
+            raise AssertionError(f"17c {name}: the run built no mesh")
+        if launches[name] != steps:
+            raise AssertionError(f"17c {name}: {launches[name]} V-trace "
+                                 f"launches in {steps} steps")
+        if left or not math.isfinite(loss):
+            raise AssertionError(f"17c {name}: threads left {left}, loss "
+                                 f"{loss}")
+        runs[name] = dict(argv=argv + ["--mesh-data", "1"],
+                          source=source.__name__,
+                          backend=runtime.mesh.backend, steps=steps,
+                          launches=launches[name], seconds=seconds,
+                          ms_per_step=seconds / steps * 1e3, loss=loss,
+                          fps_line=last)
+    emit("dp_trainer", runs=runs)
+    return launches
+
+
+def phase_dp_resume(ops, workdir):
+    """17d: phase 8's Catch run with --mesh-data 1, cuDNN pinned
+    deterministic: the CLI checkpointed every CLI_EVERY steps, cut back
+    to the first and resumed, against the uninterrupted run — learner
+    state and the sharded source's state bitwise; the learner state also
+    bitwise the single-process run's. Returns K1's launches (the three
+    mesh runs: RESUME_STEPS x 2 + the resumed steps)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.launch import train
+
+    argv = RESUME_ARGV + ["--steps", str(RESUME_STEPS)]
+    dp_argv = argv + ["--mesh-data", "1"]
+    dirs = {k: os.path.join(workdir, k) for k in ("whole", "cli", "plain")}
+    final = f"step_{RESUME_STEPS}"
+    with cudnn_deterministic():
+        ops.reset_stats()
+        t0 = time.perf_counter()
+        _quiet(lambda: train.main(dp_argv + ["--checkpoint-dir",
+                                             dirs["whole"]]))
+        _quiet(lambda: train.main(dp_argv + [
+            "--checkpoint-every", str(CLI_EVERY), "--checkpoint-dir",
+            dirs["cli"]]))
+        shutil.rmtree(os.path.join(dirs["cli"], final))
+        _, lines = _quiet(lambda: train.main(dp_argv + [
+            "--checkpoint-dir", dirs["cli"], "--resume"]))
+        seconds = time.perf_counter() - t0
+        launches = ops.stats()["vtrace"]
+        _quiet(lambda: train.main(argv + ["--checkpoint-dir",
+                                          dirs["plain"]]))
+    banner = (f"resumed {dirs['cli']}/step_{CLI_EVERY} at step {CLI_EVERY} "
+              "(source state restored)")
+    if banner not in lines:
+        raise AssertionError(f"17d: CLI resume printed {lines[:2]}")
+    read = {k: ckpt_lib.load_flat(os.path.join(d, final))[0]
+            for k, d in dirs.items()}
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a)
+
+    if not same(read["cli"], read["whole"]):
+        raise AssertionError("17d: resumed learner state is not bitwise "
+                             "the uninterrupted run's")
+    if not same(read["whole"], read["plain"]):
+        raise AssertionError("17d: --mesh-data 1 learner state is not "
+                             "bitwise the single-process run's")
+    states = [ckpt_lib.restore_structured(os.path.join(dirs[k], final),
+                                          "source") for k in ("cli", "whole")]
+    if states[0]["kind"] != "ShardedDeviceSource" or \
+            _flat_state(states[0]) != _flat_state(states[1]):
+        raise AssertionError("17d: the sharded source's state is not "
+                             "bitwise the uninterrupted run's")
+    want = 2 * RESUME_STEPS + RESUME_STEPS - CLI_EVERY
+    if launches != want:
+        raise AssertionError(f"17d: {launches} V-trace launches, not "
+                             f"{want}")
+    emit("dp_resume", argv=dp_argv, cli_every=CLI_EVERY,
+         cudnn_deterministic=True, bitwise=True, leaves=len(read["whole"]),
+         source_entries=len(_flat_state(states[0])), launches=launches,
+         seconds=seconds)
+    return launches
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1875,6 +2201,15 @@ def main():
     lm_rl_launches = phase_lm_rl(ops)
     lm_launches = phase_lm(ops)
 
+    # 17. data parallel (--mesh-data): 17a world size 1 through NCCL, 17b
+    # two ranks sharing the card through gloo, 17c the trainer's runs
+    # with --mesh-data 1, 17d its resume
+    dp = phase_dp(ops)
+    dp2_launches = phase_dp2(dp)
+    dp_trainer_launches = phase_dp_trainer(ops)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as workdir:
+        dp_resume_launches = phase_dp_resume(ops, workdir)
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -1909,7 +2244,13 @@ def main():
         "lm_rl_graph_ms": lm_rl_row["graph_ms"],
         "lm_rl_bound_ms": lm_rl_row["bound_ms"],
         "lm_rl_bound_by": lm_rl_row["bound_by"],
-        "lm_rl_bound_share": lm_rl_row["bound_share"]}]
+        "lm_rl_bound_share": lm_rl_row["bound_share"],
+        "dp_launches": dp["launches"], "dp_shape": list(DP_SHAPE),
+        "dp2_launches": dp2_launches, "dp2_shape": list(DP2_SHAPE),
+        "dp_trainer_launches": dp_trainer_launches["trainer"],
+        "dp_replay_launches": dp_trainer_launches["replay"],
+        "dp_host_launches": dp_trainer_launches["host"],
+        "dp_resume_launches": dp_resume_launches}]
     for name, replaces, all_rows, (shape, dtype) in [
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",
              flash_rows, FLASH_MAIN),

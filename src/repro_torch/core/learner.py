@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import losses
+from repro_torch.distributed import sharding
 from repro_torch.models import model as model_lib
 
 
@@ -26,7 +27,7 @@ def _grads(loss, plist):
                                     materialize_grads=True))
 
 
-def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
+def make_train_step(opt, train_cfg, *, vtrace_impl="kernel", mesh=None):
     """IMPALA learner step over a rollout batch.
 
     batch: time-major dict (see core/rollout.py):
@@ -42,6 +43,15 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
 
     vtrace_impl: 'kernel' (the fused CUDA V-trace kernel) or 'scan' (the
     plain reverse loop).
+
+    mesh: the data mesh of ``--mesh-data N`` (``launch/mesh.py``), or None.
+    Each rank's ``batch`` is then its own block of B/N columns (and of
+    the replayed ones); the step takes the mean over ranks of the
+    gradients before ``opt.step`` (``sharding.replicate``, so global-norm
+    clipping sees the global gradient), then of the scalar metrics in one
+    stacked all-reduce. ``priority`` stays local, in the rank's column
+    order. No DDP: its hooks fire on ``.grad`` accumulation, and this step
+    takes its gradients with ``torch.autograd.grad``.
     """
 
     def loss_fn(agent, batch):
@@ -66,8 +76,10 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
     def train_step(params, opt_state, step, batch):
         plist = list(params.parameters())
         loss_out = loss_fn(params, batch)
-        opt_state = opt.step(_grads(loss_out.total, plist), opt_state,
-                             plist, step)
+        grads = _grads(loss_out.total, plist)
+        if mesh is not None:
+            grads = sharding.replicate(grads, mesh)
+        opt_state = opt.step(grads, opt_state, plist, step)
         if "is_replay" in batch:
             fresh = (~batch["is_replay"]).float()[None, :]
             reward_per_step = (batch["reward"] * fresh).sum() \
@@ -88,6 +100,8 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel"):
         if "is_replay" in batch:
             metrics["clear_policy_loss"] = loss_out.clear_policy_loss.detach()
             metrics["clear_value_loss"] = loss_out.clear_value_loss.detach()
+        if mesh is not None:
+            metrics = sharding.mean_scalars(metrics, mesh, skip=("priority",))
         return params, opt_state, metrics
 
     return train_step

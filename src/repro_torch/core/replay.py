@@ -31,9 +31,11 @@ to the batch.
 Buffers are stateful, checkpointable objects: ``state_dict()`` /
 ``load_state_dict()`` capture slots, priorities, tickets and counters, so
 a resumed run replays exactly what the uninterrupted run would have
-(the SourceState protocol of core/sources.py). The per-device partitioned
-buffer of the data-parallel learner (``--mesh-data``) comes with that
-learner (ROADMAP item 14).
+(the SourceState protocol of core/sources.py).
+
+``ShardedReplay`` is the data-parallel learner's buffer (``--mesh-data
+N``): each rank of the mesh holds its own partition of capacity / N and
+mixes its own batch, with ``(rank, ticket)`` slot ids.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from typing import Any, Dict, List, Optional, Protocol, Tuple, \
     runtime_checkable
 
 import numpy as np
+
+from repro_torch.distributed import sharding
 
 
 @runtime_checkable
@@ -324,6 +328,106 @@ class AttentiveReplay(_SlotReplay):
         order = live[np.argsort(d, kind="stable")]
         reps = -(-k // len(order))  # ceil: wrap when k > live
         return np.tile(order, reps)[:k]
+
+
+class ShardedReplay:
+    """Replay partitioned over the ranks of the data mesh (``--mesh-data
+    N``, ``launch/mesh.py``): the reference's one strategy buffer per
+    device, with each rank a process holding only its own partition.
+
+    Capacity is GLOBAL and splits evenly: the rank's partition is
+    ``make_buffer(kind, capacity // N)``. ``insert`` takes the rank's
+    fresh block; ``sample(k)`` takes the GLOBAL replayed column count
+    (which must divide by N, as the reference requires) and draws this
+    rank's k / N from its partition. Slot ids are ``(rank, ticket)``.
+
+    The reference's buffer owns the mixed batch's layout, per-device
+    interleaved ``[fresh_0 | replay_0 | fresh_1 | ...]``, and says which
+    slot each column came from (``mix``, ``emitted_ids``). A rank's block
+    of it, ``[fresh_r | replay_r]``, is the fresh-first batch
+    ``ReplaySource`` emits over any buffer, so this one needs neither: the
+    blocks concatenated in rank order are the reference's layout, and the
+    learner's local priority vector routes back to this rank's slots.
+
+    ``len`` counts this rank's partition (every rank inserts as many).
+    ``stats`` and ``state_dict`` are collectives: the gauges are summed to
+    the reference's global figures, and the state is gathered to rank 0
+    as ``{"kind": "ShardedReplay", "n", "parts": [...]}`` (None on the
+    other ranks); ``load_state_dict`` takes the rank's part and refuses
+    another world size.
+    """
+
+    def __init__(self, kind: str, capacity: int, mesh, **kwargs):
+        n = mesh.size
+        if capacity % n != 0:
+            raise ValueError(f"replay capacity {capacity} not divisible by "
+                             f"mesh size {n}")
+        self.mesh = mesh
+        self.capacity = capacity
+        self._part = make_buffer(kind, capacity // n, **kwargs)
+        self.needs_query = bool(getattr(self._part, "needs_query", False))
+
+    def insert(self, rollout: Rollout,
+               priorities: Optional[np.ndarray] = None) -> List[Tuple]:
+        rank = self.mesh.rank
+        return [(rank, t) for t in self._part.insert(rollout, priorities)]
+
+    def sample(self, k: int, rng: np.random.Generator, *,
+               query: Optional[Any] = None) -> Tuple[Rollout, List[Tuple]]:
+        n = self.mesh.size
+        if k % n != 0:
+            raise ValueError(
+                f"sample size {k} not divisible by mesh size {n} — pick a "
+                "--replay-ratio whose replayed column count divides the "
+                "mesh")
+        local, ids = self._part.sample(k // n, rng, query=query)
+        return local, [(self.mesh.rank, t) for t in ids]
+
+    def update_priorities(self, slot_ids, priorities) -> None:
+        rank = self.mesh.rank
+        foreign = sorted({int(d) for d, _ in slot_ids} - {rank})
+        if foreign:
+            raise ValueError(f"rank {rank} got priorities for the "
+                             f"partitions of rank(s) {foreign}")
+        self._part.update_priorities([int(t) for _, t in slot_ids],
+                                     priorities)
+
+    def __len__(self) -> int:
+        return len(self._part)
+
+    def stats(self) -> Dict[str, float]:
+        p = self._part
+        live, prio, inserted, evicted, sampled = sharding.sum_floats(
+            [len(p), float(p._prio[p._live].sum()), p.inserted, p.evicted,
+             p.sampled], self.mesh)
+        return {
+            "occupancy": live / self.capacity,
+            "mean_priority": prio / live if live else 0.0,
+            "inserted": inserted,
+            "evicted": evicted,
+            "sampled": sampled,
+        }
+
+    def clear(self) -> None:
+        self._part.clear()
+
+    def state_dict(self) -> Optional[Dict[str, Any]]:
+        parts = sharding.gather_to_main(self._part.state_dict(), self.mesh)
+        if parts is None:
+            return None
+        return {"kind": "ShardedReplay", "n": self.mesh.size,
+                "parts": parts}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if state.get("kind") != "ShardedReplay":
+            raise ValueError(
+                f"checkpoint replay buffer is {state.get('kind')!r}, this "
+                "run built ShardedReplay — resume with the same flags")
+        if int(state["n"]) != self.mesh.size:
+            raise ValueError(
+                f"checkpoint replay has {state['n']} partitions, this mesh "
+                f"has {self.mesh.size} — resume with the same --mesh-data")
+        self._part.load_state_dict(state["parts"][self.mesh.rank])
 
 
 _KINDS = {"uniform": UniformReplay, "elite": EliteReplay,

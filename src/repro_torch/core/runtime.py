@@ -68,6 +68,15 @@ class Runtime:
         ``on_learner_metrics(step, metrics)`` hook where it has one (replay
         priorities); a source's ``stats()`` gauges join the log line.
       print_fn: sink for log lines.
+      mesh: the data mesh of ``--mesh-data N`` (``launch/mesh.py``), or
+        None. Every rank runs this loop over the same steps; rank 0 alone
+        prints and writes checkpoints. The source's ``stats()`` and
+        ``state_dict()`` are collectives there, so every rank calls them
+        at the same steps. ``frames`` counts the global frames (the
+        sharded sources' ``frames_per_batch`` is global). A failure skips
+        the crash checkpoint (gathering the source state would wait on
+        ranks that may be gone) and propagates, which takes the rank out
+        of the group (``launch/mesh.py``).
     """
 
     def __init__(self, source, step_fn: Callable, params, opt_state, *,
@@ -80,7 +89,7 @@ class Runtime:
                  checkpoint_meta: Optional[Dict[str, Any]] = None,
                  on_metrics: Optional[Callable[[int, Dict[str, Any]], None]]
                  = None,
-                 print_fn: Callable[[str], None] = print):
+                 print_fn: Callable[[str], None] = print, mesh=None):
         self.source = source
         self.step_fn = step_fn
         self.params = params
@@ -97,7 +106,9 @@ class Runtime:
         self.checkpoint_meta = dict(checkpoint_meta or {})
         self._writer = None                    # AsyncCheckpointWriter, lazy
         self.on_metrics = on_metrics
-        self.print_fn = print_fn
+        self.mesh = mesh
+        self._main = mesh is None or mesh.is_main
+        self.print_fn = print_fn if self._main else (lambda line: None)
         self.frames = 0
         self.metrics: Optional[Dict[str, Any]] = None
         self._win_t: Optional[float] = None    # windowed-FPS anchors
@@ -109,6 +120,12 @@ class Runtime:
     # -- pieces -------------------------------------------------------------
 
     def _log(self, step: int, t0: float) -> None:
+        # Source-side gauges (ReplaySource: occupancy, mean priority, hit
+        # rate) ride along on the line; under a mesh a collective.
+        stats_fn = getattr(self.source, "stats", None)
+        stats = stats_fn() if stats_fn is not None else {}
+        if not self._main:
+            return
         parts = [f"step {step:5d}"]
         if self.frames:
             parts.append(f"frames {self.frames:9d}")
@@ -118,15 +135,10 @@ class Runtime:
             if value is not None and value.dim() == 0:
                 label = _METRIC_LABELS.get(k, k)
                 parts.append(f"{label}={float(value):+.3f}")
-        # Source-side gauges (ReplaySource: occupancy, mean priority, hit
-        # rate) ride along on the same line.
-        stats_fn = getattr(self.source, "stats", None)
-        if stats_fn is not None:
-            stats = stats_fn()
-            for k in ("replay_occupancy", "replay_mean_priority",
-                      "replay_hit_rate"):
-                if k in stats:
-                    parts.append(f"{k.removeprefix('replay_')}={stats[k]:.3f}")
+        for k in ("replay_occupancy", "replay_mean_priority",
+                  "replay_hit_rate"):
+            if k in stats:
+                parts.append(f"{k.removeprefix('replay_')}={stats[k]:.3f}")
         now = time.time()
         if self.frames:
             # Windowed throughput (since the previous log line) is the
@@ -151,11 +163,14 @@ class Runtime:
         # is consistent with {params, opt_state, step}.
         # Snapshot-then-write: only the host copy happens here; the disk
         # I/O runs on the writer thread ("saved {path}" is printed there
-        # once the manifest lands).
+        # once the manifest lands). Under a mesh every rank gathers its
+        # source state to rank 0, whose learner state equals the others'.
+        source_state = self.source.state_dict()
+        if not self._main:
+            return
         snap = ckpt_lib.snapshot({"params": self.params.state_dict(),
                                   "opt_state": self.opt_state},
-                                 structured={"source":
-                                             self.source.state_dict()})
+                                 structured={"source": source_state})
         if self._writer is None:
             self._writer = ckpt_lib.AsyncCheckpointWriter(
                 print_fn=self.print_fn)
@@ -174,7 +189,13 @@ class Runtime:
             self.print_fn(f"crash checkpoint failed: {exc!r}")
             return
         path = f"{self.checkpoint_dir}/step_{next_step}"
-        if in_step:
+        if self.mesh is not None:
+            # the gather of the source state would wait on ranks that may
+            # be gone (or blocked in a collective this rank never joins)
+            self.print_fn("crash checkpoint skipped: a data-parallel run "
+                          "cannot gather its source state after a failure; "
+                          "resume from the last periodic checkpoint")
+        elif in_step:
             # The learner updates params and optimizer state in place, so
             # a failure inside step_fn may leave them half-updated: such a
             # state must never be saved under any step's name.

@@ -43,8 +43,14 @@ batch stream of an uninterrupted one (bit-identical final params). The
 one exception is the host-loop path: thread scheduling is not replayable,
 so ``HostLoopSource`` restarts its actors fresh and only the learner state
 resumes exactly. ``ReplaySource`` wraps either and checkpoints its buffer
-with the inner source's state. The sharded source is not ported yet
-(ROADMAP item 14).
+with the inner source's state.
+
+Data parallelism (``--mesh-data N``, one process per rank, see
+``launch/mesh.py``): ``ShardedDeviceSource`` runs each rank's stream of
+B/N columns, ``HostLoopSource(mesh=)`` each rank's actor pool, and
+``ReplaySource`` over a ``core/replay.py::ShardedReplay`` each rank's
+buffer partition. Their ``state_dict`` is then a collective that gathers
+every rank's state to rank 0 in the reference's layout.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from typing import (Any, Callable, Dict, Optional, Protocol,
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.tree import leaves, rebuild
 
 
@@ -142,8 +149,10 @@ def check_rollout(rollout: Dict[str, Any], unroll_length: int,
 # On-device actors
 
 
-class DeviceSource:
-    """Single-device unroll source.
+class _CompiledUnrollSource:
+    """The dispatch cadence of the on-device actors: one unroll stream on
+    one device, shared by ``DeviceSource`` and ``ShardedDeviceSource``
+    (which differ in how they are built and checkpointed).
 
     Synchronous (``pipelined=False``): ``next_batch(params)`` dispatches one
     unroll with the given params and returns it — unroll N sees the params
@@ -192,21 +201,6 @@ class DeviceSource:
         self._device = next(actor.parameters()).device
         self.ready_event = None
 
-    @classmethod
-    def for_env(cls, env, agent: torch.nn.Module, *, unroll_length: int,
-                batch_size: int, seed: int, **kwargs) -> "DeviceSource":
-        """Build the feed-forward-agent source from an Env and the learner's
-        agent, on the agent's device, drawing from a generator seeded with
-        ``seed``."""
-        from repro_torch.core import rollout as rollout_lib
-        device = next(agent.parameters()).device
-        gen = torch.Generator(device=device).manual_seed(seed)
-        carry = rollout_lib.env_reset_batch(env, gen, batch_size, device)
-        actor = copy.deepcopy(agent).requires_grad_(False)
-        unroll = rollout_lib.make_unroll(env, unroll_length)
-        return cls(unroll, carry, gen, actor, unroll_length=unroll_length,
-                   batch_size=batch_size, **kwargs)
-
     def _dispatch(self, params):
         if self._dispatches % self.param_sync_every == 0:
             self._actor.load_state_dict(params.state_dict())
@@ -251,7 +245,41 @@ class DeviceSource:
     # the learner's when param_sync_every > 1). Restoring all of it makes
     # the resumed rollout stream bit-identical to the uninterrupted one.
     # The tensors are the live ones, valid until the source next
-    # dispatches: checkpoint.snapshot copies them.
+    # dispatches: checkpoint.snapshot copies them. Subclasses lay the
+    # stream's state out in their checkpoint.
+
+    def _load_dispatch(self, dispatches, pending, actor) -> None:
+        self._dispatches = int(dispatches)
+        self._pending = None if pending is None else {
+            k: torch.as_tensor(v).to(self._device)
+            for k, v in pending.items()}
+        self._actor.load_state_dict(
+            {k: torch.as_tensor(v) for k, v in actor.items()})
+
+    def _load_stream(self, carry, generator) -> None:
+        self._carry = _like(self._carry, carry)
+        self._gen.set_state(torch.as_tensor(generator,
+                                            dtype=torch.uint8).cpu())
+
+
+class DeviceSource(_CompiledUnrollSource):
+    """Single-device unroll source (see ``_CompiledUnrollSource`` for the
+    pipelining and parameter-sync semantics)."""
+
+    @classmethod
+    def for_env(cls, env, agent: torch.nn.Module, *, unroll_length: int,
+                batch_size: int, seed: int, **kwargs) -> "DeviceSource":
+        """Build the feed-forward-agent source from an Env and the learner's
+        agent, on the agent's device, drawing from a generator seeded with
+        ``seed``."""
+        from repro_torch.core import rollout as rollout_lib
+        device = next(agent.parameters()).device
+        gen = torch.Generator(device=device).manual_seed(seed)
+        carry = rollout_lib.env_reset_batch(env, gen, batch_size, device)
+        actor = copy.deepcopy(agent).requires_grad_(False)
+        unroll = rollout_lib.make_unroll(env, unroll_length)
+        return cls(unroll, carry, gen, actor, unroll_length=unroll_length,
+                   batch_size=batch_size, **kwargs)
 
     def state_dict(self) -> Dict[str, Any]:
         return {
@@ -265,16 +293,106 @@ class DeviceSource:
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         _check_kind(state, self)
-        self._dispatches = int(state["dispatches"])
-        self._carry = _like(self._carry, state["stream"]["carry"])
-        self._gen.set_state(torch.as_tensor(state["stream"]["generator"],
-                                            dtype=torch.uint8).cpu())
+        self._load_stream(state["stream"]["carry"],
+                          state["stream"]["generator"])
+        self._load_dispatch(state["dispatches"], state["pending"],
+                            state["actor"])
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel on-device actors (one stream per rank of the data mesh)
+
+
+class ShardedDeviceSource(_CompiledUnrollSource):
+    """The data-parallel actors: each rank of the data mesh (``--mesh-data
+    N``, ``launch/mesh.py``) runs its own unroll stream of B/N columns on
+    its own device, and its learner consumes that block where it was made
+    — the reference's per-device streams fanned into one globally sharded
+    batch, with the ranks as processes.
+
+    ``batch_size`` and ``frames_per_batch`` are GLOBAL (B and T x B, so
+    the Runtime's fps counts every rank's frames). Rank 0 draws from the generator ``DeviceSource.for_env`` builds
+    from the same seed, so world size 1 emits bitwise ``DeviceSource``'s
+    stream; rank r > 0 draws from ``sharding.rank_seed(seed, r)`` (the
+    reference folds r into its key with ``jax.random.fold_in``, which has
+    no torch counterpart). Double buffering and ``param_sync_every`` are
+    ``_CompiledUnrollSource``'s.
+
+    SourceState: ``state_dict`` is a collective (every rank calls it at
+    the same step) that gathers the streams to rank 0 in the reference's
+    layout — one carry and one generator per rank under ``stream``, the
+    in-flight rollout as the global batch (rank r's block at its
+    columns), the actors' parameter copy (equal on every rank) once; the
+    other ranks get None. ``load_state_dict`` takes rank r's entries (and
+    its block of the in-flight batch) and refuses a checkpoint of another
+    world size.
+    """
+
+    def __init__(self, unroll: Callable, carry, generator: torch.Generator,
+                 actor: torch.nn.Module, mesh, *, unroll_length: int,
+                 batch_size: int, **kwargs):
+        super().__init__(unroll, carry, generator, actor,
+                         unroll_length=unroll_length,
+                         batch_size=batch_size, **kwargs)
+        self._mesh = mesh
+
+    @classmethod
+    def for_env(cls, env, agent: torch.nn.Module, *, unroll_length: int,
+                batch_size: int, seed: int, mesh,
+                **kwargs) -> "ShardedDeviceSource":
+        """This rank's stream for an Env and the learner's agent (on the
+        agent's device, which is the rank's); ``batch_size`` is global and
+        must divide by the mesh size."""
+        from repro_torch.core import rollout as rollout_lib
+        if batch_size % mesh.size:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"mesh size {mesh.size}")
+        device = next(agent.parameters()).device
+        gen = torch.Generator(device=device).manual_seed(
+            sharding.rank_seed(seed, mesh.rank))
+        carry = rollout_lib.env_reset_batch(
+            env, gen, batch_size // mesh.size, device)
+        actor = copy.deepcopy(agent).requires_grad_(False)
+        unroll = rollout_lib.make_unroll(env, unroll_length)
+        return cls(unroll, carry, gen, actor, mesh,
+                   unroll_length=unroll_length, batch_size=batch_size,
+                   **kwargs)
+
+    def state_dict(self) -> Optional[Dict[str, Any]]:
+        parts = sharding.gather_to_main(
+            {"pending": self._pending, "carry": self._carry,
+             "generator": self._gen.get_state()}, self._mesh)
+        if parts is None:
+            return None
+        pending = None if self._pending is None else {
+            k: torch.cat([p["pending"][k] for p in parts], dim=1)
+            for k in self._pending}
+        return {
+            "kind": type(self).__name__,
+            "dispatches": self._dispatches,
+            "pending": pending,
+            "actor": self._actor.state_dict(),
+            "stream": {"n": self._mesh.size,
+                       "carries": [p["carry"] for p in parts],
+                       "generators": [p["generator"] for p in parts]},
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        _check_kind(state, self)
+        stream, n = state["stream"], self._mesh.size
+        if int(stream["n"]) != n:
+            raise ValueError(
+                f"checkpoint source state spans {stream['n']} devices, "
+                f"this mesh has {n} — resume with the same --mesh-data")
+        rank = self._mesh.rank
+        self._load_stream(stream["carries"][rank],
+                          stream["generators"][rank])
         pending = state["pending"]
-        self._pending = None if pending is None else {
-            k: torch.as_tensor(v).to(self._device)
-            for k, v in pending.items()}
-        self._actor.load_state_dict(
-            {k: torch.as_tensor(v) for k, v in state["actor"].items()})
+        self._load_dispatch(
+            state["dispatches"],
+            None if pending is None
+            else sharding.shard_rollout(pending, self._mesh),
+            state["actor"])
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +450,11 @@ class ReplaySource:
         self.replay_ratio = float(replay_ratio)
         self.frames_per_batch = source.frames_per_batch
         self._value_fn = value_fn
+        # a ShardedReplay buffer makes this rank's source one of N: its
+        # own generator (rank_seed), gauges and state gathered over ranks
+        self._mesh = getattr(buffer, "mesh", None)
+        if self._mesh is not None:
+            seed = sharding.rank_seed(seed, self._mesh.rank)
         self._rng = np.random.default_rng(seed)
         self._last_ids: list = []
         self._served = 0        # replayed columns emitted
@@ -421,7 +544,10 @@ class ReplaySource:
         self.split_ms["inner"] = (t1 - t0) * 1e3
         self.split_ms["to_host"] = (time.perf_counter() - t1) * 1e3
         b = host["action"].shape[1]
-        k = int(round(b * self.replay_ratio))
+        # k counts the GLOBAL batch's replayed columns (B x ratio, as the
+        # reference's); a sharded buffer samples this rank's k / N of them
+        n = 1 if self._mesh is None else self._mesh.size
+        k = int(round(b * n * self.replay_ratio))
         query = host["obs"] \
             if k and getattr(self.buffer, "needs_query", False) else None
         replayed = None
@@ -438,10 +564,10 @@ class ReplaySource:
         if replayed is None:         # first batch: warm-start from itself
             replayed, replay_ids = self._sample(k, query)
         t0 = time.perf_counter()
-        batch = self._mix(fresh, replayed, b, k)
+        batch = self._mix(fresh, replayed, b, len(replay_ids))
         self.split_ms["to_device"] = (time.perf_counter() - t0) * 1e3
         self._last_ids = list(fresh_ids) + list(replay_ids)
-        self._served += k
+        self._served += len(replay_ids)
         fresh_set = set(fresh_ids)
         self._hits += sum(1 for i in replay_ids if i not in fresh_set)
         return batch
@@ -474,39 +600,63 @@ class ReplaySource:
         self.buffer.update_priorities(self._last_ids, prio)
 
     def stats(self):
+        """The buffer's gauges and the feedback counters; over a sharded
+        buffer a collective, every figure global (summed over ranks)."""
         s = {f"replay_{k}": v for k, v in self.buffer.stats().items()}
-        s["replay_hit_rate"] = self._hits / max(self._served, 1)
-        s["replay_priority_drops"] = float(self._prio_drops)
+        counts = [self._hits, self._served, self._prio_drops]
+        if self._mesh is not None:
+            counts = sharding.sum_floats(counts, self._mesh)
+        hits, served, drops = counts
+        s["replay_hit_rate"] = hits / max(served, 1)
+        s["replay_priority_drops"] = float(drops)
         return s
 
     # -- SourceState protocol --------------------------------------------------
 
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self) -> Optional[Dict[str, Any]]:
         """Nested checkpoint: inner-source state + buffer slots/priorities
         + the sampling generator's state (its 128-bit PCG64 integers stay
-        Python ints) and the feedback bookkeeping."""
-        return {
-            "kind": type(self).__name__,
-            "inner": self.inner.state_dict(),
-            "buffer": self.buffer.state_dict(),
-            "rng": self._rng.bit_generator.state,
-            "last_ids": list(self._last_ids),
-            "served": self._served,
-            "hits": self._hits,
-            "prio_drops": self._prio_drops,
-        }
+        Python ints) and the feedback bookkeeping. ``last_ids`` entries are
+        ints, or ``(rank, ticket)`` pairs over a ``ShardedReplay``.
+
+        Over a sharded buffer this is a collective: rank 0 gets the
+        reference's layout (the inner source's and the buffer's gathered
+        states, every rank's ``last_ids`` in rank order — the reference's
+        global emitted order), with the generator and the counters one
+        entry per rank (each rank samples from its own generator), and
+        the other ranks get None."""
+        inner = self.inner.state_dict()
+        buffer = self.buffer.state_dict()
+        own = {"rng": self._rng.bit_generator.state,
+               "last_ids": list(self._last_ids), "served": self._served,
+               "hits": self._hits, "prio_drops": self._prio_drops}
+        if self._mesh is not None:
+            parts = sharding.gather_to_main(own, self._mesh)
+            if parts is None:
+                return None
+            own = {k: [p[k] for p in parts] for k in own}
+            own["last_ids"] = [i for ids in own["last_ids"] for i in ids]
+        return {"kind": type(self).__name__, "inner": inner,
+                "buffer": buffer, **own}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         _check_kind(state, self)
         self.inner.load_state_dict(state["inner"])
         self.buffer.load_state_dict(state["buffer"])
+        ids = [tuple(int(j) for j in i) if isinstance(i, (tuple, list))
+               else int(i) for i in state["last_ids"]]
+        own = {k: state[k] for k in ("rng", "served", "hits", "prio_drops")}
+        if self._mesh is not None:   # this rank's entries
+            rank = self._mesh.rank
+            own = {k: v[rank] for k, v in own.items()}
+            ids = [i for i in ids if i[0] == rank]
         rng = np.random.default_rng()
-        rng.bit_generator.state = state["rng"]
+        rng.bit_generator.state = own["rng"]
         self._rng = rng
-        self._last_ids = [int(i) for i in state["last_ids"]]
-        self._served = int(state["served"])
-        self._hits = int(state["hits"])
-        self._prio_drops = int(state["prio_drops"])
+        self._last_ids = ids
+        self._served = int(own["served"])
+        self._hits = int(own["hits"])
+        self._prio_drops = int(own["prio_drops"])
 
     def stop(self) -> None:
         """Stop the inner source and recycle every buffer slot back to the
@@ -542,6 +692,14 @@ class HostLoopSource:
     architecture; ``next_batch`` then blocks until the learner queue
     yields a stacked batch, which it moves to the device.
 
+    ``mesh`` (the data mesh of ``--mesh-data N``, ``launch/mesh.py``):
+    each rank runs a pool of its own, ``num_actors / N`` actors feeding a
+    learner queue of B/N columns, seeded by ``sharding.rank_seed(seed,
+    rank)`` — PolyBeast's shape, where the reference splits one pool's
+    stacked batch over its devices. Neither path's batches are
+    replayable, so the two differ in scheduling only. ``batch_size``,
+    ``num_actors`` and ``frames_per_batch`` stay global.
+
     SourceState: thread scheduling (which actor's rollout lands in which
     batch slot) is not replayable, so the host path cannot promise
     bit-exact resume. ``state_dict`` records only the source kind; actors
@@ -550,7 +708,7 @@ class HostLoopSource:
 
     def __init__(self, env, agent: torch.nn.Module, *, num_actors: int,
                  unroll_length: int, batch_size: int, seed: int = 0,
-                 inference_timeout_ms: float = 5.0):
+                 inference_timeout_ms: float = 5.0, mesh=None):
         self._env = env
         self._actor = copy.deepcopy(agent).requires_grad_(False)
         self._device = next(agent.parameters()).device
@@ -559,6 +717,18 @@ class HostLoopSource:
         self.unroll_length = unroll_length
         self.batch_size = batch_size
         self.frames_per_batch = unroll_length * batch_size
+        self._local_actors, self._local_batch = num_actors, batch_size
+        if mesh is not None:
+            n = mesh.size
+            if batch_size % n != 0:
+                raise ValueError(f"batch {batch_size} not divisible by "
+                                 f"mesh size {n}")
+            if num_actors % n != 0:
+                raise ValueError(f"{num_actors} actors not divisible by "
+                                 f"mesh size {n}")
+            self._local_actors = num_actors // n
+            self._local_batch = batch_size // n
+            seed = sharding.rank_seed(seed, mesh.rank)
         self.seed = seed
         self._inference_timeout_ms = inference_timeout_ms
         self._pool = None
@@ -583,12 +753,12 @@ class HostLoopSource:
 
         self._sync(params)
         self.inference = DynamicBatcher(
-            max_batch_size=self.num_actors,
+            max_batch_size=self._local_actors,
             timeout_ms=self._inference_timeout_ms)
         self.learner_queue = BatchingQueue(
-            self.batch_size, batch_dim=1, max_items=_LEARNER_QUEUE_ITEMS)
+            self._local_batch, batch_dim=1, max_items=_LEARNER_QUEUE_ITEMS)
         self._pool = ActorPool(
-            lambda seed: HostEnv(self._env, seed), self.num_actors,
+            lambda seed: HostEnv(self._env, seed), self._local_actors,
             self.unroll_length, self.inference, self.learner_queue,
             seed=self.seed)
         self._inference_thread = start_inference_thread(
@@ -603,7 +773,7 @@ class HostLoopSource:
         if batch is None:
             raise TimeoutError(
                 f"no learner batch within {_BATCH_TIMEOUT_S}s "
-                f"({self.num_actors} actors, queue "
+                f"({self._local_actors} actors, queue "
                 f"size {self.learner_queue.size()})")
         return {k: torch.from_numpy(v).to(self._device)
                 for k, v in batch.items()}

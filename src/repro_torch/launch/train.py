@@ -33,11 +33,19 @@ continues from the latest complete checkpoint there, bit-identically to
 an uninterrupted run of the same ``--steps`` for the on-device actors and
 both LM modes.
 
+``--mesh-data N`` (rl-agent) learns data-parallel over N ranks, one
+process each on ``torch.distributed`` (``launch/mesh.py``: NCCL on CUDA,
+gloo on the CPU): rank 0 runs in this process and ranks 1..N-1 are
+spawned. Each rank acts on B/N columns (its own unroll stream, actor
+pool or replay partition) and the learner all-reduces the gradients, so
+every rank holds the same parameters; rank 0 alone prints and writes
+checkpoints. On CUDA, N may not exceed the visible GPUs (rank r runs on
+``cuda:r``); on the CPU any N runs. ``main`` returns rank 0's Runtime.
+
 Runs on CUDA unless ``--device cpu`` is given; without a GPU and without
-``--device cpu`` it raises. The reference's mesh and multi-host flags
-(``--mesh-data``, ``--mesh-model``, ``--coordinator``,
-``--num-processes``, ``--process-id``) are not ported yet and exit with an
-error that says so.
+``--device cpu`` it raises. The reference's 2-D mesh and multi-host flags
+(``--mesh-model``, ``--coordinator``, ``--num-processes``,
+``--process-id``) are not ported yet and exit with an error that says so.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode rl-agent \
@@ -52,6 +60,10 @@ Examples:
       --replay elite --replay-ratio 1.0 --steps 500
   PYTHONPATH=src python -m repro_torch.launch.train --actors host \
       --replay uniform --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh-data 2 \
+      --device cpu --steps 6 --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh-data 1 \
+      --env gridworld --agent deep --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm-rl \
       --arch qwen3-4b --reduced --steps 3 --batch 4 --seq 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
@@ -75,19 +87,23 @@ from repro_torch.configs.base import ImplContext, TrainConfig
 from repro_torch.core import learner as learner_lib
 from repro_torch.core import sources as sources_lib
 from repro_torch.core.runtime import Runtime
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.convnet import impala_deep, minatar_net
 from repro_torch.optim import make_optimizer
 
 # Flags of repro.launch.train that this package does not have yet.
 _NOT_PORTED_FLAGS = (
-    "--mesh-data", "--mesh-model", "--coordinator",
-    "--num-processes", "--process-id")
+    "--mesh-model", "--coordinator", "--num-processes", "--process-id")
 
 
-def build_rl_agent(args):
+def build_rl_agent(args, mesh=None):
+    """The rl-agent run: (device | sharded | host) actors, optionally
+    wrapped in replay, every combination with ``mesh`` (this rank's
+    ``DataMesh`` under ``--mesh-data``) composing as the reference's."""
     from repro_torch.envs import catch, gridworld
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     env = {"catch": catch, "gridworld": gridworld}[args.env].make()
     train_cfg = small_train(total_steps=args.steps,
                             learning_rate=args.lr or 2e-3,
@@ -106,7 +122,12 @@ def build_rl_agent(args):
         source = sources_lib.HostLoopSource(
             env, agent, num_actors=train_cfg.num_actors,
             unroll_length=train_cfg.unroll_length,
-            batch_size=train_cfg.batch_size, seed=train_cfg.seed)
+            batch_size=train_cfg.batch_size, seed=train_cfg.seed, mesh=mesh)
+    elif mesh is not None:
+        source = sources_lib.ShardedDeviceSource.for_env(
+            env, agent, unroll_length=train_cfg.unroll_length,
+            batch_size=train_cfg.batch_size, seed=train_cfg.seed + 1,
+            mesh=mesh, pipelined=not args.sync)
     else:
         source = sources_lib.DeviceSource.for_env(
             env, agent, unroll_length=train_cfg.unroll_length,
@@ -114,12 +135,16 @@ def build_rl_agent(args):
             pipelined=not args.sync)
     if args.replay != "off":
         from repro_torch.core import replay as replay_lib
+        buffer = replay_lib.make_buffer(args.replay, args.replay_capacity) \
+            if mesh is None else replay_lib.ShardedReplay(
+                args.replay, args.replay_capacity, mesh)
         source = sources_lib.ReplaySource(
-            source, replay_lib.make_buffer(args.replay, args.replay_capacity),
-            replay_ratio=args.replay_ratio, seed=train_cfg.seed,
+            source, buffer, replay_ratio=args.replay_ratio,
+            seed=train_cfg.seed,
             value_fn=lambda params, obs: params(obs).baseline)
     step_fn = learner_lib.make_train_step(opt, train_cfg,
-                                          vtrace_impl=args.vtrace_impl)
+                                          vtrace_impl=args.vtrace_impl,
+                                          mesh=mesh)
     opt_state = opt.init(list(agent.parameters()))
     extras = {"log_keys": ("reward_per_step", "loss")}
     return source, step_fn, agent, opt_state, extras
@@ -221,6 +246,10 @@ def _parser():
                    help="rollouts the replay buffer holds (host memory)")
     p.add_argument("--replay-ratio", type=float, default=1.0,
                    help="replayed:fresh columns per learner batch")
+    p.add_argument("--mesh-data", type=int, default=0, metavar="N",
+                   help="rl-agent: data-parallel learning over N ranks, one "
+                        "process each (NCCL on CUDA, at most the visible "
+                        "GPUs; gloo on the CPU); 0: one process, no mesh")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -254,15 +283,16 @@ def _checkpoint_meta(args):
     return meta
 
 
-def _resume(args, source, params, opt_state):
+def _resume(args, source, params, opt_state, print_fn=print):
     """Load the latest checkpoint under --checkpoint-dir into the learner's
-    module, the optimizer state and the source; returns (opt_state,
+    module, the optimizer state and the source (under a mesh, each rank
+    reads it and takes its own entries); returns (opt_state,
     start_step)."""
     from repro_torch import checkpoint as ckpt_lib
     path = ckpt_lib.latest_step_path(args.checkpoint_dir)
     if path is None:
-        print(f"--resume: no checkpoint under {args.checkpoint_dir}, "
-              "starting fresh")
+        print_fn(f"--resume: no checkpoint under {args.checkpoint_dir}, "
+                 "starting fresh")
         return opt_state, 0
     # Cheap pre-flight: the manifest's recorded config identity must match
     # this run before any shard is read.
@@ -285,9 +315,9 @@ def _resume(args, source, params, opt_state):
     source_state = ckpt_lib.restore_structured(path, "source")
     if source_state is not None:
         source.load_state_dict(source_state)
-    print(f"resumed {path} at step {start_step}"
-          + (" (source state restored)" if source_state is not None
-             else ""))
+    print_fn(f"resumed {path} at step {start_step}"
+             + (" (source state restored)" if source_state is not None
+                else ""))
     return restored["opt_state"], start_step
 
 
@@ -305,16 +335,38 @@ def main(argv=None) -> Runtime:
         p.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.resume and not args.checkpoint_dir:
         p.error("--resume requires --checkpoint-dir")
+    if args.mesh_data:
+        if args.mode != "rl-agent":
+            p.error(f"not ported yet: --mesh-data with --mode {args.mode} "
+                    "(the LM paths' meshes; --mode rl-agent takes it)")
+        device = resolve_device(args.device)    # no GPU: raises here
+        return mesh_lib.launch(_train, args.mesh_data, device=device,
+                               args=(args,))
+    return _train(None, args)
 
-    source, step_fn, params, opt_state, extras = _BUILDERS[args.mode](args)
+
+def _train(mesh, args) -> Runtime:
+    """Build, resume and run one process's part of the training: all of it
+    without a mesh, else this rank's (the body every rank runs)."""
+    print_fn = print if mesh is None or mesh.is_main else (lambda line: None)
+    if mesh is None:
+        built = _BUILDERS[args.mode](args)
+    else:
+        resolve_device(args.device)   # pins float32 in a spawned rank too
+        built = build_rl_agent(args, mesh)
+    source, step_fn, params, opt_state, extras = built
     start_step = 0
     if args.resume:
-        opt_state, start_step = _resume(args, source, params, opt_state)
+        opt_state, start_step = _resume(args, source, params, opt_state,
+                                        print_fn)
+    if mesh is not None:
+        sharding.broadcast_module(params, mesh)   # rank 0's params everywhere
     runtime = Runtime(source, step_fn, params, opt_state,
                       total_steps=args.steps, start_step=start_step,
                       checkpoint_dir=args.checkpoint_dir,
                       checkpoint_every=args.checkpoint_every,
-                      checkpoint_meta=_checkpoint_meta(args), **extras)
+                      checkpoint_meta=_checkpoint_meta(args),
+                      print_fn=print_fn, mesh=mesh, **extras)
     runtime.run()
     return runtime
 

@@ -81,7 +81,7 @@ def test_lm_modes_train_on_cpu(argv, label, keys, capsys):
     (["--mode", "lm", "--mesh-model", "2"], "not ported yet: --mesh-model"),
     (["--mode", "lm-rl", "--num-processes", "2"],
      "not ported yet: --num-processes"),
-    (["--mesh-data=2"], "not ported yet: --mesh-data"),
+    (["--mode", "lm", "--mesh-data=2"], "not ported yet: --mesh-data"),
     (["--no-such-flag"], "unrecognized"),
 ])
 def test_unported_options_exit_with_a_clear_error(argv, message, capsys):
