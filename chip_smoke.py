@@ -17,7 +17,9 @@ exits nonzero without printing a result:
               softcapped case, head_dim 64 and 256, and Zamba2's shared
               block (head_dim 80); decode attention at the serving shapes
               of both; then both at the LM trainers' shapes (phases 15,
-              16); each in bf16 and float32, with events and graph times,
+              16) and at Granite-3.0-1B-A400M's (phases 19–21: 16 query
+              heads over 8 KV heads, head_dim 64); each in bf16 and
+              float32, with events and graph times,
               bounds and the share of them reached, SDPA's events and
               graph times, the wrapper's host time per call, and the split
               count decode attention launched with; the SSD chunk at a
@@ -111,9 +113,33 @@ exits nonzero without printing a result:
               phase 8's CLI resume with --mesh-data 1, bitwise (learner
               and sharded source state; the learner state also the
               single-process run's)
+ 18. recurrent  the LSTM agent (TorchBeast's core_state API): 18a on
+              Catch, B 32, T 20, 3 unrolls on the card each followed by a
+              learner step through K1 (the learner's re-run of the cell
+              within 1e-5 of the behaviour logits, one launch a step);
+              18b at full width (84x84x4, 18 actions, T 80, B 32, Table
+              G.1 RMSProp), 3 learner steps on a seeded synthetic
+              recurrent rollout, the first loss against the plain-loop
+              V-trace within 1e-4; ms a step, peak memory
+ 19. granite  phase 9 for Granite-3.0-1B-A400M (MoE, 32 experts top-8):
+              4 prompts of 256 tokens (two 512-token routing groups) and
+              16 teacher-forced steps, kernel against plain path: logits
+              within 1e-3, and every token routed to the same set of
+              experts by both paths (tokens routed differently counted
+              and printed with their top-k margins)
+ 20. gserve   phase 10 for Granite in bf16: 24 requests of up to 64 tokens
+              in 8 slots, K2/K3 launches against layers x admissions and
+              layers x steps, and the MoE layers' mean dropped fraction
+              at decode and at admission
+ 21. glm_rl   phase 15 for Granite (K1 at (64, 8), K2, K3 exact; the
+              router's load-balance and z-loss of the trained weights),
+              with its float32 kernel-against-plain step; then 2 steps of
+              --mode lm at B 4, S 512 (K2 under remat, the router losses)
+              and its float32 step
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
-              phase 17's launches), then
+              phase 17's launches; recurrent_*: phase 18's; granite_*:
+              phases 20 and 21's), then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
 
@@ -174,18 +200,22 @@ BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
 # windowed and softcapped case, and the other two head_dims; then, after
 # those so that no earlier seed moves, the LM trainers' own: the lm-rl
 # prefill of 8 one-token prompts (bucket 1), its learner's forward (B 8,
-# S = --seq 64), and Zamba2's shared block in --mode lm (B 4, S 512)
+# S = --seq 64), and Zamba2's shared block in --mode lm (B 4, S 512);
+# last, Granite's (16 query heads over 8 KV heads, hd 64): a 256-token
+# prompt and a server admission of 8 prompts of 64
 FLASH_SHAPES = [(1, 32, 8, s, 128, 0, 0.0) for s in (1, 16, 256, 300, 512)] \
     + [(1, 32, 16, 4608, 128, 4096, 50.0), (1, 8, 2, 256, 64, 0, 0.0),
        (1, 8, 2, 256, 256, 0, 0.0), (1, 32, 32, 256, 80, 0, 0.0)] \
     + [(8, 32, 8, 1, 128, 0, 0.0), (8, 32, 8, 64, 128, 0, 0.0),
-       (4, 32, 32, 512, 80, 0, 0.0)]
+       (4, 32, 32, 512, 80, 0, 0.0)] \
+    + [(1, 16, 8, 256, 64, 0, 0.0), (8, 16, 8, 64, 64, 0, 0.0)]
 FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
 # (B, H, K, cap, hd, pos, window, softcap): the serving decode (8 slots at
 # their own positions in 576-slot caches), scalar pos, 4096-slot caches, a
 # ring buffer with window 32, softcap; Zamba2's shared block (no GQA, hd
-# 80, 8 slots of 320); last, the lm-rl episodes' 65-slot caches (--seq + 1:
-# ranges of 32, 32 and a ragged 1)
+# 80, 8 slots of 320); the lm-rl episodes' 65-slot caches (--seq + 1:
+# ranges of 32, 32 and a ragged 1); last, Granite's decode (16 query heads
+# over 8 KV heads, hd 64) in 576-slot caches
 DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 8, 576, 128, "scalar", 0, 0.0),
                  (8, 32, 8, 4096, 128, "rows", 0, 0.0),
@@ -193,7 +223,8 @@ DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 8, 32, 128, "ring", 32, 0.0),
                  (8, 32, 8, 576, 128, "rows", 0, 50.0),
                  (8, 32, 32, 320, 80, "rows", 0, 0.0),
-                 (8, 32, 8, 65, 128, "rows", 0, 0.0)]
+                 (8, 32, 8, 65, 128, "rows", 0, 0.0),
+                 (8, 16, 8, 576, 64, "rows", 0, 0.0)]
 DECODE_MAIN = ((8, 32, 8, 576, 128, "rows", 0, 0.0), "bfloat16")
 # (slices, L, N, P, heads, decay): heads > 1 is the model's layout, one B/C
 # group per batch row read by all its heads; da = -U(0, decay) per step.
@@ -248,6 +279,20 @@ ZAMBA_SERVE_ARGV = ["--arch", "zamba2-2.7b", "--attn-impl", "kernel",
                     "--ssd-impl", "kernel", "--requests", "24",
                     "--prompt-len", "256", "--gen-tokens", "64",
                     "--max-batch", "8"]
+# phase 18: learner steps of each part
+RECURRENT_STEPS = 3
+# phases 19-21: Granite-3.0-1B-A400M's server (24 requests of up to 64
+# tokens in 8 slots, as phase 10), lm-rl as phase 15, and 2 --mode lm
+# steps of 4 x 512 tokens (four 512-token MoE groups a layer)
+GRANITE = "granite-moe-1b-a400m"
+GSERVE_ARGV = ["--arch", GRANITE, "--attn-impl", "kernel", "--requests",
+               "24", "--prompt-len", "64", "--gen-tokens", "64",
+               "--max-batch", "8"]
+GLM_RL_ARGV = ["--mode", "lm-rl", "--arch", GRANITE, "--attn-impl",
+               "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
+               "64", "--steps", "4"]
+GLM_ARGV = ["--mode", "lm", "--arch", GRANITE, "--attn-impl", "kernel",
+            "--batch", "4", "--seq", "512", "--steps", "2"]
 # the LM trainers at full published width (phases 15, 16)
 LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
               "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
@@ -663,12 +708,91 @@ def kernel_layers(cfg):
     return cfg.num_layers - mamba + shared, mamba
 
 
-def phase_model(ops, arch, prompt_len):
+@contextlib.contextmanager
+def recorded_routes(log):
+    """Append every MoE routing decision made inside the block to the
+    list ``log`` as (expert indices, top-k margin): the gap between the
+    k-th and the (k+1)-th router probability of each token, which says
+    how near the token came to another expert."""
+    import torch
+
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(probs, k):
+        values, idx = route(probs, k)
+        ranked, _ = torch.sort(probs, dim=-1, descending=True, stable=True)
+        log.append((idx, ranked[..., k - 1] - ranked[..., k]))
+        return values, idx
+
+    moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def pinned_routes(recorded, flips):
+    """Route every MoE call inside the block as the calls ``recorded``
+    (``recorded_routes``' list, in the same order) did: the recorded
+    experts, weighted by this call's own probabilities of them. For the
+    tokens whose own top-k would be another set of experts, append the
+    recorded top-k margins to the list ``flips``."""
+    import torch
+
+    from repro_torch.models import moe
+    route, calls = moe.route, iter(recorded)
+
+    def pinned(probs, k):
+        idx, margin = next(calls)
+        _, own = route(probs, k)
+        moved = (own.sort(-1).values != idx.sort(-1).values).any(-1)
+        if bool(moved.any()):
+            flips.append(margin[moved])
+        return torch.gather(probs, -1, idx), idx
+
+    moe.route = pinned
+    try:
+        yield flips
+    finally:
+        moe.route = route
+
+
+def routing_flips(plain, kernel, layers, prompt_len):
+    """Tokens the two paths sent to different sets of experts, call by
+    call (the prefill's ``layers`` calls, then each decode step's), and
+    the count of tokens whose experts agree but come in another order.
+    The order within a token's top-k moves no token-slot in the capacity
+    count (a token takes each expert once) and only the order of its k
+    terms in the combine."""
+    flips, reordered = [], 0
+    for call, ((ia, ma), (ib, mb)) in enumerate(zip(plain, kernel)):
+        sa, sb = ia.sort(-1).values, ib.sort(-1).values
+        reordered += int(((ia != ib).any(-1) & (sa == sb).all(-1)).sum())
+        for pos in (sa != sb).any(-1).nonzero().tolist():
+            where = ("prefill" if call < layers
+                     else f"decode step {call // layers - 1}")
+            flips.append(dict(
+                layer=call % layers, where=where,
+                token=pos[-1] + pos[0] * ia.shape[-2],
+                prompt_len=prompt_len,
+                experts_plain=ia[tuple(pos)].tolist(),
+                experts_kernel=ib[tuple(pos)].tolist(),
+                margin_plain=float(ma[tuple(pos)]),
+                margin_kernel=float(mb[tuple(pos)])))
+    return flips, reordered
+
+
+def phase_model(ops, arch, prompt_len, phase="model"):
     """``arch`` at full width in float32 with weights from seed 0: 4
     prompts of ``prompt_len`` tokens and 16 teacher-forced decode steps
     through the kernel path (every kernel of the arch) and the plain path;
     logits must agree within MODEL_TOL, and the kernel path must launch
-    each kernel once per layer that runs it and call."""
+    each kernel once per layer that runs it and call. An MoE arch must
+    also route every token of both paths to the same set of experts: the
+    tokens routed differently are counted and printed with their top-k
+    margins (the gap between the k-th and the (k+1)-th probability)."""
     import numpy as np
     import torch
 
@@ -683,22 +807,25 @@ def phase_model(ops, arch, prompt_len):
     p, n, b = prompt_len, 16, 4
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, p + n))).cuda()
-    logits, launches, seconds = {}, {}, {}
+    logits, launches, seconds, routes = {}, {}, {}, {}
     with torch.no_grad():
         for impl in ("xla", "kernel"):
             icfg = dataclasses.replace(cfg, attn_impl=impl, ssd_impl=impl)
             ops.reset_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            h, cache = model_lib.prefill(params, tokens[:, :p], cfg=icfg,
-                                         cache_seq_len=p + n)
-            out = [model_lib.logits_from_hidden(params, icfg, h[:, -1:])]
-            del h
-            for t in range(p, p + n):
-                pos = torch.full((b,), t, dtype=torch.int32, device="cuda")
-                lg, _, cache = model_lib.serve_step(
-                    params, tokens[:, t:t + 1], cache, pos, cfg=icfg)
-                out.append(lg)
+            with recorded_routes([]) as routes[impl]:
+                h, _, cache = model_lib.prefill(
+                    params, tokens[:, :p], cfg=icfg, cache_seq_len=p + n)
+                out = [model_lib.logits_from_hidden(params, icfg,
+                                                    h[:, -1:])]
+                del h
+                for t in range(p, p + n):
+                    pos = torch.full((b,), t, dtype=torch.int32,
+                                     device="cuda")
+                    lg, _, cache = model_lib.serve_step(
+                        params, tokens[:, t:t + 1], cache, pos, cfg=icfg)
+                    out.append(lg)
             torch.cuda.synchronize()
             seconds[impl] = time.perf_counter() - t0
             logits[impl] = torch.cat(out, dim=1)
@@ -710,16 +837,32 @@ def phase_model(ops, arch, prompt_len):
     want = {"vtrace": 0, "flash_attention": attn,
             "decode_attention": attn * n,
             "ssd_chunk": mamba * -(-p // min(p, cfg.ssm_chunk))}
-    emit("model", arch=cfg.name, dtype=cfg.dtype,
+    moe_fields, flips = {}, []
+    if cfg.num_experts:
+        flips, reordered = routing_flips(routes["xla"], routes["kernel"],
+                                         cfg.num_layers, p)
+        margins = torch.cat([m.flatten() for _, m in routes["xla"]])
+        moe_fields = dict(
+            routing_calls=len(routes["xla"]),
+            routed_tokens=int(sum(i.shape[0] * i.shape[1]
+                                  for i, _ in routes["xla"])),
+            routing_flips=len(flips), flips=flips[:20],
+            reordered_tokens=reordered,
+            min_topk_margin=margins.min().item(),
+            median_topk_margin=margins.median().item())
+    emit(phase, arch=cfg.name, dtype=cfg.dtype,
          params=sum(x.numel() for x in params.parameters()),
          init_seconds=init_s, prompts=b, prompt_len=p,
          teacher_forced_steps=n, logits_shape=list(logits["kernel"].shape),
          max_abs_logit_diff=diff, tol=MODEL_TOL, seconds=seconds,
-         kernel_launches=launches["kernel"])
-    del params, logits
+         kernel_launches=launches["kernel"], **moe_fields)
+    del params, logits, routes
     torch.cuda.empty_cache()
     if not finite:
         raise AssertionError("full-width kernel-path logits not finite")
+    if flips:
+        raise AssertionError(f"{len(flips)} tokens routed to other experts "
+                             f"by the kernel path; first: {flips[0]}")
     if not diff <= MODEL_TOL:
         raise AssertionError(f"full-width kernel-path logits differ from the "
                              f"plain path by {diff:.3e} > {MODEL_TOL}")
@@ -1587,10 +1730,11 @@ def remat_step_launches(cfg, seq):
     return out
 
 
-def _lm_main(ops, argv):
+def _lm_main(ops, argv, probe=None):
     """``train.main(argv)`` with its kernel launches and peak device
     memory; then ``split_ms`` on the trained runtime (its medians and last
-    batch). The model and optimizer state are freed before it returns."""
+    batch), and ``probe(params, batch)``, whose dict joins the run's. The
+    model and optimizer state are freed before it returns."""
     import gc
 
     import torch
@@ -1606,6 +1750,7 @@ def _lm_main(ops, argv):
         raise AssertionError(f"{argv}: metrics not finite: {metrics}")
     frames, steps = runtime.frames, runtime.total_steps
     split, batch = split_ms(runtime, reps=LM_SPLIT_REPS)
+    probed = probe(runtime.params, batch) if probe is not None else {}
     del runtime
     gc.collect()
     torch.cuda.empty_cache()
@@ -1613,7 +1758,7 @@ def _lm_main(ops, argv):
     run = dict(argv=argv, seconds=seconds, fps_line=last, metrics=metrics,
                launches=launches, peak_mem_bytes=peak, frames=frames,
                split_reps=LM_SPLIT_REPS, **split, step_ms=step_ms,
-               frames_per_s=frames / steps / step_ms * 1e3)
+               frames_per_s=frames / steps / step_ms * 1e3, **probed)
     return run, batch, steps
 
 
@@ -1625,7 +1770,16 @@ def _lm_step_check(ops, arch, batch, make_step, want):
     nothing; the loss and the gradients' global norm must agree within
     MODEL_TOL, and every leaf's largest gradient difference within
     LM_GRAD_TOL of that leaf's largest gradient. The optimizer is a probe
-    that keeps the gradients and moves no weight."""
+    that keeps the gradients and moves no weight.
+
+    An MoE arch's kernel run takes the plain run's routing
+    (``pinned_routes``): a token whose top-k probabilities nearly tie may
+    pick another expert in the other run, and where capacity binds that
+    moves other tokens' slots, which changes an expert's gradient by a
+    large share of its own (a few tokens reach each). The bars then hold
+    the kernels' arithmetic alone; the tokens the kernel run would have
+    routed to another set of experts are counted, with their top-k
+    margins, in ``routing``."""
     import gc
 
     import torch
@@ -1637,9 +1791,11 @@ def _lm_step_check(ops, arch, batch, make_step, want):
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
     params = model_lib.init(cfg, seed=0, device="cuda")
     names = [n for n, _ in params.named_parameters()]
-    runs, grads = {}, {}
-    for path, impl, vtrace in (("kernel", "kernel", "kernel"),
-                               ("plain", "xla", "scan")):
+    runs, grads, routes, flips = {}, {}, [], []
+    routing = {"plain": lambda: recorded_routes(routes),
+               "kernel": lambda: pinned_routes(routes, flips)}
+    for path, impl, vtrace in (("plain", "xla", "scan"),
+                               ("kernel", "kernel", "kernel")):
         def keep(g, state, plist, step, path=path):
             grads[path] = list(g)
             g.clear()
@@ -1650,7 +1806,9 @@ def _lm_step_check(ops, arch, batch, make_step, want):
         ops.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, metrics = make_step(icfg, opt, vtrace)(params, {}, 0, batch)
+        with routing[path]():
+            _, _, metrics = make_step(icfg, opt, vtrace)(params, {}, 0,
+                                                         batch)
         torch.cuda.synchronize()
         runs[path] = dict(loss=float(metrics["loss"]),
                           grad_norm=float(optimizers.global_norm(
@@ -1659,6 +1817,17 @@ def _lm_step_check(ops, arch, batch, make_step, want):
                           launches=ops.stats())
         del metrics
         gc.collect()
+    routing_report = None
+    if cfg.num_experts:
+        margins = torch.cat([m for m in flips]) if flips else None
+        routing_report = dict(
+            pinned=True, calls=len(routes),
+            routed_tokens=int(sum(i.shape[0] * i.shape[1]
+                                  for i, _ in routes)),
+            flips=0 if margins is None else margins.numel(),
+            flip_margins=([] if margins is None
+                          else sorted(margins.tolist())[:20]))
+    del routes, flips
     worst = dict(rel=0.0, leaf=None, abs=0.0, scale=0.0)
     for name, gk, gp in zip(names, grads["kernel"], grads["plain"]):
         diff = (gk - gp).abs().max().item()
@@ -1690,25 +1859,53 @@ def _lm_step_check(ops, arch, batch, make_step, want):
     return dict(dtype="float32", tol=MODEL_TOL, grad_tol=LM_GRAD_TOL,
                 kernel=k, plain=p, loss_diff=abs(k["loss"] - p["loss"]),
                 grad_norm_diff=abs(k["grad_norm"] - p["grad_norm"]),
-                worst_leaf=worst)
+                worst_leaf=worst, routing=routing_report)
 
 
-def phase_lm_rl(ops):
-    """``--mode lm-rl`` at full Qwen3-4B width through the entry point
-    (bf16 activations on float32 weights, AdamW, the settings of
-    ``train.build_lm_rl``): 4 steps of 8 episodes of 64 tokens, each
+def _arg(argv, flag):
+    return argv[argv.index(flag) + 1]
+
+
+def router_probe(arch, tokens_of):
+    """A ``_lm_main`` probe: the MoE router's load-balance and z-loss
+    (summed over layers, as the learner's loss takes them) of the trained
+    weights on the run's last batch, through the plain attention path."""
+    def probe(params, batch):
+        import torch
+
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as model_lib
+
+        cfg = dataclasses.replace(get_config(arch), attn_impl="xla")
+        with torch.no_grad():
+            _, aux, _ = model_lib.forward(params, tokens_of(batch), cfg=cfg)
+        lb, zl, dropped = (float(a) for a in aux)
+        if not all(math.isfinite(v) for v in (lb, zl, dropped)):
+            raise AssertionError(f"{arch} router aux not finite: "
+                                 f"{lb}, {zl}, {dropped}")
+        return dict(load_balance=lb, z_loss=zl, dropped_frac_sum=dropped)
+    return probe
+
+
+def phase_lm_rl(ops, argv=LM_RL_ARGV, phase="lm_rl"):
+    """``--mode lm-rl`` at full width through the entry point (Qwen3-4B
+    by default; bf16 activations on float32 weights, AdamW, the settings
+    of ``train.build_lm_rl``): 4 steps of 8 episodes of 64 tokens, each
     generated by the decode session (flash attention in the prefill,
     decode attention in every layer of every step) and learned from with
     the flash-attention kernel under autograd (twice a layer: remat) and
     the V-trace kernel. Then the kernel-against-plain check of one float32
-    step on the last batch that ``split_ms`` drew. Returns the main run's
-    launches."""
+    step on the last batch that ``split_ms`` drew. An MoE arch also
+    reports its router losses. Returns the main run's launches."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.core import learner, sources
 
-    run, batch, steps = _lm_main(ops, LM_RL_ARGV)
-    t, b = LM_RL_SHAPE
-    cfg = get_config("qwen3-4b")
+    arch = _arg(argv, "--arch")
+    cfg = get_config(arch)
+    probe = router_probe(arch, lambda b: b["obs"].T[:, :-1]) \
+        if cfg.num_experts else None
+    run, batch, steps = _lm_main(ops, argv, probe)
+    t, b = int(_arg(argv, "--seq")), int(_arg(argv, "--batch"))
     layers, _ = kernel_layers(cfg)
     learner_launches = {**remat_step_launches(cfg, t), "vtrace": 1}
     want = {"vtrace": steps, "ssd_chunk": 0,
@@ -1720,31 +1917,35 @@ def phase_lm_rl(ops):
         return sources.lm_rl_step_from_rollout(learner.make_lm_train_step(
             cfg, opt, loss_cfg, loss_chunk=t, vtrace_impl=vtrace))
 
-    check = _lm_step_check(ops, "qwen3-4b", batch, make_step,
-                           learner_launches)
-    emit("lm_rl", arch="qwen3-4b", T=t, B=b, want_launches=want,
-         check=check, **run)
+    check = _lm_step_check(ops, arch, batch, make_step, learner_launches)
+    emit(phase, arch=arch, T=t, B=b, want_launches=want, check=check,
+         **run)
     if run["launches"] != want:
-        raise AssertionError(f"lm-rl launches {run['launches']}, want "
+        raise AssertionError(f"{phase} launches {run['launches']}, want "
                              f"{want} ({layers} layers, {steps} steps)")
     return run["launches"]
 
 
-def phase_lm(ops):
-    """``--mode lm`` at full Zamba2-2.7B width through the entry point:
-    4 pretraining steps of 4 x 512 tokens on the synthetic corpus (bf16
-    activations on float32 weights, AdamW), the SSD chunk kernel in every
-    Mamba2 layer (two chunks a sequence) and flash attention in the shared
-    block, both under autograd and run again by remat's recomputation.
-    Then the kernel-against-plain check of one float32 step on the last
-    batch that ``split_ms`` drew. Returns the main run's launches."""
+def phase_lm(ops, argv=LM_ARGV, phase="lm"):
+    """``--mode lm`` at full width through the entry point (Zamba2-2.7B by
+    default): pretraining steps of 4 x 512 tokens on the synthetic corpus
+    (bf16 activations on float32 weights, AdamW), the SSD chunk kernel in
+    every Mamba2 layer (two chunks a sequence) and flash attention in
+    every attention layer, both under autograd and run again by remat's
+    recomputation. Then the kernel-against-plain check of one float32
+    step on the last batch that ``split_ms`` drew. An MoE arch also
+    reports its router losses. Returns the main run's launches."""
     from repro_torch.configs import get_config
     from repro_torch.core import learner
 
-    run, batch, steps = _lm_main(ops, LM_ARGV)
+    arch = _arg(argv, "--arch")
+    cfg = get_config(arch)
+    probe = router_probe(arch, lambda b: b["tokens"][:, :-1]) \
+        if cfg.num_experts else None
+    run, batch, steps = _lm_main(ops, argv, probe)
     launches = run["launches"]
-    seq = int(LM_ARGV[LM_ARGV.index("--seq") + 1])
-    per_step = remat_step_launches(get_config("zamba2-2.7b"), seq)
+    seq = int(_arg(argv, "--seq"))
+    per_step = remat_step_launches(cfg, seq)
     want = {"vtrace": 0, "decode_attention": 0,
             **{k: v * steps for k, v in per_step.items()}}
 
@@ -1752,13 +1953,12 @@ def phase_lm(ops):
         del vtrace
         return learner.make_lm_pretrain_step(cfg, opt, loss_chunk=seq)
 
-    check = _lm_step_check(ops, "zamba2-2.7b", batch, make_step, per_step)
-    emit("lm", arch="zamba2-2.7b", seq=seq,
-         tokens_per_step=run["frames"] // steps,
+    check = _lm_step_check(ops, arch, batch, make_step, per_step)
+    emit(phase, arch=arch, seq=seq, tokens_per_step=run["frames"] // steps,
          tokens_per_s=run.pop("frames_per_s"), want_launches=want,
          check=check, **run)
     if launches != want:
-        raise AssertionError(f"lm launches {launches}, want {want}")
+        raise AssertionError(f"{phase} launches {launches}, want {want}")
     return launches
 
 
@@ -2060,6 +2260,190 @@ def phase_dp_resume(ops, workdir):
 
 
 
+# ---------------------------------------------------------------------------
+# 18. the recurrent agent; 19-21. Granite-3.0-1B-A400M (MoE) at full width
+
+
+def recurrent_batch(gen, t, b, core):
+    """``synthetic_batch`` with the recurrent learner's inputs: pre_done
+    (T+1, B), the done flags shifted by one step after a carried first
+    row, and a core_state (h, c) drawn from ``gen``."""
+    import torch
+
+    batch = synthetic_batch(gen, t, b)
+    first = torch.rand((1, b), generator=gen, device="cuda") < 0.01
+    batch["pre_done"] = torch.cat([first, batch["done"]])
+    batch["core_state"] = tuple(
+        0.1 * torch.randn((b, core), generator=gen, device="cuda")
+        for _ in range(2))
+    return batch
+
+
+def relearned_logits(agent, rollout):
+    """The recurrent learner's re-run of a rollout's T+1 steps from its
+    initial core_state (the torso once, the cell in a loop)."""
+    import torch
+
+    with torch.no_grad():
+        feats = agent.features(rollout["obs"])
+        state, logits = rollout["core_state"], []
+        for t in range(feats.shape[0]):
+            out = agent.cell(feats[t], state, rollout["pre_done"][t])
+            state = out.core_state
+            logits.append(out.policy_logits)
+    return torch.stack(logits)
+
+
+def phase_recurrent(ops):
+    """18a: the recurrent agent (MinAtar torso, LSTM core 128) on Catch at
+    B 32, T 20: 3 unrolls on the card, each followed by a learner step
+    through K1; every loss finite, the learner's re-run reproducing the
+    behaviour logits within VTRACE_TOL, one K1 launch a step. 18b: the
+    same agent on full-width inputs (84x84x4, 18 actions, T 80, B 32,
+    Table G.1 RMSProp): 3 learner steps on a seeded synthetic recurrent
+    rollout, the first loss against the plain-loop V-trace's within 1e-4
+    (phase 4's bar). Returns K1's launches and (T, B) of each."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs.atari_impala import (NUM_ACTIONS, OBS_SHAPE,
+                                                  TRAIN, small_train)
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core import rollout as rollout_lib
+    from repro_torch.envs import catch
+    from repro_torch.models.convnet import minatar_lstm_net
+    from repro_torch.optim import make_optimizer
+
+    out = {}
+    # 18a: Catch, unroll + learner
+    t, b = TRAINER_SHAPE
+    env = catch.make()
+    tc = small_train(unroll_length=t, batch_size=b, learning_rate=2e-3,
+                     total_steps=RECURRENT_STEPS)
+    agent = minatar_lstm_net(env.obs_shape, env.num_actions,
+                             generator=torch.Generator().manual_seed(0))
+    agent = agent.cuda()
+    opt = make_optimizer(tc)
+    opt_state = opt.init(list(agent.parameters()))
+    step_fn = learner_lib.make_recurrent_train_step(opt, tc)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    env_state, obs = rollout_lib.env_reset_batch(env, gen, b, "cuda")
+    unroll = rollout_lib.make_recurrent_unroll(env, t)
+    carry = unroll.initial_carry(agent, env_state, obs)
+    losses, errs, step_ms = [], [], []
+    ops.reset_stats()
+    for step in range(RECURRENT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, ro = unroll(agent, carry, gen)
+        errs.append((relearned_logits(agent, ro)[:t]
+                     - ro["behavior_logits"]).abs().max().item())
+        agent, opt_state, metrics = step_fn(agent, opt_state, step, ro)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.stats()["vtrace"]
+    emit("recurrent", part="catch", T=t, B=b, core=agent.core_size,
+         losses=losses, relearn_max_abs_err=errs, tol=VTRACE_TOL,
+         step_ms=step_ms, vtrace_launches=launches)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"18a: recurrent loss not finite: {losses}")
+    if not max(errs) <= VTRACE_TOL:
+        raise AssertionError(f"18a: the learner's re-run is {max(errs):.3e} "
+                             "off the behaviour logits")
+    if launches != RECURRENT_STEPS:
+        raise AssertionError(f"18a: {launches} V-trace launches for "
+                             f"{RECURRENT_STEPS} steps")
+    out["catch"] = dict(launches=launches, shape=[t, b])
+    del agent, opt_state, carry, ro
+
+    # 18b: full width, synthetic recurrent rollouts
+    t, b = TRAIN.unroll_length, TRAIN.batch_size
+    agent = minatar_lstm_net(OBS_SHAPE, NUM_ACTIONS,
+                             generator=torch.Generator().manual_seed(0))
+    agent = agent.cuda()
+    batch = recurrent_batch(torch.Generator(device="cuda").manual_seed(0),
+                            t, b, agent.core_size)
+    opt = make_optimizer(TRAIN)
+    scan_agent = copy.deepcopy(agent)
+    _, _, scan_metrics = learner_lib.make_recurrent_train_step(
+        opt, TRAIN, vtrace_impl="scan")(
+        scan_agent, opt.init(list(scan_agent.parameters())), 0, batch)
+    scan_loss = float(scan_metrics["loss"])
+    del scan_agent
+    step_fn = learner_lib.make_recurrent_train_step(opt, TRAIN)
+    opt_state = opt.init(list(agent.parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_stats()
+    losses, step_ms = [], []
+    for step in range(RECURRENT_STEPS):
+        t0 = time.perf_counter()
+        agent, opt_state, metrics = step_fn(agent, opt_state, step, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = ops.stats()["vtrace"]
+    peak = torch.cuda.max_memory_allocated()
+    emit("recurrent", part="full_width", obs=list(OBS_SHAPE),
+         actions=NUM_ACTIONS, T=t, B=b, core=agent.core_size,
+         params=sum(x.numel() for x in agent.parameters()), losses=losses,
+         scan_loss=scan_loss, step_ms=step_ms,
+         steady_step_ms=statistics.median(step_ms[1:]),
+         vtrace_launches=launches, peak_mem_bytes=peak)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"18b: recurrent loss not finite: {losses}")
+    if not math.isclose(losses[0], scan_loss, rel_tol=1e-4, abs_tol=1e-4):
+        raise AssertionError(f"18b: kernel-path loss {losses[0]} != "
+                             f"scan-path loss {scan_loss}")
+    if launches != RECURRENT_STEPS:
+        raise AssertionError(f"18b: {launches} V-trace launches for "
+                             f"{RECURRENT_STEPS} steps")
+    out["full_width"] = dict(launches=launches, shape=[t, b])
+    del agent, opt_state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_moe_aux(log):
+    """Append (the tokens' shape, dropped fraction) of every MoE layer
+    call inside the block to the list ``log``."""
+    from repro_torch.models import moe
+    apply = moe.moe_apply
+
+    def recording(params, x, cfg):
+        out, aux = apply(params, x, cfg)
+        log.append((tuple(x.shape[:2]), aux.dropped_frac))
+        return out, aux
+
+    moe.moe_apply = recording
+    try:
+        yield log
+    finally:
+        moe.moe_apply = apply
+
+
+def phase_gserve(ops):
+    """20: the Granite server at full width through ``serve.main``
+    (phase 10's check: every request served and echoed, K2 once a layer
+    an admission and K3 once a layer a step), and the mean fraction of
+    token-slots the MoE layers dropped at decode (8 slots, idle ones
+    included, through 32 experts of capacity 4) and at admission."""
+    import torch
+
+    with recorded_moe_aux([]) as log:
+        launches = phase_serve(ops, GSERVE_ARGV)
+    decode = [d for shape, d in log if shape[1] == 1]
+    prefill = [d for shape, d in log if shape[1] > 1]
+    emit("gserve", argv=GSERVE_ARGV, moe_calls=len(log),
+         decode_dropped_frac_mean=torch.stack(decode).mean().item(),
+         prefill_dropped_frac_mean=(torch.stack(prefill).mean().item()
+                                    if prefill else None))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2210,6 +2594,16 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as workdir:
         dp_resume_launches = phase_dp_resume(ops, workdir)
 
+    # 18. the recurrent agent: Catch unroll + learner, then full width
+    recurrent_launches = phase_recurrent(ops)
+
+    # 19. full-width Granite-3.0-1B-A400M: kernel path against the plain
+    # path, routing included; 20. its server; 21. its lm-rl and lm runs
+    phase_model(ops, GRANITE, 256, phase="granite")
+    gserve_launches = phase_gserve(ops)
+    glm_rl_launches = phase_lm_rl(ops, GLM_RL_ARGV, phase="glm_rl")
+    glm_launches = phase_lm(ops, GLM_ARGV, phase="glm")
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -2250,7 +2644,13 @@ def main():
         "dp_trainer_launches": dp_trainer_launches["trainer"],
         "dp_replay_launches": dp_trainer_launches["replay"],
         "dp_host_launches": dp_trainer_launches["host"],
-        "dp_resume_launches": dp_resume_launches}]
+        "dp_resume_launches": dp_resume_launches,
+        "recurrent_launches": recurrent_launches["catch"]["launches"],
+        "recurrent_shape": recurrent_launches["catch"]["shape"],
+        "recurrent_full_launches":
+        recurrent_launches["full_width"]["launches"],
+        "recurrent_full_shape": recurrent_launches["full_width"]["shape"],
+        "granite_lm_rl_launches": glm_rl_launches["vtrace"]}]
     for name, replaces, all_rows, (shape, dtype) in [
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",
              flash_rows, FLASH_MAIN),
@@ -2264,8 +2664,11 @@ def main():
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": serve_launches[name],
             "lm_rl_launches": lm_rl_launches[name],
-            **({"lm_launches": lm_launches[name]}
+            **({"lm_launches": lm_launches[name],
+                "granite_lm_launches": glm_launches[name]}
                if name == "flash_attention" else {}),
+            "granite_serve_launches": gserve_launches[name],
+            "granite_lm_rl_launches": glm_rl_launches[name],
             "max_abs_err": max(errs.values()),
             "max_abs_err_bf16": errs["bfloat16"],
             "max_abs_err_f32": errs["float32"],

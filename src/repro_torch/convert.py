@@ -10,14 +10,21 @@ LM decoders. The reference's tree (``models.model.init(...)[0]``) stacks
 every block leaf on a leading ``num_groups`` axis; the port's
 ``models.model.init`` keeps one node per group (``blocks.<g>.l0.mixer.wq``).
 The converter unstacks and restacks that axis and keeps every leaf's
-layout, so ``wq`` stays (d, H, hd), ``wo`` (H, hd, d) and a Mamba2 layer's
-``conv_w`` (W, C). The Zamba2 hybrids' shared block (``shared.l0...``) is
-not stacked in either package and goes across as it is.
+layout, so ``wq`` stays (d, H, hd), ``wo`` (H, hd, d), a Mamba2 layer's
+``conv_w`` (W, C), and an MoE layer's ``router`` (d, E), ``wi``/``wg``
+(E, d, f) and ``wo`` (E, f, d). The Zamba2 hybrids' shared block
+(``shared.l0...``) is not stacked in either package and goes across as it
+is.
+
+LM checkpoints. ``LMCheckpointLayout`` maps a learner checkpoint's leaves
+(the parameters and the optimizer state, whose lists follow the
+parameters' order) to the reference's keys and back, so either package
+resumes the other's ``--mode lm`` / ``--mode lm-rl`` checkpoints.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -131,3 +138,81 @@ def lm_state_dict_to_jax(state_dict) -> Dict[str, Any]:
             node = node.setdefault(key, {})
         node[leaf] = np.stack([by_group[g] for g in sorted(by_group)])
     return root
+
+
+class LMCheckpointLayout:
+    """The reference's on-disk layout of an LM learner's checkpoint.
+
+    The port's learner tree is {"params": state_dict, "opt_state": {slot:
+    [tensor per parameter]}}, whose leaves the checkpoint names
+    ``params/blocks.3.l0.mixer.wq`` and ``opt_state/mu/#17``. The
+    reference's is {"params": tree, "opt_state": {slot: tree}} (AdamW:
+    {"mu": tree, "nu": tree}), every block leaf stacked on the group axis:
+    ``params/blocks/l0/mixer/wq`` and ``opt_state/mu/blocks/l0/mixer/wq``.
+    ``names`` are the parameter names in the order of the optimizer
+    state's lists (``params.named_parameters()``)."""
+
+    def __init__(self, names: Sequence[str]):
+        self.names = list(names)
+
+    def _where(self, key: str) -> Tuple[str, Any]:
+        """(the reference's key, the group index or None) of a port key."""
+        tree, _, rest = key.partition("/")
+        if tree == "params":
+            prefix, name = tree, rest
+        else:
+            slot, index = rest.split("/")
+            prefix, name = f"{tree}/{slot}", self.names[int(index[1:])]
+        if name.startswith("blocks."):
+            _, group, sub = name.split(".", 2)
+            return f"{prefix}/blocks/{sub.replace('.', '/')}", int(group)
+        return f"{prefix}/{name.replace('.', '/')}", None
+
+    def to_disk(self, leaves: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The port's flat leaves (host arrays) under the reference's
+        keys, block leaves stacked. Consumes ``leaves`` as it goes, so
+        the host holds one copy of the state and one stacked leaf."""
+        out: Dict[str, np.ndarray] = {}
+        stacked: Dict[str, Dict[int, np.ndarray]] = {}
+        for key in list(leaves):
+            where, group = self._where(key)
+            if group is None:
+                out[where] = leaves.pop(key)
+            else:
+                stacked.setdefault(where, {})[group] = leaves.pop(key)
+        for where in list(stacked):
+            by_group = stacked.pop(where)
+            out[where] = np.stack([by_group[g] for g in sorted(by_group)])
+        return out
+
+    def template(self, shapes: Sequence[Tuple[str, Sequence[int]]]):
+        """A tree in the reference's layout whose leaves carry only the
+        shapes (zero-stride views), from the port's (key, shape) pairs:
+        the ``like`` that ``checkpoint.restore`` checks a checkpoint
+        against before it reads any array."""
+        groups: Dict[str, List[Any]] = {}
+        for key, shape in shapes:
+            where, group = self._where(key)
+            groups.setdefault(where, []).append((group, tuple(shape)))
+        root: Dict[str, Any] = {}
+        for where, entries in groups.items():
+            shape = entries[0][1]
+            if entries[0][0] is not None:
+                shape = (len(entries),) + shape
+            *path, leaf = where.split("/")
+            node = root
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = np.broadcast_to(np.zeros((), np.float32), shape)
+        return root
+
+    def from_disk(self, flat: Dict[str, np.ndarray],
+                  keys: Sequence[str]) -> Dict[str, np.ndarray]:
+        """The arrays of the port's ``keys`` from a checkpoint's flat
+        leaves in the reference's layout (a group's slice of a stacked
+        leaf is a view)."""
+        out = {}
+        for key in keys:
+            where, group = self._where(key)
+            out[key] = flat[where] if group is None else flat[where][group]
+        return out

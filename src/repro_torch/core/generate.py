@@ -80,7 +80,7 @@ def _session_prefill(params, prompt, gens, temp, *, cfg, cache_seq_len,
     ``_session_step``'s.
     """
     b, p = prompt.shape
-    hidden, cache = model_lib.prefill(params, prompt, cfg=cfg,
+    hidden, _, cache = model_lib.prefill(params, prompt, cfg=cfg,
                                       cache_seq_len=cache_seq_len)
     if last_index is None:
         li = torch.full((b,), p - 1, dtype=torch.int64, device=prompt.device)

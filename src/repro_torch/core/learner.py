@@ -27,6 +27,13 @@ def _grads(loss, plist):
                                     materialize_grads=True))
 
 
+def _router_loss(cfg, aux):
+    """The MoE router's auxiliary terms of an LM loss."""
+    load_balance, z_loss, _ = aux
+    return cfg.router_aux_weight * load_balance \
+        + cfg.router_z_weight * z_loss
+
+
 def make_train_step(opt, train_cfg, *, vtrace_impl="kernel", mesh=None):
     """IMPALA learner step over a rollout batch.
 
@@ -107,6 +114,59 @@ def make_train_step(opt, train_cfg, *, vtrace_impl="kernel", mesh=None):
     return train_step
 
 
+def make_recurrent_train_step(opt, train_cfg, *, vtrace_impl="kernel",
+                              mesh=None):
+    """IMPALA learner step for recurrent agents (``MinatarLSTMNet``): it
+    re-runs the LSTM over the unroll's T+1 observations from the stored
+    initial ``core_state`` (TorchBeast's learner does exactly this), with
+    ``pre_done[t]`` zeroing the state exactly where the actor did, then
+    applies V-trace as ``make_train_step``. The torso carries no state, so
+    it runs once over all (T+1)·B observations; only the cell loops.
+
+    batch: ``make_train_step``'s plus pre_done (T+1, B) and core_state
+    (h, c). metrics: loss, pg_loss, entropy_loss, reward_per_step, as the
+    reference's. vtrace_impl and mesh as in ``make_train_step``.
+    """
+
+    def loss_fn(agent, batch):
+        feats = agent.features(batch["obs"])           # (T+1, B, core)
+        core_state = batch["core_state"]
+        logits, baselines = [], []
+        for t in range(feats.shape[0]):
+            out = agent.cell(feats[t], core_state, batch["pre_done"][t])
+            core_state = out.core_state
+            logits.append(out.policy_logits)
+            baselines.append(out.baseline)
+        t = batch["action"].shape[0]
+        discounts = (~batch["done"]).float() * train_cfg.discount
+        return losses.impala_loss_from_logits(
+            torch.stack(logits[:t]), batch["behavior_logits"],
+            batch["action"], batch["reward"], discounts,
+            torch.stack(baselines[:t]), baselines[t].detach(),
+            baseline_cost=train_cfg.baseline_cost,
+            entropy_cost=train_cfg.entropy_cost,
+            clip_rho=train_cfg.vtrace_rho_clip,
+            clip_c=train_cfg.vtrace_c_clip,
+            vtrace_impl=vtrace_impl)
+
+    def train_step(params, opt_state, step, batch):
+        plist = list(params.parameters())
+        loss_out = loss_fn(params, batch)
+        grads = _grads(loss_out.total, plist)
+        if mesh is not None:
+            grads = sharding.replicate(grads, mesh)
+        opt_state = opt.step(grads, opt_state, plist, step)
+        metrics = {"loss": loss_out.total.detach(),
+                   "pg_loss": loss_out.pg_loss.detach(),
+                   "entropy_loss": loss_out.entropy_loss.detach(),
+                   "reward_per_step": batch["reward"].mean()}
+        if mesh is not None:
+            metrics = sharding.mean_scalars(metrics, mesh)
+        return params, opt_state, metrics
+
+    return train_step
+
+
 def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
                        vtrace_impl="kernel"):
     """IMPALA learner step for LLM policies.
@@ -124,13 +184,15 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
       reward            (B, S) float32
       done              (B, S) bool
 
-    The reference adds the MoE router's auxiliary terms to the loss; they
-    are zero without MoE, which is not ported (ROADMAP item 16).
+    The loss adds the MoE router's auxiliary terms, ``router_aux_weight``
+    times the load-balance loss plus ``router_z_weight`` times the z-loss
+    (zero without MoE); the reported ``loss`` leaves them out, as the
+    reference's does.
     """
     def loss_fn(params, batch):
         tokens = batch["tokens"]          # (B, S+1); model sees first S
         # hidden[t] is the state after consuming token t => predicts t+1.
-        hidden, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg)
+        hidden, aux, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg)
         logprob, entropy = losses.chunked_logprob_entropy(
             hidden, model_lib.unembed_matrix(params, cfg), tokens[:, 1:],
             chunk=loss_chunk, final_softcap=cfg.final_logit_softcap)
@@ -142,7 +204,7 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
             return x.transpose(0, 1)
 
         discounts = (~batch["done"]).float() * train_cfg.discount
-        return losses.impala_loss_from_logprobs(
+        loss_out = losses.impala_loss_from_logprobs(
             tm(logprob), tm(entropy), tm(batch["behavior_logprob"]),
             tm(batch["reward"]), tm(discounts), tm(values_all), bootstrap,
             baseline_cost=train_cfg.baseline_cost,
@@ -150,12 +212,12 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
             clip_rho=train_cfg.vtrace_rho_clip,
             clip_c=train_cfg.vtrace_c_clip,
             vtrace_impl=vtrace_impl)
+        return loss_out.total + _router_loss(cfg, aux), loss_out
 
     def train_step(params, opt_state, step, batch):
         plist = list(params.parameters())
-        loss_out = loss_fn(params, batch)
-        opt_state = opt.step(_grads(loss_out.total, plist), opt_state,
-                             plist, step)
+        total, loss_out = loss_fn(params, batch)
+        opt_state = opt.step(_grads(total, plist), opt_state, plist, step)
         metrics = {
             "loss": loss_out.total.detach(),
             "pg_loss": loss_out.pg_loss.detach(),
@@ -171,15 +233,18 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
 def make_lm_pretrain_step(cfg, opt, *, loss_chunk=512):
     """Plain next-token-prediction step (the LM pretraining driver; also
     the non-RL baseline). batch: {"tokens": (B, S+1) int}. Impls come from
-    the config as in ``make_lm_train_step``."""
+    the config as in ``make_lm_train_step``; the gradient includes the
+    router's auxiliary terms as there, the reported ``loss`` is the
+    cross-entropy alone."""
     def train_step(params, opt_state, step, batch):
         plist = list(params.parameters())
         tokens = batch["tokens"]
-        hidden, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg)
+        hidden, aux, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg)
         loss = losses.chunked_softmax_xent(
             hidden, model_lib.unembed_matrix(params, cfg), tokens[:, 1:],
             chunk=loss_chunk, final_softcap=cfg.final_logit_softcap)
-        opt_state = opt.step(_grads(loss, plist), opt_state, plist, step)
+        opt_state = opt.step(_grads(loss + _router_loss(cfg, aux), plist),
+                             opt_state, plist, step)
         return params, opt_state, {"loss": loss.detach()}
 
     return train_step

@@ -57,6 +57,54 @@ def make_unroll(env, unroll_length: int):
     return unroll
 
 
+def make_recurrent_unroll(env, unroll_length: int):
+    """Recurrent-agent unroll (TorchBeast's core_state contract): the actor
+    threads the LSTM state through the episode and resets it on done, and
+    the rollout records the INITIAL core_state so the learner can re-run
+    the recurrence from the same point.
+
+    Build unroll(agent, carry, gen) -> (carry, rollout) with carry =
+    (env_state, obs, core_state, done); ``unroll.initial_carry(agent,
+    env_state, obs)`` starts one (a zero state, no episode ended). The
+    rollout adds to ``make_unroll``'s:
+      pre_done    (T+1, B) bool  obs[t] starts a fresh episode (the agent
+                                 zeroes its state there)
+      core_state  (h, c), each (B, core): the state at the unroll's start
+    """
+
+    def initial_carry(agent, env_state, obs):
+        b = obs.shape[0]
+        return (env_state, obs, agent.initial_state(b),
+                torch.zeros((b,), dtype=torch.bool, device=obs.device))
+
+    def unroll(agent, carry, gen):
+        env_state, obs, core_state, done = carry
+        initial_core = core_state
+        steps = {"obs": [], "pre_done": [], "action": [],
+                 "behavior_logits": [], "reward": [], "done": []}
+        with torch.no_grad():
+            for _ in range(unroll_length):
+                out = agent(obs, core_state, done)
+                action = sample_actions(out.policy_logits, gen)
+                steps["obs"].append(obs)
+                steps["pre_done"].append(done)
+                env_state, obs, reward, done = env.step(env_state, action,
+                                                        gen)
+                steps["action"].append(action.int())
+                steps["behavior_logits"].append(out.policy_logits.float())
+                steps["reward"].append(reward)
+                steps["done"].append(done)
+                core_state = out.core_state
+        steps["obs"].append(obs)
+        steps["pre_done"].append(done)
+        rollout = {k: torch.stack(v) for k, v in steps.items()}
+        rollout["core_state"] = initial_core
+        return (env_state, obs, core_state, done), rollout
+
+    unroll.initial_carry = initial_carry
+    return unroll
+
+
 def env_reset_batch(env, gen: torch.Generator, batch: int, device):
     return env.reset(batch, gen, device)
 

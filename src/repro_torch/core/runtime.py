@@ -63,6 +63,9 @@ class Runtime:
       checkpoint_meta: extra metadata recorded in every checkpoint's
         manifest alongside ``step`` (the train CLI stores mode/env here
         and validates them on ``--resume``).
+      checkpoint_layout: None, or an object whose ``to_disk(leaves)`` maps
+        the snapshot's flat host leaves to the keys written (the LM modes
+        write the reference's layout: ``convert.LMCheckpointLayout``).
       on_metrics: optional callback ``(step, metrics)`` invoked every step
         with the raw (device-resident) metrics dict, after the source's own
         ``on_learner_metrics(step, metrics)`` hook where it has one (replay
@@ -87,6 +90,7 @@ class Runtime:
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 0,
                  checkpoint_meta: Optional[Dict[str, Any]] = None,
+                 checkpoint_layout=None,
                  on_metrics: Optional[Callable[[int, Dict[str, Any]], None]]
                  = None,
                  print_fn: Callable[[str], None] = print, mesh=None):
@@ -104,6 +108,7 @@ class Runtime:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.checkpoint_meta = dict(checkpoint_meta or {})
+        self.checkpoint_layout = checkpoint_layout
         self._writer = None                    # AsyncCheckpointWriter, lazy
         self.on_metrics = on_metrics
         self.mesh = mesh
@@ -171,6 +176,8 @@ class Runtime:
         snap = ckpt_lib.snapshot({"params": self.params.state_dict(),
                                   "opt_state": self.opt_state},
                                  structured={"source": source_state})
+        if self.checkpoint_layout is not None:
+            snap.leaves = self.checkpoint_layout.to_disk(snap.leaves)
         if self._writer is None:
             self._writer = ckpt_lib.AsyncCheckpointWriter(
                 print_fn=self.print_fn)

@@ -81,6 +81,7 @@ import dataclasses
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.convert import LMCheckpointLayout
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.atari_impala import small_train
 from repro_torch.configs.base import ImplContext, TrainConfig
@@ -157,6 +158,13 @@ def _lm_config(args):
     return ImplContext.from_args(args).apply(cfg)
 
 
+def _lm_layout(params):
+    """The LM modes checkpoint in the reference's layout (block leaves
+    stacked on the group axis, AdamW's mu and nu as trees), so that each
+    package resumes the other's checkpoints."""
+    return LMCheckpointLayout([n for n, _ in params.named_parameters()])
+
+
 def build_lm_rl(args):
     device = resolve_device(args.device)
     cfg = _lm_config(args)
@@ -172,7 +180,8 @@ def build_lm_rl(args):
         learner_lib.make_lm_train_step(cfg, opt, train_cfg,
                                        loss_chunk=args.seq,
                                        vtrace_impl=args.vtrace_impl))
-    extras = {"log_keys": ("reward_per_step", "pg_loss", "entropy_loss")}
+    extras = {"log_keys": ("reward_per_step", "pg_loss", "entropy_loss"),
+              "checkpoint_layout": _lm_layout(params)}
     return source, step_fn, params, opt_state, extras
 
 
@@ -197,7 +206,8 @@ def build_lm(args):
 
     source = sources_lib.DataSource(it, frames_per_batch=b * args.seq,
                                     device=device)
-    extras = {"log_keys": ("loss",), "fps_label": "tok/s"}
+    extras = {"log_keys": ("loss",), "fps_label": "tok/s",
+              "checkpoint_layout": _lm_layout(params)}
     return source, step_fn, params, opt_state, extras
 
 
@@ -283,12 +293,14 @@ def _checkpoint_meta(args):
     return meta
 
 
-def _resume(args, source, params, opt_state, print_fn=print):
+def _resume(args, source, params, opt_state, layout=None, print_fn=print):
     """Load the latest checkpoint under --checkpoint-dir into the learner's
     module, the optimizer state and the source (under a mesh, each rank
     reads it and takes its own entries); returns (opt_state,
-    start_step)."""
+    start_step). ``layout``: the LM modes' ``LMCheckpointLayout``, whose
+    checkpoints either package may have written."""
     from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.tree import flatten
     path = ckpt_lib.latest_step_path(args.checkpoint_dir)
     if path is None:
         print_fn(f"--resume: no checkpoint under {args.checkpoint_dir}, "
@@ -305,20 +317,39 @@ def _resume(args, source, params, opt_state, print_fn=print):
                            f"run={want[k]!r}" for k in bad)
         raise SystemExit(f"--resume: checkpoint {path} was written by a "
                          f"different configuration ({detail})")
-    restored, meta = ckpt_lib.restore(
-        path, {"params": params.state_dict(), "opt_state": opt_state})
-    params.load_state_dict(restored["params"])
-    start_step = int(meta.get("step", 0))
     # SourceState: replay the exact rollout stream (env carry, generator,
     # in-flight rollout, the actors' parameter copy; the LM iterator's
     # position or the episode generator).
     source_state = ckpt_lib.restore_structured(path, "source")
+    if args.mode == "lm-rl" and source_state is not None \
+            and "generator" not in source_state:
+        raise SystemExit(
+            f"--resume: checkpoint {path} was written by the JAX package: "
+            "its episode generator's state is a threefry key, which no "
+            "torch.Generator can continue, so an lm-rl run does not "
+            "resume across packages (its episodes would start a fresh "
+            "stream); --mode lm checkpoints do")
+    like = {"params": params.state_dict(), "opt_state": opt_state}
+    if layout is None:
+        restored, meta = ckpt_lib.restore(path, like)
+        params.load_state_dict(restored["params"])
+        opt_state = restored["opt_state"]
+    else:
+        leaves = flatten(like)
+        on_disk, meta = ckpt_lib.restore(
+            path, layout.template([(k, v.shape) for k, v in leaves]))
+        arrays = layout.from_disk(dict(flatten(on_disk)),
+                                  [k for k, _ in leaves])
+        with torch.no_grad():
+            for key, leaf in leaves:
+                leaf.copy_(torch.from_numpy(arrays[key]))
+    start_step = int(meta.get("step", 0))
     if source_state is not None:
         source.load_state_dict(source_state)
     print_fn(f"resumed {path} at step {start_step}"
              + (" (source state restored)" if source_state is not None
                 else ""))
-    return restored["opt_state"], start_step
+    return opt_state, start_step
 
 
 def main(argv=None) -> Runtime:
@@ -357,8 +388,9 @@ def _train(mesh, args) -> Runtime:
     source, step_fn, params, opt_state, extras = built
     start_step = 0
     if args.resume:
-        opt_state, start_step = _resume(args, source, params, opt_state,
-                                        print_fn)
+        opt_state, start_step = _resume(
+            args, source, params, opt_state,
+            extras.get("checkpoint_layout"), print_fn)
     if mesh is not None:
         sharding.broadcast_module(params, mesh)   # rank 0's params everywhere
     runtime = Runtime(source, step_fn, params, opt_state,

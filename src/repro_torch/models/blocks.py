@@ -6,20 +6,22 @@ passes as ``pattern``.
 
 Residual wiring: pre-norm (gemma2 adds sandwich post-norms). Ported
 mixers: the attention kinds ``attn``, ``local_attn`` and ``swa_attn``, and
-``mamba`` (Mamba2); ported FFNs: ``swiglu``, ``geglu``, ``gelu`` and
-``none``. The others raise ``NotImplementedError`` naming the ROADMAP item
-that ports them. A layer's decode cache is {"k", "v"} for attention and
-{"conv", "ssm"} for Mamba2.
+``mamba`` (Mamba2); ported FFNs: ``swiglu``, ``geglu``, ``gelu``, ``moe``
+and ``none``. The others raise ``NotImplementedError`` naming the ROADMAP
+item that ports them. A layer's decode cache is {"k", "v"} for attention
+and {"conv", "ssm"} for Mamba2. MoE aux losses are returned as a summed
+(load_balance, z_loss, dropped) triple, as in the reference.
 """
 
 from __future__ import annotations
 
-from repro_torch.models import attention, mamba, mlp
+import torch
+
+from repro_torch.models import attention, mamba, mlp, moe
 from repro_torch.models.common import Params, make_norm, remat, remat_active
 
 # xattn raises in models/attention.py
 _NOT_PORTED = {
-    "moe": "ROADMAP item 16",
     "mlstm": "ROADMAP item 17",
     "slstm": "ROADMAP item 17",
 }
@@ -49,7 +51,8 @@ def block_init(cfg, *, generator, device=None, pattern=None):
             layer["post_norm"] = norm_init(cfg.d_model, device=device)
         if ffn != "none":
             layer["ffn_pre_norm"] = norm_init(cfg.d_model, device=device)
-            layer["ffn"] = mlp.mlp_init(cfg, ffn, **kw)
+            layer["ffn"] = (moe.moe_init(cfg, **kw) if ffn == "moe"
+                            else mlp.mlp_init(cfg, ffn, **kw))
             if cfg.sandwich_norm:
                 layer["ffn_post_norm"] = norm_init(cfg.d_model,
                                                    device=device)
@@ -57,16 +60,38 @@ def block_init(cfg, *, generator, device=None, pattern=None):
     return Params(**layers)
 
 
+def zero_aux(device=None):
+    """(load_balance, z_loss, dropped_frac) of a model without MoE."""
+    return tuple(torch.zeros((), dtype=torch.float32, device=device)
+                 for _ in range(3))
+
+
+def _add_aux(a, b):
+    """The sum of two aux triples; None stands for a zero one (no MoE
+    layer so far), so dense layers launch nothing for it."""
+    if a is None or b is None:
+        return b if a is None else a
+    return tuple(x + y for x, y in zip(a, b))
+
+
 def _apply_ffn(layer, x, cfg, ffn, norm_fn):
-    h = mlp.mlp_apply(layer["ffn"], norm_fn(layer["ffn_pre_norm"], x), ffn)
+    """Returns (x + ffn(x), aux); aux is None for a dense FFN."""
+    aux = None
+    h = norm_fn(layer["ffn_pre_norm"], x)
+    if ffn == "moe":
+        h, moe_aux = moe.moe_apply(layer["ffn"], h, cfg)
+        aux = tuple(moe_aux)
+    else:
+        h = mlp.mlp_apply(layer["ffn"], h, ffn)
     if cfg.sandwich_norm:
         h = norm_fn(layer["ffn_post_norm"], h)
-    return x + h
+    return x + h, aux
 
 
 def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
                 build_cache=False, seq_len=None, dtype=None):
-    """Full-sequence super-block. Returns (x, cache|None); with
+    """Full-sequence super-block. Returns (x, aux, cache|None): aux the
+    layers' summed MoE losses (None without an MoE layer), and with
     ``build_cache`` (prefill) the cache holds this block's decode caches.
     ``impl`` is the attention impl; Mamba2 reads ``cfg.ssd_impl``.
 
@@ -74,11 +99,14 @@ def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
     recording, each LAYER of a multi-layer super-block (Zamba2's six
     Mamba2 layers, gemma2's pairs) is its own checkpoint region, so the
     block's backward holds one layer's intermediates at a time. Its
-    kernels then run again in the backward pass."""
+    kernels then run again in the backward pass. The region returns the
+    layer's aux with its output, so the router losses keep their
+    gradient."""
     pattern = pattern if pattern is not None else cfg.block_pattern
     _, norm_fn = make_norm(cfg)
 
     def layer_fn(layer, x, mixer, ffn):
+        aux = None
         h = norm_fn(layer["pre_norm"], x)
         lcache = None
         if mixer == "mamba":
@@ -95,25 +123,28 @@ def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
             h = norm_fn(layer["post_norm"], h)
         x = x + h
         if ffn != "none":
-            x = _apply_ffn(layer, x, cfg, ffn, norm_fn)
-        return x, lcache
+            x, aux = _apply_ffn(layer, x, cfg, ffn, norm_fn)
+        return x, aux, lcache
 
     nested = len(pattern) > 1 and remat_active(cfg, build_cache)
+    aux = None
     cache = {} if build_cache else None
     for idx, (mixer, ffn) in enumerate(pattern):
         layer = params[f"l{idx}"]
         if nested:
-            x, _ = remat(layer_fn, layer, x, mixer, ffn)
+            x, layer_aux, _ = remat(layer_fn, layer, x, mixer, ffn)
         else:
-            x, lcache = layer_fn(layer, x, mixer, ffn)
+            x, layer_aux, lcache = layer_fn(layer, x, mixer, ffn)
             if build_cache:
                 cache[f"l{idx}"] = lcache
-    return x, cache
+        aux = _add_aux(aux, layer_aux)
+    return x, aux, cache
 
 
 def block_decode(params, x, cache, *, cfg, pos, pattern=None, impl=None):
     """One-token decode through a super-block; each layer's cache is
-    written in place. Returns (x, cache)."""
+    written in place. Returns (x, cache). An MoE layer routes every row,
+    idle slots included, and its aux is dropped, as in the reference."""
     pattern = pattern if pattern is not None else cfg.block_pattern
     _, norm_fn = make_norm(cfg)
     for idx, (mixer, ffn) in enumerate(pattern):
@@ -130,7 +161,7 @@ def block_decode(params, x, cache, *, cfg, pos, pattern=None, impl=None):
             h = norm_fn(layer["post_norm"], h)
         x = x + h
         if ffn != "none":
-            x = _apply_ffn(layer, x, cfg, ffn, norm_fn)
+            x, _ = _apply_ffn(layer, x, cfg, ffn, norm_fn)
     return x, cache
 
 

@@ -7,6 +7,10 @@ network TorchBeast trains on Atari (§4, without LSTM).
 ``minatar_net``: the small ConvNet of the paper's MinAtar adaptation example
 (Fig. 2): conv3x3x16 + FC 128 + heads.
 
+``minatar_lstm_net``: the same torso with an LSTM core, TorchBeast's
+recurrent agent (``use_lstm``): ``model(obs, core_state, done)`` takes one
+time step and returns a ``RecurrentAgentOutput`` with the new core state.
+
 ``model(obs) -> AgentOutput``. Obs is (..., H, W, C) float32 (the JAX
 layout); leading dims are flattened and restored so (T, B, ...) learner
 batches work directly. Convolutions run in NCHW; the activations go back
@@ -31,6 +35,12 @@ from torch import nn
 class AgentOutput(NamedTuple):
     policy_logits: torch.Tensor  # (..., num_actions)
     baseline: torch.Tensor       # (...,)
+
+
+class RecurrentAgentOutput(NamedTuple):
+    policy_logits: torch.Tensor
+    baseline: torch.Tensor
+    core_state: tuple            # (h, c) LSTM state, threaded by the actor
 
 
 def _init_(layer, fan_in: int, gen: torch.Generator, scale=None):
@@ -135,6 +145,62 @@ class MinatarNet(nn.Module):
         return _heads(self, y, lead)
 
 
-# The reference's names for the two agents.
+class MinatarLSTMNet(nn.Module):
+    """MinAtar ConvNet torso + LSTM core. ``forward(obs, core_state,
+    done)`` takes a single step, obs (B, H, W, C); where ``done`` is set
+    the state rows are zeroed before the cell (TorchBeast's reset at
+    episode ends).
+
+    The cell is written out as the reference's: gates from two linears,
+    ``lstm_x`` on the torso output and ``lstm_h`` on h, split i, f, g, o,
+    with a forget bias of +1.0. ``torch.nn.LSTMCell`` has no forget bias,
+    so it computes another function."""
+
+    def __init__(self, obs_shape, num_actions, conv_ch=16, core=128, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator or torch.Generator().manual_seed(0)
+        h, w, cin = obs_shape
+        self.core_size = core
+        self.conv = _conv(cin, conv_ch, gen, padding=0)   # "VALID"
+        self.torso = _linear((h - 2) * (w - 2) * conv_ch, core, gen)
+        self.lstm_x = _linear(core, 4 * core, gen, scale=core ** -0.5)
+        self.lstm_h = _linear(core, 4 * core, gen, scale=core ** -0.5)
+        self.policy = _linear(core, num_actions, gen, scale=0.01)
+        self.baseline = _linear(core, 1, gen, scale=0.01)
+
+    def initial_state(self, batch):
+        z = torch.zeros((batch, self.core_size),
+                        device=self.torso.weight.device)
+        return (z, z)
+
+    def features(self, obs):
+        """The torso's output, (..., core), for obs (..., H, W, C): it
+        carries no state, so the learner runs it once over a whole
+        unroll."""
+        x, lead = _nchw(obs)
+        y = F.relu(self.torso(_nhwc_flat(F.relu(self.conv(x)))))
+        return y.reshape(lead + (self.core_size,))
+
+    def cell(self, y, core_state, done=None) -> RecurrentAgentOutput:
+        """One LSTM step on torso features ``y`` (B, core), then the
+        heads."""
+        hs, cs = core_state
+        if done is not None:
+            keep = (~done)[:, None].to(hs.dtype)
+            hs, cs = hs * keep, cs * keep
+        i, f, g, o = torch.chunk(self.lstm_x(y) + self.lstm_h(hs), 4,
+                                 dim=-1)
+        cs = torch.sigmoid(f + 1.0) * cs + torch.sigmoid(i) * torch.tanh(g)
+        hs = torch.sigmoid(o) * torch.tanh(cs)
+        return RecurrentAgentOutput(self.policy(hs),
+                                    self.baseline(hs)[..., 0], (hs, cs))
+
+    def forward(self, obs, core_state, done=None) -> RecurrentAgentOutput:
+        return self.cell(self.features(obs), core_state, done)
+
+
+# The reference's names for the agents.
 impala_deep = ImpalaDeep
 minatar_net = MinatarNet
+minatar_lstm_net = MinatarLSTMNet

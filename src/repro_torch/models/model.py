@@ -97,15 +97,17 @@ def forward(params, tokens, *, cfg, impl=None, build_cache=False,
             cache_seq_len=None):
     """Forward over a full sequence. tokens: (B, S) int.
 
-    Returns (hidden (B,S,d), cache|None); with ``build_cache`` the decode
-    cache of every layer, capacity ``cache_seq_len``. (The reference also
-    returns MoE auxiliary losses; MoE is not ported yet, ROADMAP item 16.)
+    Returns (hidden (B,S,d), aux, cache|None): aux = (load_balance,
+    z_loss, dropped_frac) summed over all MoE layers (zeros without MoE),
+    and with ``build_cache`` the decode cache of every layer, capacity
+    ``cache_seq_len``.
 
     With ``cfg.remat`` and autograd recording, each group (its super-block
     and the shared block after it) is one checkpoint region, as the
     reference's ``jax.checkpoint`` of its scan body: the values are the
     same, the group's intermediates are recomputed in the backward pass,
-    and so are its kernel launches.
+    and so are its kernel launches. The region returns the group's aux
+    with its output, so the router losses keep their gradient.
     """
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
@@ -114,26 +116,30 @@ def forward(params, tokens, *, cfg, impl=None, build_cache=False,
               build_cache=build_cache, seq_len=cache_seq_len, dtype=x.dtype)
 
     def body(block_params, x):
-        x, cache = blocks.block_apply(block_params, x, **kw)
+        x, aux, cache = blocks.block_apply(block_params, x, **kw)
         cache = {"block": cache}
         if cfg.shared_attn_every:
-            x, cache["shared"] = blocks.block_apply(
+            x, saux, cache["shared"] = blocks.block_apply(
                 params["shared"], x, pattern=SHARED_PATTERN, **kw)
-        return x, cache
+            aux = blocks._add_aux(aux, saux)
+        return x, aux, cache
 
     checkpointed = remat_active(cfg, build_cache)
-    caches = []
+    aux, caches = None, []
     for block_params in params["blocks"]:
         if checkpointed:
-            x, _ = remat(body, block_params, x)
+            x, baux, _ = remat(body, block_params, x)
         else:
-            x, cache = body(block_params, x)
+            x, baux, cache = body(block_params, x)
             caches.append(cache)
+        aux = blocks._add_aux(aux, baux)
     _, norm_fn = make_norm(cfg)
     x = norm_fn(params["final_norm"], x)
+    if aux is None:
+        aux = blocks.zero_aux(x.device)
     if not build_cache:
-        return x, None
-    return x, tree_map(lambda *leaves: torch.stack(leaves), *caches)
+        return x, aux, None
+    return x, aux, tree_map(lambda *leaves: torch.stack(leaves), *caches)
 
 
 def cache_init(cfg, batch, seq_len, device=None):
@@ -150,7 +156,8 @@ def cache_init(cfg, batch, seq_len, device=None):
 
 
 def prefill(params, tokens, *, cfg, impl=None, cache_seq_len):
-    """Forward + build decode caches. Returns (hidden (B,S,d), cache)."""
+    """Forward + build decode caches. Returns (hidden (B,S,d), aux,
+    cache)."""
     return forward(params, tokens, cfg=cfg, impl=impl, build_cache=True,
                    cache_seq_len=cache_seq_len)
 
@@ -180,10 +187,10 @@ def decode_step(params, tokens, cache, pos, *, cfg, impl=None):
 # ---------------------------------------------------------------------------
 
 def apply_lm(params, tokens, *, cfg, impl=None):
-    """(B,S) -> (logits float32 (B,S,V), baseline (B,S)|None)."""
-    h, _ = forward(params, tokens, cfg=cfg, impl=impl)
+    """(B,S) -> (logits float32 (B,S,V), baseline (B,S)|None, aux)."""
+    h, aux, _ = forward(params, tokens, cfg=cfg, impl=impl)
     return logits_from_hidden(params, cfg, h), \
-        baseline_from_hidden(params, cfg, h)
+        baseline_from_hidden(params, cfg, h), aux
 
 
 def serve_step(params, tokens, cache, pos, *, cfg, impl=None):

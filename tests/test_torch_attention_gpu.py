@@ -271,7 +271,7 @@ def test_reduced_decoder_kernel_path_matches_plain_path(cuda_device):
     with torch.no_grad():
         for impl in ("xla", "kernel"):
             before = tops.stats()
-            h, cache = model_lib.prefill(params, tokens[:, :36], cfg=cfg,
+            h, _, cache = model_lib.prefill(params, tokens[:, :36], cfg=cfg,
                                          impl=impl, cache_seq_len=44)
             logits = [model_lib.logits_from_hidden(params, cfg, h)]
             for t in range(36, 44):

@@ -205,7 +205,7 @@ def test_model_fwd_bwd_kernel_parity(arch):
     for impl in ("xla", "kernel"):
         cfg = dataclasses.replace(base, attn_impl=impl, ssd_impl=impl)
         params = tmodel.init(cfg, seed=0)
-        h, _ = tmodel.forward(params, tokens, cfg=cfg, impl=impl)
+        h, _, _ = tmodel.forward(params, tokens, cfg=cfg, impl=impl)
         loss = torch.mean(torch.square(h.float()))
         loss.backward()
         out[impl] = loss, {n: p.grad for n, p in params.named_parameters()}

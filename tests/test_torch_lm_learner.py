@@ -8,7 +8,9 @@ a seed:
 * ``make_lm_pretrain_step`` on the reduced ``zamba2-2.7b`` (two Mamba2
   layers and the shared attention block, S = 32: two SSD chunks, the
   state carried between them): loss and every parameter after each of two
-  AdamW steps.
+  AdamW steps;
+* both steps on the reduced ``granite-moe-1b-a400m`` (two MoE layers,
+  dropless at capacity 4.0), whose router losses enter the gradient.
 
 Each through the kernel paths (the JAX Pallas kernels in interpret mode;
 the port's kernel wrappers, which on CPU tensors run their plain versions)
@@ -116,12 +118,9 @@ def _rollout(vocab, t, b, seed):
             "reward": np.ascontiguousarray(reward), "done": done}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("attn,vtrace", [("kernel", "kernel"),
-                                         ("xla", "scan")])
-def test_lm_rl_train_step_matches_jax(dtype, attn, vtrace):
+def _lm_rl_steps(arch, dtype, attn, vtrace):
     t, b = 16, 4
-    jcfg, tcfg, jparams, tparams = _setup("qwen3-4b", dtype, attn)
+    jcfg, tcfg, jparams, tparams = _setup(arch, dtype, attn)
     jtc, ttc = JTrainConfig(**RL_TRAIN), TTrainConfig(**RL_TRAIN)
     jopt, topt = jmake_optimizer(jtc), tmake_optimizer(ttc)
     jstep = jax.jit(jsources.lm_rl_step_from_rollout(
@@ -149,10 +148,24 @@ def test_lm_rl_train_step_matches_jax(dtype, attn, vtrace):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("impl", ["kernel", "xla"])
-def test_lm_pretrain_step_matches_jax(dtype, impl):
+@pytest.mark.parametrize("attn,vtrace", [("kernel", "kernel"),
+                                         ("xla", "scan")])
+def test_lm_rl_train_step_matches_jax(dtype, attn, vtrace):
+    _lm_rl_steps("qwen3-4b", dtype, attn, vtrace)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("attn,vtrace", [("kernel", "kernel"),
+                                         ("xla", "scan")])
+def test_granite_lm_rl_train_step_matches_jax(dtype, attn, vtrace):
+    """Granite's MoE layers under remat: the router's load-balance and
+    z-loss terms enter the gradient, as in the reference."""
+    _lm_rl_steps("granite-moe-1b-a400m", dtype, attn, vtrace)
+
+
+def _pretrain_steps(arch, dtype, impl):
     b, s = 2, 32
-    jcfg, tcfg, jparams, tparams = _setup("zamba2-2.7b", dtype, impl, impl)
+    jcfg, tcfg, jparams, tparams = _setup(arch, dtype, impl, impl)
     jtc, ttc = JTrainConfig(**LM_TRAIN), TTrainConfig(**LM_TRAIN)
     jopt, topt = jmake_optimizer(jtc), tmake_optimizer(ttc)
     jstep = jax.jit(jlearner.make_lm_pretrain_step(jcfg, jopt,
@@ -172,3 +185,17 @@ def test_lm_pretrain_step_matches_jax(dtype, impl):
         np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
                                    err_msg=f"loss step {step}", **tol)
         _assert_params_close(tparams, jparams, tol, f"after step {step}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_lm_pretrain_step_matches_jax(dtype, impl):
+    _pretrain_steps("zamba2-2.7b", dtype, impl)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_granite_lm_pretrain_step_matches_jax(dtype, impl):
+    """As the lm-rl case: the router's terms in the pretraining gradient,
+    through remat's per-group checkpoint regions."""
+    _pretrain_steps("granite-moe-1b-a400m", dtype, impl)

@@ -1,10 +1,11 @@
 """The port's decoder against the JAX reference: configs field for field,
-the LM parameter converter, whole-model forward, prefill + decode, logits
-and baseline for the reduced ``qwen3-4b``, ``gemma2-27b`` (window, both
-softcaps, sandwich norms, GeGLU) and ``zamba2-2.7b`` (Mamba2 layers and the
-shared attention block, also at the published head_dim 80), the same in
-bf16, and teacher forcing of JAX ``generate``'s token stream through the
-port."""
+the LM parameter converter, whole-model forward, prefill + decode, logits,
+baseline and MoE aux for the reduced ``qwen3-4b``, ``gemma2-27b`` (window,
+both softcaps, sandwich norms, GeGLU), ``zamba2-2.7b`` (Mamba2 layers and
+the shared attention block, also at the published head_dim 80) and
+``granite-moe-1b-a400m`` (MoE FFNs, dropless at the reduced capacity 4.0),
+the same in bf16, and teacher forcing of JAX ``generate``'s token stream
+through the port."""
 
 import dataclasses
 
@@ -29,7 +30,7 @@ from repro_torch.models import model as tmodel
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_attn_impl.py's float32 bar
-ARCHS = ["qwen3-4b", "gemma2-27b", "zamba2-2.7b"]
+ARCHS = ["qwen3-4b", "gemma2-27b", "zamba2-2.7b", "granite-moe-1b-a400m"]
 # Mamba2 takes sequences of at most one chunk (16 tokens reduced) or a
 # multiple of it, as in the reference: zamba2's lengths are multiples
 FORWARD_LEN = {"zamba2-2.7b": 48}
@@ -118,8 +119,7 @@ def test_converter_round_trip(arch):
 
 
 def test_unported_mixers_raise_naming_the_roadmap_item():
-    for arch, item in [("granite-moe-1b-a400m", "item 16"),
-                       ("xlstm-125m", "item 17"),
+    for arch, item in [("xlstm-125m", "item 17"),
                        ("llama-3.2-vision-90b", "item 16")]:
         with pytest.raises(NotImplementedError, match=item):
             tmodel.init(tconfigs.get_reduced_config(arch))
@@ -135,13 +135,15 @@ def test_forward_logits_baseline_match_jax(arch, impl):
     """``impl`` picks both the attention and the Mamba2 SSD path."""
     jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl)
     tokens = _tokens(tcfg, (2, FORWARD_LEN.get(arch, 40)))
-    want_l, want_b, _ = jmodel.apply_lm(jparams, jnp.asarray(tokens),
-                                        cfg=jcfg, impl=impl)
+    want_l, want_b, want_aux = jmodel.apply_lm(jparams, jnp.asarray(tokens),
+                                               cfg=jcfg, impl=impl)
     with torch.no_grad():
-        got_l, got_b = tmodel.apply_lm(tparams, torch.from_numpy(tokens),
-                                       cfg=tcfg, impl=impl)
+        got_l, got_b, got_aux = tmodel.apply_lm(
+            tparams, torch.from_numpy(tokens), cfg=tcfg, impl=impl)
     np.testing.assert_allclose(got_l.numpy(), want_l, **TOL)
     np.testing.assert_allclose(got_b.numpy(), want_b, **TOL)
+    for got, want in zip(got_aux, want_aux):   # zeros without MoE
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("impl", ["xla", "kernel"])
@@ -158,8 +160,9 @@ def test_prefill_then_decode_match_jax(arch, impl):
     _, _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens[:, :p]),
                                   cfg=jcfg, impl=impl, cache_seq_len=p + n)
     with torch.no_grad():
-        _, tcache = tmodel.prefill(tparams, torch.from_numpy(tokens[:, :p]),
-                                   cfg=tcfg, impl=impl, cache_seq_len=p + n)
+        _, _, tcache = tmodel.prefill(
+            tparams, torch.from_numpy(tokens[:, :p]), cfg=tcfg, impl=impl,
+            cache_seq_len=p + n)
     paths = [path for path, _ in _leaves(tcache)]
     assert paths == [path for path, _ in _leaves(jcache)]
     for path, got in _leaves(tcache):
@@ -191,16 +194,17 @@ def test_zamba2_head_dim_80_matches_jax():
     want_l, want_b, _ = jmodel.apply_lm(jparams, jnp.asarray(tokens[:, :p]),
                                         cfg=jcfg)
     with torch.no_grad():
-        got_l, got_b = tmodel.apply_lm(tparams,
-                                       torch.from_numpy(tokens[:, :p]),
-                                       cfg=tcfg)
+        got_l, got_b, _ = tmodel.apply_lm(tparams,
+                                          torch.from_numpy(tokens[:, :p]),
+                                          cfg=tcfg)
     np.testing.assert_allclose(got_l.numpy(), want_l, **TOL)
     np.testing.assert_allclose(got_b.numpy(), want_b, **TOL)
     _, _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens[:, :p]),
                                   cfg=jcfg, cache_seq_len=p + n)
     with torch.no_grad():
-        _, tcache = tmodel.prefill(tparams, torch.from_numpy(tokens[:, :p]),
-                                   cfg=tcfg, cache_seq_len=p + n)
+        _, _, tcache = tmodel.prefill(
+            tparams, torch.from_numpy(tokens[:, :p]), cfg=tcfg,
+            cache_seq_len=p + n)
     for t in range(p, p + n):
         want_l, _, jcache = jmodel.serve_step(
             jparams, jnp.asarray(tokens[:, t:t + 1]), jcache, jnp.int32(t),
@@ -229,16 +233,17 @@ def test_bf16_forward_and_decode_match_jax():
     want_l, want_b, _ = jmodel.apply_lm(jparams, jnp.asarray(tokens[:, :p]),
                                         cfg=jcfg, impl="kernel")
     with torch.no_grad():
-        got_l, got_b = tmodel.apply_lm(tparams,
-                                       torch.from_numpy(tokens[:, :p]),
-                                       cfg=tcfg, impl="kernel")
+        got_l, got_b, _ = tmodel.apply_lm(tparams,
+                                          torch.from_numpy(tokens[:, :p]),
+                                          cfg=tcfg, impl="kernel")
     np.testing.assert_allclose(got_l.numpy(), want_l, **BF16_TOL)
     np.testing.assert_allclose(got_b.numpy(), want_b, **BF16_TOL)
     _, _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens[:, :p]),
                                   cfg=jcfg, cache_seq_len=p + n)
     with torch.no_grad():
-        _, tcache = tmodel.prefill(tparams, torch.from_numpy(tokens[:, :p]),
-                                   cfg=tcfg, cache_seq_len=p + n)
+        _, _, tcache = tmodel.prefill(
+            tparams, torch.from_numpy(tokens[:, :p]), cfg=tcfg,
+            cache_seq_len=p + n)
     assert tcache["block"]["l0"]["k"].dtype == torch.bfloat16
     for t in range(p, p + n):
         want_l, want_b, jcache = jmodel.serve_step(
@@ -272,8 +277,8 @@ def test_teacher_forced_generate_stream_matches_jax(arch):
     stream = torch.from_numpy(ref["tokens"].astype(np.int64))
     lps, ents, bases = [], [], []
     with torch.no_grad():
-        hidden, cache = tmodel.prefill(tparams, stream[:, :p], cfg=tcfg,
-                                       cache_seq_len=p + n)
+        hidden, _, cache = tmodel.prefill(tparams, stream[:, :p], cfg=tcfg,
+                                          cache_seq_len=p + n)
         h = hidden[:, -1:]
         for t in range(p, p + n):
             logits = tmodel.logits_from_hidden(tparams, tcfg, h)[:, 0]
@@ -290,25 +295,29 @@ def test_teacher_forced_generate_stream_matches_jax(arch):
 
 
 @pytest.mark.parametrize("impl", ["xla", "kernel"])
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", "zamba2-2.7b",
+                                  "granite-moe-1b-a400m"])
 def test_remat_on_and_off_give_the_same_values_and_grads(arch, impl):
     """``cfg.remat`` (checkpoint regions per group, and per layer of a
     multi-layer group: gemma2's pair, zamba2's Mamba2 layers) changes what
-    autograd keeps, not what it computes: the hidden states and every
-    parameter's gradient are bitwise those without it."""
+    autograd keeps, not what it computes: the hidden states, the MoE aux
+    (its router losses in the loss) and every parameter's gradient are
+    bitwise those without it."""
     runs = {}
     for remat in (False, True):
         cfg = dataclasses.replace(tconfigs.get_reduced_config(arch),
                                   remat=remat, attn_impl=impl, ssd_impl=impl)
         params = tmodel.init(cfg, seed=0)
         tokens = torch.from_numpy(_tokens(cfg, (2, FORWARD_LEN.get(arch, 40))))
-        hidden, _ = tmodel.forward(params, tokens, cfg=cfg)
+        hidden, aux, _ = tmodel.forward(params, tokens, cfg=cfg)
         loss = torch.sum(torch.square(hidden)) \
-            + tmodel.baseline_from_hidden(params, cfg, hidden).sum()
+            + tmodel.baseline_from_hidden(params, cfg, hidden).sum() \
+            + aux[0] + aux[1]
         names, plist = zip(*params.named_parameters())
-        runs[remat] = (hidden.detach(), names,
+        runs[remat] = (hidden.detach(), [a.detach() for a in aux], names,
                        torch.autograd.grad(loss, plist))
-    (h0, n0, g0), (h1, n1, g1) = runs[False], runs[True]
+    (h0, a0, n0, g0), (h1, a1, n1, g1) = runs[False], runs[True]
     assert torch.equal(h0, h1) and n0 == n1
+    assert all(torch.equal(x, y) for x, y in zip(a0, a1))
     for name, a, b in zip(n0, g0, g1):
         assert torch.equal(a, b), name

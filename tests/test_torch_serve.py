@@ -8,7 +8,9 @@ file is bitwise —
 and batched admission, the server's thread and failure handling, and the
 serve CLI on the CPU; for the reduced Zamba2 hybrid too (Mamba2 conv and
 ssm state in the slot's cache row, the shared block's KV), whose session
-is also held against the JAX ``DecodeSession`` by teacher forcing."""
+is also held against the JAX ``DecodeSession`` by teacher forcing; and for
+the reduced Granite MoE, whose capacity 4.0 is dropless, so that a token's
+experts never depend on its neighbours in the batch."""
 
 import dataclasses
 
@@ -32,7 +34,8 @@ SEED = 7
 
 
 @pytest.fixture(scope="module",
-                params=["qwen3-4b", "gemma2-27b", "zamba2-2.7b"])
+                params=["qwen3-4b", "gemma2-27b", "zamba2-2.7b",
+                        "granite-moe-1b-a400m"])
 def setup(request):
     cfg = get_reduced_config(request.param)
     params = model_lib.init(cfg, seed=0)
@@ -272,7 +275,10 @@ def test_failed_prefill_fails_only_its_request(monkeypatch):
     ["--arch", "qwen3-4b", "--prompt-len", "12", "--gen-tokens", "5",
      "--max-batch", "4"],
     ["--arch", "zamba2-2.7b", "--ssd-impl", "kernel", "--prompt-len", "16",
-     "--gen-tokens", "8"]], ids=["qwen3-4b", "zamba2-2.7b"])
+     "--gen-tokens", "8"],
+    ["--arch", "granite-moe-1b-a400m", "--prompt-len", "12", "--gen-tokens",
+     "5", "--max-batch", "4"]],
+    ids=["qwen3-4b", "zamba2-2.7b", "granite-moe-1b-a400m"])
 def test_serve_cli_on_cpu(capsys, argv):
     """``--device cpu --reduced``: every request served, prompts echoed,
     each admission one flash-attention call per layer (and one SSD chunk

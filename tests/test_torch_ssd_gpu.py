@@ -127,7 +127,7 @@ def test_reduced_zamba2_kernel_path_matches_plain_path(cuda_device):
         for impl in ("xla", "kernel"):
             cfg = dataclasses.replace(base, attn_impl=impl, ssd_impl=impl)
             before = tops.stats()
-            h, cache = model_lib.prefill(params, tokens[:, :32], cfg=cfg,
+            h, _, cache = model_lib.prefill(params, tokens[:, :32], cfg=cfg,
                                          cache_seq_len=38)
             logits = [model_lib.logits_from_hidden(params, cfg, h)]
             for t in range(32, 38):
