@@ -17,8 +17,10 @@ exits nonzero without printing a result:
               softcapped case, head_dim 64 and 256, and Zamba2's shared
               block (head_dim 80); decode attention at the serving shapes
               of both; then both at the LM trainers' shapes (phases 15,
-              16) and at Granite-3.0-1B-A400M's (phases 19–21: 16 query
-              heads over 8 KV heads, head_dim 64); each in bf16 and
+              16), at Granite-3.0-1B-A400M's (phases 19–21: 16 query
+              heads over 8 KV heads, head_dim 64) and at
+              Llama-3.2-Vision-90B's (phase 25: 64 query heads over 8, a
+              300-token prompt and a 364-slot cache); each in bf16 and
               float32, with events and graph times,
               bounds and the share of them reached, SDPA's events and
               graph times, the wrapper's host time per call, and the split
@@ -136,10 +138,40 @@ exits nonzero without printing a result:
               with its float32 kernel-against-plain step; then 2 steps of
               --mode lm at B 4, S 512 (K2 under remat, the router losses)
               and its float32 step
+ 22. xlstm    xLSTM-125M at full width (12 layers, d 768, 4 heads of 192,
+              chunk 64) in float32, weights from seed 0: the forward of 4
+              x 512 tokens (8 mLSTM chunks) against a prefill of 448
+              tokens and 64 teacher-forced decode steps, logits at those
+              64 positions within MODEL_TOL; one full-width mLSTM layer,
+              chunkwise mlstm_apply against the sequential
+              mlstm_reference on 512 tokens within XLSTM_TOL; no kernel
+              launched (the mixers are plain PyTorch, as the reference's)
+ 23. xserve   repro_torch.launch.serve.main for xLSTM-125M in bf16: 24
+              requests of 1..64 tokens (one chunk at most) in 8 slots, no
+              kernel launched; then a profile of one decode step
+ 24. xlm_rl   --mode lm-rl for xLSTM-125M, B 8, T 64, 4 steps: K1 once a
+              step at (64, 8), nothing else; ms a step split into
+              generation and learner, fps, peak memory; its float32
+              kernel-against-plain step (only V-trace differs); then 2
+              steps of --mode lm at B 4, S 512 (the sLSTM's 512-step loop
+              under remat, no kernel), tok/s
+ 25. vlm      Llama-3.2-Vision-90B at every published width, depth cut
+              from 20 groups to VLM_GROUPS (4 self-attention layers and
+              one cross-attention layer: 6,379,634,688 parameters), the
+              vision stub (4 x 6,144 positions) drawn from a seeded
+              generator: float32 kernel path (K2 in the self-attention
+              layers, xattn plain) against the plain path on 4 prompts
+              of 300 tokens and 16 teacher-forced steps (K2 4, K3 4 x 16,
+              logits within MODEL_TOL); bf16 generate(vision=) at B 4,
+              300-token prompts, 64 tokens (K2 4, K3 4 x 63, prefill ms,
+              ms a decode step, peak memory); then 2 steps of --mode lm
+              on the reduced config (an AdamW step of one full-width group
+              needs about 102 GB), K2 exact
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
               phase 17's launches; recurrent_*: phase 18's; granite_*:
-              phases 20 and 21's), then
+              phases 20 and 21's; xlstm_*: phase 24's; vlm_*: phase
+              25's), then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
 
@@ -201,21 +233,24 @@ BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
 # those so that no earlier seed moves, the LM trainers' own: the lm-rl
 # prefill of 8 one-token prompts (bucket 1), its learner's forward (B 8,
 # S = --seq 64), and Zamba2's shared block in --mode lm (B 4, S 512);
-# last, Granite's (16 query heads over 8 KV heads, hd 64): a 256-token
-# prompt and a server admission of 8 prompts of 64
+# then Granite's (16 query heads over 8 KV heads, hd 64): a 256-token
+# prompt and a server admission of 8 prompts of 64; last, the VLM's
+# self-attention prefill (64 query heads over 8, phase 25's 4 x 300)
 FLASH_SHAPES = [(1, 32, 8, s, 128, 0, 0.0) for s in (1, 16, 256, 300, 512)] \
     + [(1, 32, 16, 4608, 128, 4096, 50.0), (1, 8, 2, 256, 64, 0, 0.0),
        (1, 8, 2, 256, 256, 0, 0.0), (1, 32, 32, 256, 80, 0, 0.0)] \
     + [(8, 32, 8, 1, 128, 0, 0.0), (8, 32, 8, 64, 128, 0, 0.0),
        (4, 32, 32, 512, 80, 0, 0.0)] \
-    + [(1, 16, 8, 256, 64, 0, 0.0), (8, 16, 8, 64, 64, 0, 0.0)]
+    + [(1, 16, 8, 256, 64, 0, 0.0), (8, 16, 8, 64, 64, 0, 0.0)] \
+    + [(4, 64, 8, 300, 128, 0, 0.0)]
 FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
 # (B, H, K, cap, hd, pos, window, softcap): the serving decode (8 slots at
 # their own positions in 576-slot caches), scalar pos, 4096-slot caches, a
 # ring buffer with window 32, softcap; Zamba2's shared block (no GQA, hd
 # 80, 8 slots of 320); the lm-rl episodes' 65-slot caches (--seq + 1:
-# ranges of 32, 32 and a ragged 1); last, Granite's decode (16 query heads
-# over 8 KV heads, hd 64) in 576-slot caches
+# ranges of 32, 32 and a ragged 1); Granite's decode (16 query heads over
+# 8 KV heads, hd 64) in 576-slot caches; last, the VLM's (64 over 8) in
+# phase 25's 364-slot caches (300-token prompts + 64)
 DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 8, 576, 128, "scalar", 0, 0.0),
                  (8, 32, 8, 4096, 128, "rows", 0, 0.0),
@@ -224,7 +259,8 @@ DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 8, 576, 128, "rows", 0, 50.0),
                  (8, 32, 32, 320, 80, "rows", 0, 0.0),
                  (8, 32, 8, 65, 128, "rows", 0, 0.0),
-                 (8, 16, 8, 576, 64, "rows", 0, 0.0)]
+                 (8, 16, 8, 576, 64, "rows", 0, 0.0),
+                 (4, 64, 8, 364, 128, "rows", 0, 0.0)]
 DECODE_MAIN = ((8, 32, 8, 576, 128, "rows", 0, 0.0), "bfloat16")
 # (slices, L, N, P, heads, decay): heads > 1 is the model's layout, one B/C
 # group per batch row read by all its heads; da = -U(0, decay) per step.
@@ -293,6 +329,27 @@ GLM_RL_ARGV = ["--mode", "lm-rl", "--arch", GRANITE, "--attn-impl",
                "64", "--steps", "4"]
 GLM_ARGV = ["--mode", "lm", "--arch", GRANITE, "--attn-impl", "kernel",
             "--batch", "4", "--seq", "512", "--steps", "2"]
+# phases 22-24: xLSTM-125M (no kernel in its mixers). The server takes
+# prompts of at most one 64-token chunk; lm-rl as phase 15; --mode lm at
+# S 512 runs the sLSTM's 512-step loop. XLSTM_TOL: chunkwise mLSTM
+# against its sequential oracle at full width (the reference's own test
+# holds them at 2e-4 at reduced width)
+XLSTM = "xlstm-125m"
+XLSTM_TOL = 1e-4
+XSERVE_ARGV = ["--arch", XLSTM, "--requests", "24", "--prompt-len", "64",
+               "--gen-tokens", "64", "--max-batch", "8"]
+XLM_RL_ARGV = ["--mode", "lm-rl", "--arch", XLSTM, "--vtrace-impl",
+               "kernel", "--batch", "8", "--seq", "64", "--steps", "4"]
+XLM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq", "512",
+            "--steps", "2"]
+# phase 25: Llama-3.2-Vision-90B, one of its 20 groups at every published
+# width (25.5 GB of float32 weights; all 20 are 351 GB), and its training
+# on the reduced config
+VLM = "llama-3.2-vision-90b"
+VLM_GROUPS = 1
+VLM_PROMPT, VLM_GEN = 300, 64
+VLM_LM_ARGV = ["--mode", "lm", "--arch", VLM, "--reduced", "--attn-impl",
+               "kernel", "--batch", "4", "--seq", "64", "--steps", "2"]
 # the LM trainers at full published width (phases 15, 16)
 LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
               "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
@@ -700,12 +757,18 @@ def phase_ssd(ops, ref):
     return rows
 
 
+# the mixers that run the attention kernels (xattn runs neither: K2 is
+# causal, and its decode reads the static vision cache densely)
+KERNEL_ATTN = ("attn", "local_attn", "swa_attn")
+
+
 def kernel_layers(cfg):
-    """(attention layers, Mamba2 layers) a token passes through: the shared
-    block counts once per group."""
-    mamba = sum(m == "mamba" for m, _ in cfg.block_pattern) * cfg.num_groups
+    """(self-attention layers, Mamba2 layers) a token passes through: the
+    shared block counts once per group."""
+    def count(kinds):
+        return sum(m in kinds for m, _ in cfg.block_pattern) * cfg.num_groups
     shared = cfg.num_groups if cfg.shared_attn_every else 0
-    return cfg.num_layers - mamba + shared, mamba
+    return count(KERNEL_ATTN) + shared, count(("mamba",))
 
 
 @contextlib.contextmanager
@@ -784,12 +847,25 @@ def routing_flips(plain, kernel, layers, prompt_len):
     return flips, reordered
 
 
-def phase_model(ops, arch, prompt_len, phase="model"):
-    """``arch`` at full width in float32 with weights from seed 0: 4
-    prompts of ``prompt_len`` tokens and 16 teacher-forced decode steps
-    through the kernel path (every kernel of the arch) and the plain path;
-    logits must agree within MODEL_TOL, and the kernel path must launch
-    each kernel once per layer that runs it and call. An MoE arch must
+def vision_stub(cfg, batch, dtype):
+    """A VLM's patch embeddings (B, vision_seq, d) drawn on the card from
+    a generator seeded with 0; None for a text-only config."""
+    import torch
+    if not cfg.vision_seq:
+        return None
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return torch.randn((batch, cfg.vision_seq, cfg.d_model), generator=gen,
+                       device="cuda").to(dtype)
+
+
+def phase_model(ops, arch, prompt_len, phase="model", groups=None):
+    """``arch`` at full width in float32 with weights from seed 0 (and
+    ``groups`` of its groups, where given): 4 prompts of ``prompt_len``
+    tokens and 16 teacher-forced decode steps through the kernel path
+    (every kernel of the arch) and the plain path; logits must agree
+    within MODEL_TOL, and the kernel path must launch each kernel once
+    per layer that runs it and call. A VLM's prefill reads the seeded
+    vision stub. An MoE arch must
     also route every token of both paths to the same set of experts: the
     tokens routed differently are counted and printed with their top-k
     margins (the gap between the k-th and the (k+1)-th probability)."""
@@ -799,7 +875,8 @@ def phase_model(ops, arch, prompt_len, phase="model"):
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
 
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              num_groups=groups or get_config(arch).num_groups)
     t0 = time.perf_counter()
     params = model_lib.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -807,6 +884,7 @@ def phase_model(ops, arch, prompt_len, phase="model"):
     p, n, b = prompt_len, 16, 4
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, p + n))).cuda()
+    vision = vision_stub(cfg, b, torch.float32)
     logits, launches, seconds, routes = {}, {}, {}, {}
     with torch.no_grad():
         for impl in ("xla", "kernel"):
@@ -816,7 +894,8 @@ def phase_model(ops, arch, prompt_len, phase="model"):
             t0 = time.perf_counter()
             with recorded_routes([]) as routes[impl]:
                 h, _, cache = model_lib.prefill(
-                    params, tokens[:, :p], cfg=icfg, cache_seq_len=p + n)
+                    params, tokens[:, :p], cfg=icfg, vision=vision,
+                    cache_seq_len=p + n)
                 out = [model_lib.logits_from_hidden(params, icfg,
                                                     h[:, -1:])]
                 del h
@@ -850,13 +929,15 @@ def phase_model(ops, arch, prompt_len, phase="model"):
             reordered_tokens=reordered,
             min_topk_margin=margins.min().item(),
             median_topk_margin=margins.median().item())
-    emit(phase, arch=cfg.name, dtype=cfg.dtype,
+    emit(phase, arch=cfg.name, dtype=cfg.dtype, num_groups=cfg.num_groups,
+         published_groups=get_config(arch).num_groups,
+         vision_seq=cfg.vision_seq,
          params=sum(x.numel() for x in params.parameters()),
          init_seconds=init_s, prompts=b, prompt_len=p,
          teacher_forced_steps=n, logits_shape=list(logits["kernel"].shape),
          max_abs_logit_diff=diff, tol=MODEL_TOL, seconds=seconds,
          kernel_launches=launches["kernel"], **moe_fields)
-    del params, logits, routes
+    del params, logits, routes, vision
     torch.cuda.empty_cache()
     if not finite:
         raise AssertionError("full-width kernel-path logits not finite")
@@ -871,7 +952,7 @@ def phase_model(ops, arch, prompt_len, phase="model"):
                              f"should be {want}")
 
 
-def phase_serve(ops, argv):
+def phase_serve(ops, argv, phase="serve"):
     """A serving main path at full width through ``serve.main(argv)``:
     every request served and echoed; per admission one flash-attention
     launch per attention layer and one SSD chunk launch per Mamba2 layer
@@ -893,7 +974,7 @@ def phase_serve(ops, argv):
     peak = torch.cuda.max_memory_allocated()
     for line in buf.getvalue().strip().splitlines():
         print("  " + line, flush=True)
-    emit("serve", argv=argv, launches=launches, peak_mem_bytes=peak,
+    emit(phase, argv=argv, launches=launches, peak_mem_bytes=peak,
          **summary)
     if summary["served"] != summary["requests"] \
             or not summary["prompt_echo_ok"]:
@@ -1714,19 +1795,20 @@ def remat_step_launches(cfg, seq):
     ``seq`` tokens with ``cfg.remat``: each layer runs in the forward pass
     and again in its group's recomputation, and a layer of a multi-layer
     group once more in its own (the nested checkpoint); the shared block
-    after each group is a one-layer group. An attention layer launches
-    flash attention once a pass, a Mamba2 layer the SSD chunk kernel once
-    a chunk."""
-    passes = 3 if len(cfg.block_pattern) > 1 else 2
+    after each group is a one-layer group. Without remat each layer runs
+    once. A self-attention layer launches flash attention once a pass, a
+    Mamba2 layer the SSD chunk kernel once a chunk; xattn and the xLSTM
+    mixers launch nothing."""
+    passes = (3 if len(cfg.block_pattern) > 1 else 2) if cfg.remat else 1
     chunks = -(-seq // cfg.ssm_chunk)
     out = {"flash_attention": 0, "ssd_chunk": 0}
     for mixer, _ in cfg.block_pattern:
         if mixer == "mamba":
             out["ssd_chunk"] += passes * chunks * cfg.num_groups
-        else:
+        elif mixer in KERNEL_ATTN:
             out["flash_attention"] += passes * cfg.num_groups
     if cfg.shared_attn_every:
-        out["flash_attention"] += 2 * cfg.num_groups
+        out["flash_attention"] += (2 if cfg.remat else 1) * cfg.num_groups
     return out
 
 
@@ -1926,20 +2008,21 @@ def phase_lm_rl(ops, argv=LM_RL_ARGV, phase="lm_rl"):
     return run["launches"]
 
 
-def phase_lm(ops, argv=LM_ARGV, phase="lm"):
-    """``--mode lm`` at full width through the entry point (Zamba2-2.7B by
+def phase_lm(ops, argv=LM_ARGV, phase="lm", check=True):
+    """``--mode lm`` through the entry point (Zamba2-2.7B at full width by
     default): pretraining steps of 4 x 512 tokens on the synthetic corpus
     (bf16 activations on float32 weights, AdamW), the SSD chunk kernel in
     every Mamba2 layer (two chunks a sequence) and flash attention in
     every attention layer, both under autograd and run again by remat's
-    recomputation. Then the kernel-against-plain check of one float32
-    step on the last batch that ``split_ms`` drew. An MoE arch also
-    reports its router losses. Returns the main run's launches."""
-    from repro_torch.configs import get_config
+    recomputation. Then, with ``check``, the kernel-against-plain check of
+    one float32 step on the last batch that ``split_ms`` drew (a path with
+    no kernel has nothing to hold). An MoE arch also reports its router
+    losses. Returns the main run's launches."""
+    from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core import learner
 
     arch = _arg(argv, "--arch")
-    cfg = get_config(arch)
+    cfg = (get_reduced_config if "--reduced" in argv else get_config)(arch)
     probe = router_probe(arch, lambda b: b["tokens"][:, :-1]) \
         if cfg.num_experts else None
     run, batch, steps = _lm_main(ops, argv, probe)
@@ -1953,8 +2036,10 @@ def phase_lm(ops, argv=LM_ARGV, phase="lm"):
         del vtrace
         return learner.make_lm_pretrain_step(cfg, opt, loss_chunk=seq)
 
-    check = _lm_step_check(ops, arch, batch, make_step, per_step)
-    emit(phase, arch=arch, seq=seq, tokens_per_step=run["frames"] // steps,
+    check = (_lm_step_check(ops, arch, batch, make_step, per_step) if check
+             else None)
+    emit(phase, arch=cfg.name, seq=seq,
+         tokens_per_step=run["frames"] // steps,
          tokens_per_s=run.pop("frames_per_s"), want_launches=want,
          check=check, **run)
     if launches != want:
@@ -2444,6 +2529,165 @@ def phase_gserve(ops):
     return launches
 
 
+def phase_xlstm(ops):
+    """22: xLSTM-125M at full width in float32, weights from seed 0. The
+    forward of 4 x 512 tokens (8 mLSTM chunks) against a prefill of 448
+    tokens and 64 teacher-forced decode steps: the logits at those 64
+    positions within MODEL_TOL. Then one full-width mLSTM layer, chunkwise
+    ``mlstm_apply`` against the sequential ``mlstm_reference`` on 512
+    tokens, within XLSTM_TOL. No kernel may launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import xlstm
+
+    cfg = dataclasses.replace(get_config(XLSTM), dtype="float32")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    b, s, p = 4, 512, 448
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s))).cuda()
+    ops.reset_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, _, _ = model_lib.apply_lm(params, tokens, cfg=cfg)
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        want = full[:, p:].clone()
+        del full
+        t0 = time.perf_counter()
+        _, _, cache = model_lib.prefill(params, tokens[:, :p], cfg=cfg,
+                                        cache_seq_len=s)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        steps = []
+        t0 = time.perf_counter()
+        for t in range(p, s):
+            lg, _, cache = model_lib.serve_step(params, tokens[:, t:t + 1],
+                                                cache, t, cfg=cfg)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (s - p)
+        got = torch.cat(steps, dim=1)
+        diff = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        state_dtypes = sorted({str(v.dtype) for layer in
+                               cache["block"].values()
+                               for v in layer.values()})
+        # one full-width mLSTM layer: chunkwise against sequential
+        layer = params["blocks"][0]["l0"]["mixer"]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = 0.5 * torch.randn((b, s, cfg.d_model), generator=gen,
+                              device="cuda")
+        y_chunk, st_chunk = xlstm.mlstm_apply(layer, x, cfg,
+                                              return_state=True)
+        y_seq, st_seq = xlstm.mlstm_reference(layer, x, cfg)
+        mlstm_diff = (y_chunk - y_seq).abs().max().item()
+        # the state relative to its largest entry (C sums 512 outer
+        # products, rescaled by the stabiliser)
+        state_diff = ((st_chunk["C"] - st_seq["C"]).abs().max()
+                      / st_seq["C"].abs().max().clamp(min=1.0)).item()
+    launches = ops.stats()
+    emit("xlstm", arch=cfg.name, dtype=cfg.dtype,
+         params=sum(x.numel() for x in params.parameters()),
+         layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+         chunk=cfg.xlstm_chunk, batch=b, seq=s, prefill_len=p,
+         teacher_forced_steps=s - p, max_abs_logit_diff=diff, tol=MODEL_TOL,
+         forward_ms=forward_ms, prefill_ms=prefill_ms,
+         decode_ms_per_step=decode_ms, state_dtypes=state_dtypes,
+         mlstm_max_abs_diff=mlstm_diff, mlstm_state_C_max_rel_diff=state_diff,
+         mlstm_tol=XLSTM_TOL, launches=launches)
+    del params, cache, want, got, x
+    torch.cuda.empty_cache()
+    if any(launches.values()):
+        raise AssertionError(f"the xLSTM path launched {launches}; it has "
+                             "no kernel")
+    if not finite:
+        raise AssertionError("xLSTM decode logits not finite")
+    if not diff <= MODEL_TOL:
+        raise AssertionError(f"xLSTM prefill + decode logits differ from the "
+                             f"forward's by {diff:.3e} > {MODEL_TOL}")
+    if state_dtypes != ["torch.float32"]:
+        raise AssertionError(f"xLSTM decode state in {state_dtypes}")
+    if not (mlstm_diff <= XLSTM_TOL and state_diff <= XLSTM_TOL):
+        raise AssertionError(f"mlstm_apply against mlstm_reference: "
+                             f"{mlstm_diff:.3e}, C {state_diff:.3e} (of its "
+                             f"largest) > "
+                             f"{XLSTM_TOL}")
+
+
+def phase_vlm(ops):
+    """25: Llama-3.2-Vision-90B at every published width with VLM_GROUPS
+    of its 20 groups. Float32: the kernel path against the plain path
+    (``phase_model``: K2 in the self-attention layers, xattn plain). bf16:
+    ``generate(vision=)`` at B 4, VLM_PROMPT-token prompts and VLM_GEN
+    tokens, K2 once a self-attention layer and K3 once such a layer a
+    step; prefill ms and ms a decode step from a second call that stops
+    after the prefill. Then 2 steps of ``--mode lm`` on the reduced
+    config, K2 exact. Returns (generate's launches, the lm run's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import generate
+    from repro_torch.models import model as model_lib
+
+    phase_model(ops, VLM, VLM_PROMPT, phase="vlm", groups=VLM_GROUPS)
+    cfg = dataclasses.replace(get_config(VLM), num_groups=VLM_GROUPS,
+                              attn_impl="kernel")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    b = 4
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (b, VLM_PROMPT))
+    vision = vision_stub(cfg, b, torch.bfloat16)
+    attn, _ = kernel_layers(cfg)
+
+    def timed(num_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate.generate(params, prompt, 0, cfg=cfg,
+                                num_steps=num_steps, vision=vision)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    timed(2)                                   # warm up
+    prefill_out, prefill_ms = timed(1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_stats()
+    out, total_ms = timed(VLM_GEN)
+    launches = ops.stats()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"vtrace": 0, "ssd_chunk": 0, "flash_attention": attn,
+            "decode_attention": attn * (VLM_GEN - 1)}
+    finite = all(bool(torch.isfinite(out[k]).all())
+                 for k in ("logprob", "entropy", "baseline"))
+    same_first = torch.equal(out["tokens"][:, :VLM_PROMPT + 1],
+                             prefill_out["tokens"])
+    emit("vlm_generate", arch=cfg.name, dtype=cfg.dtype,
+         num_groups=cfg.num_groups,
+         published_groups=get_config(VLM).num_groups,
+         params=sum(x.numel() for x in params.parameters()), batch=b,
+         prompt_len=VLM_PROMPT, gen_tokens=VLM_GEN,
+         vision_seq=cfg.vision_seq, prefill_ms=prefill_ms,
+         decode_ms_per_step=(total_ms - prefill_ms) / (VLM_GEN - 1),
+         total_ms=total_ms, tokens_per_s=b * VLM_GEN / total_ms * 1e3,
+         peak_mem_bytes=peak, launches=launches, want_launches=want,
+         shapes={k: list(v.shape) for k, v in out.items()})
+    del params, out, prefill_out, vision
+    torch.cuda.empty_cache()
+    if not finite or not same_first:
+        raise AssertionError(f"VLM generate: finite {finite}, the same "
+                             f"first token as its prefill {same_first}")
+    if launches != want:
+        raise AssertionError(f"VLM generate launches {launches}, want {want}")
+    emit("vlm_lm_cut", reason="reduced config: an AdamW step of one "
+         "full-width group (6.38e9 float32 parameters: weights, gradient, "
+         "two moments) needs about 102 GB")
+    return launches, phase_lm(ops, VLM_LM_ARGV, phase="vlm_lm", check=False)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2604,6 +2848,20 @@ def main():
     glm_rl_launches = phase_lm_rl(ops, GLM_RL_ARGV, phase="glm_rl")
     glm_launches = phase_lm(ops, GLM_ARGV, phase="glm")
 
+    # 22. full-width xLSTM-125M: forward against prefill + decode, and
+    # chunkwise mLSTM against its sequential oracle; 23. its server; 24.
+    # its lm-rl (K1) and lm runs
+    phase_xlstm(ops)
+    phase_serve(ops, XSERVE_ARGV, phase="xserve")
+    torch.cuda.empty_cache()
+    phase_profile(XLSTM, [8 * (slot + 1) for slot in range(8)], 128)
+    xlm_rl_launches = phase_lm_rl(ops, XLM_RL_ARGV, phase="xlm_rl")
+    phase_lm(ops, XLM_ARGV, phase="xlm", check=False)
+
+    # 25. Llama-3.2-Vision-90B, one group at full width: float32 kernel
+    # path against the plain path, bf16 generate(vision=), reduced lm
+    vlm_generate_launches, vlm_lm_launches = phase_vlm(ops)
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -2650,7 +2908,8 @@ def main():
         "recurrent_full_launches":
         recurrent_launches["full_width"]["launches"],
         "recurrent_full_shape": recurrent_launches["full_width"]["shape"],
-        "granite_lm_rl_launches": glm_rl_launches["vtrace"]}]
+        "granite_lm_rl_launches": glm_rl_launches["vtrace"],
+        "xlstm_lm_rl_launches": xlm_rl_launches["vtrace"]}]
     for name, replaces, all_rows, (shape, dtype) in [
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",
              flash_rows, FLASH_MAIN),
@@ -2669,6 +2928,9 @@ def main():
                if name == "flash_attention" else {}),
             "granite_serve_launches": gserve_launches[name],
             "granite_lm_rl_launches": glm_rl_launches[name],
+            "vlm_generate_launches": vlm_generate_launches[name],
+            **({"vlm_lm_launches": vlm_lm_launches[name]}
+               if name == "flash_attention" else {}),
             "max_abs_err": max(errs.values()),
             "max_abs_err_bf16": errs["bfloat16"],
             "max_abs_err_f32": errs["float32"],

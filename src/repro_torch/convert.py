@@ -11,8 +11,12 @@ every block leaf on a leading ``num_groups`` axis; the port's
 ``models.model.init`` keeps one node per group (``blocks.<g>.l0.mixer.wq``).
 The converter unstacks and restacks that axis and keeps every leaf's
 layout, so ``wq`` stays (d, H, hd), ``wo`` (H, hd, d), a Mamba2 layer's
-``conv_w`` (W, C), and an MoE layer's ``router`` (d, E), ``wi``/``wg``
-(E, d, f) and ``wo`` (E, f, d). The Zamba2 hybrids' shared block
+``conv_w`` (W, C), an MoE layer's ``router`` (d, E), ``wi``/``wg``
+(E, d, f) and ``wo`` (E, f, d), an mLSTM layer's ``wq``/``wk``/``wv``
+(d, H, dh), ``wi``/``wf`` (d, H), ``bf``, ``wo_gate`` and ``wo`` (d, d)
+and ``norm``, and an sLSTM layer's ``wx`` (d, 4, H, dh), ``wr`` (4, H,
+dh, dh), ``b``, ``norm``, ``up`` (d, 2d) and ``down`` (d, d). The
+Zamba2 hybrids' shared block
 (``shared.l0...``) is not stacked in either package and goes across as it
 is.
 

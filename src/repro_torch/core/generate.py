@@ -70,18 +70,19 @@ def _out(tok, lp, ent, baseline):
 
 @torch.no_grad()
 def _session_prefill(params, prompt, gens, temp, *, cfg, cache_seq_len,
-                     last_index=None):
+                     last_index=None, vision=None):
     """Prefill every row and sample its first token.
 
     prompt (B, P) int (may be right-padded; ``last_index`` = index of the
     true last token: an int shared by every row or a (B,) tensor of
-    per-row lengths-1, default P-1). Returns (state, out) where ``out``
-    holds the FIRST sampled token per row, aligned with
-    ``_session_step``'s.
+    per-row lengths-1, default P-1); vision (B, Sv, d) for a VLM, whose
+    ``xattn`` caches it fills. Returns (state, out) where ``out`` holds
+    the FIRST sampled token per row, aligned with ``_session_step``'s.
     """
     b, p = prompt.shape
     hidden, _, cache = model_lib.prefill(params, prompt, cfg=cfg,
-                                      cache_seq_len=cache_seq_len)
+                                         vision=vision,
+                                         cache_seq_len=cache_seq_len)
     if last_index is None:
         li = torch.full((b,), p - 1, dtype=torch.int64, device=prompt.device)
     else:
@@ -160,6 +161,7 @@ class DecodeSession:
     """
 
     def __init__(self, params, cfg, *, max_batch: int, max_len: int):
+        # as the reference: a VLM rolls out through generate(vision=) only
         if cfg.vision_seq:
             raise ValueError("DecodeSession serves text-only configs")
         self.cfg = cfg
@@ -301,12 +303,14 @@ class DecodeSession:
 # ---------------------------------------------------------------------------
 
 def generate(params, prompt, seed: int, *, cfg, num_steps: int,
-             temperature: float = 1.0):
+             temperature: float = 1.0, vision=None):
     """prompt: (B, P) int. Samples ``num_steps`` tokens for every row
     through the same session functions the continuous server runs; row i
     samples from a generator seeded with ``seed + i``, so a single-request
-    server given ``seed`` is bitwise-identical to row 0. Returns a dict of
-    tensors on the params' device:
+    server given ``seed`` is bitwise-identical to row 0. ``vision`` (B, Sv,
+    d): a VLM's patch embeddings, which feed the prefill (and through the
+    ``xattn`` caches every step), as the reference's ``_generate_vision``.
+    Returns a dict of tensors on the params' device:
       tokens    (B, P + num_steps)
       logprob   (B, num_steps)  behavior log-prob of each sampled token
       entropy   (B, num_steps)  policy entropy at each step
@@ -319,8 +323,11 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
     gens = [torch.Generator(device=dev).manual_seed(seed + i)
             for i in range(b)]
     temp = torch.full((b,), temperature, dtype=torch.float32, device=dev)
+    if vision is not None:
+        vision = torch.as_tensor(vision, device=dev)
     state, out0 = _session_prefill(params, prompt, gens, temp, cfg=cfg,
-                                   cache_seq_len=p + num_steps)
+                                   cache_seq_len=p + num_steps,
+                                   vision=vision)
     outs = [out0]
     for _ in range(num_steps - 1):
         state, out = _session_step(params, state, cfg=cfg)

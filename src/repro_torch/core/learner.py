@@ -183,6 +183,7 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
       behavior_logprob  (B, S) float32 mu(a_t|s_t) of the generating policy
       reward            (B, S) float32
       done              (B, S) bool
+      [vision]          (B, Sv, d)     VLM patch embeddings (the stub)
 
     The loss adds the MoE router's auxiliary terms, ``router_aux_weight``
     times the load-balance loss plus ``router_z_weight`` times the z-loss
@@ -192,7 +193,8 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
     def loss_fn(params, batch):
         tokens = batch["tokens"]          # (B, S+1); model sees first S
         # hidden[t] is the state after consuming token t => predicts t+1.
-        hidden, aux, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg)
+        hidden, aux, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg,
+                                           vision=batch.get("vision"))
         logprob, entropy = losses.chunked_logprob_entropy(
             hidden, model_lib.unembed_matrix(params, cfg), tokens[:, 1:],
             chunk=loss_chunk, final_softcap=cfg.final_logit_softcap)
@@ -232,14 +234,16 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
 
 def make_lm_pretrain_step(cfg, opt, *, loss_chunk=512):
     """Plain next-token-prediction step (the LM pretraining driver; also
-    the non-RL baseline). batch: {"tokens": (B, S+1) int}. Impls come from
+    the non-RL baseline). batch: {"tokens": (B, S+1) int} and, for a VLM,
+    "vision" (B, Sv, d) as in ``make_lm_train_step``. Impls come from
     the config as in ``make_lm_train_step``; the gradient includes the
     router's auxiliary terms as there, the reported ``loss`` is the
     cross-entropy alone."""
     def train_step(params, opt_state, step, batch):
         plist = list(params.parameters())
         tokens = batch["tokens"]
-        hidden, aux, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg)
+        hidden, aux, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg,
+                                           vision=batch.get("vision"))
         loss = losses.chunked_softmax_xent(
             hidden, model_lib.unembed_matrix(params, cfg), tokens[:, 1:],
             chunk=loss_chunk, final_softcap=cfg.final_logit_softcap)

@@ -834,19 +834,25 @@ class GeneratorSource:
     act with the current weights, and no copy of them is made. The
     attention/SSD impls come from the config (see ImplContext).
 
-    Tokens are sampled at temperature 1 and rewarded by
-    ``token_task_reward``. Every episode's prompts and per-slot sampling
-    seeds are drawn from one host ``torch.Generator`` seeded with
-    ``seed``; its state is the source's state for ``--resume``.
+    Tokens are sampled at ``temperature`` (default 1) and rewarded by
+    ``reward_fn``: the (B, T+1) tokens, a tensor on the session's device,
+    to (B, T) float32 rewards (default ``token_task_reward``). Every
+    episode's prompts and per-slot sampling seeds are drawn from one host
+    ``torch.Generator`` seeded with ``seed``; its state is the source's
+    state for ``--resume``.
     """
 
     def __init__(self, cfg, *, batch_size: int, episode_length: int,
-                 seed: int):
+                 seed: int, reward_fn: Optional[Callable] = None,
+                 temperature: float = 1.0):
         self._cfg = cfg
         self.batch_size = batch_size
         self.episode_length = episode_length
         self.frames_per_batch = batch_size * episode_length
         self._gen = torch.Generator().manual_seed(seed)
+        self._reward_fn = reward_fn or (
+            lambda toks: token_task_reward(toks, cfg.vocab_size))
+        self._temperature = temperature
         self._session = None
 
     def start(self, params) -> None:
@@ -870,7 +876,8 @@ class GeneratorSource:
         # batched admit: every episode reset is one prefill (the prompts
         # share a prefill bucket), not one per slot
         first = sess.prefill_many(range(b), list(prompt.numpy()),
-                                  seeds=seeds.tolist())
+                                  seeds=seeds.tolist(),
+                                  temperature=self._temperature)
         toks = [[f["token"] for f in first]]          # time-major lists
         lps = [[f["logprob"] for f in first]]
         for _ in range(t - 1):
@@ -882,7 +889,7 @@ class GeneratorSource:
         dev = sess.device
         obs = torch.cat([prompt.T, torch.as_tensor(np.asarray(toks))],
                         dim=0).to(dev)                 # (T+1, B)
-        reward = token_task_reward(obs.T, self._cfg.vocab_size).T
+        reward = self._reward_fn(obs.T).T
         done = torch.zeros((t, b), dtype=torch.bool, device=dev)
         done[-1] = True
         return {

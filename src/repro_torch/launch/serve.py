@@ -22,7 +22,11 @@ every prefill runs the flash-attention kernel and every decode step the
 decode-attention kernel, and with ``--ssd-impl kernel`` every Mamba2
 prefill runs the SSD chunk kernel (Zamba2: prompts of at most
 ``ssm_chunk`` tokens, 256 at full width, or a multiple of it, as in the
-reference). Weights are initialised from seed 0:
+reference). An xLSTM server (no kernel: the mLSTM and sLSTM mixers are
+plain PyTorch) likewise takes prompts of at most ``xlstm_chunk`` tokens,
+64 at full width, or a multiple of it. A VLM is refused, as in the
+reference: its rollouts run through ``core.generate.generate(vision=)``.
+Weights are initialised from seed 0:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --attn-impl kernel --requests 24 --prompt-len 512 --gen-tokens 64
@@ -31,6 +35,8 @@ reference). Weights are initialised from seed 0:
       --gen-tokens 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --reduced --device cpu --requests 6 --gen-tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+      --requests 24 --prompt-len 64 --gen-tokens 64
 """
 
 from __future__ import annotations

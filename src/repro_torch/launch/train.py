@@ -71,6 +71,16 @@ Examples:
       --attn-impl kernel --ssd-impl kernel --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm-rl \
       --arch qwen3-4b --attn-impl kernel --batch 8 --seq 64 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm-rl \
+      --arch xlstm-125m --reduced --steps 3 --batch 4 --seq 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+      --arch llama-3.2-vision-90b --reduced --attn-impl kernel --steps 2 \
+      --batch 2 --seq 16 --device cpu
+
+A VLM (``vision_seq``) trains in ``--mode lm`` on the vision stub (zero
+patch embeddings); ``--mode lm-rl`` refuses it, as the reference's does
+(its decode session serves text-only configs). An xLSTM's ``--seq`` is at
+most ``xlstm_chunk`` (64; 16 reduced) or a multiple of it.
 """
 
 from __future__ import annotations
@@ -91,6 +101,7 @@ from repro_torch.core.runtime import Runtime
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models.common import dtype_of
 from repro_torch.models.convnet import impala_deep, minatar_net
 from repro_torch.optim import make_optimizer
 
@@ -198,6 +209,16 @@ def build_lm(args):
     step_fn = learner_lib.make_lm_pretrain_step(
         cfg, opt, loss_chunk=min(512, args.seq))
     b = args.batch or 16
+    if cfg.vision_seq:
+        # the VLM's vision stub, as the reference's: zero patch embeddings
+        # in the activation type beside every batch
+        vision = torch.zeros((b, cfg.vision_seq, cfg.d_model),
+                             dtype=dtype_of(cfg), device=device)
+        pretrain_step = step_fn
+
+        def step_fn(params, opt_state, step, batch):
+            return pretrain_step(params, opt_state, step,
+                                 dict(batch, vision=vision))
     corpus = markov_corpus(cfg.vocab_size, 200_000, seed=1)
     # Checkpointable iterator (seed + offset): its state rides in every
     # checkpoint through DataSource.state_dict, so --resume replays the

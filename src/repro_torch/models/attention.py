@@ -1,7 +1,8 @@
-"""Attention mixers: GQA self-attention (full / sliding-window / local) with
+"""Attention mixers: GQA self-attention (full / sliding-window / local) and
+cross-attention (``xattn``, the VLM path: the text's queries against k and
+v projected from the vision input, non-causal, no rotary), with
 full-sequence, chunked (memory-bounded online-softmax) and single-token
-decode paths. Cross-attention (``xattn``, the VLM path) is not ported yet
-(ROADMAP item 16).
+decode paths.
 
 Shape conventions:
   x          (B, S, d)
@@ -19,7 +20,10 @@ the result is rounded back to the activation's type.
 reference's custom VJP) and decode-attention kernel (decode) on the card,
 and their plain versions for CPU tensors; ``xla`` (dense), ``xla_chunked`` and
 ``xla_chunked_skip`` keep the reference's names for its plain paths, here
-plain PyTorch; ``auto`` picks dense up to 2048 tokens.
+plain PyTorch; ``auto`` picks dense up to 2048 tokens. The kernels are
+causal: ``xattn`` under ``kernel`` takes the chunked plain path in prefill
+(every KV chunk visited, as the reference) and the dense product against
+its static vision cache in decode.
 """
 
 from __future__ import annotations
@@ -33,20 +37,14 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import Params, apply_rope, param, softcap
 
 
-def _not_ported(kind):
-    if kind == "xattn":
-        raise NotImplementedError(
-            "xattn (cross-attention, the VLM path) is not ported yet: "
-            "ROADMAP item 16")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 def attn_init(cfg, kind, *, generator, device=None):
-    """Params for one attention layer. kind: attn|local_attn|swa_attn."""
-    _not_ported(kind)
+    """Params for one attention layer; every kind has the same leaves.
+    kind: attn|local_attn|swa_attn|xattn."""
+    del kind
     d, h, k_, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     kw = dict(generator=generator, device=device)
@@ -223,34 +221,39 @@ def _attend_flash_kernel(q, k, v, *, scale, window, cap, chunk):
     return _FlashAttention.apply(q, k, v, scale, window, cap, chunk)
 
 
-def attn_apply(params, x, *, cfg, kind, positions, impl=None):
+def attn_apply(params, x, *, cfg, kind, positions, kv_src=None, impl=None):
     """Full-sequence attention (training / prefill).
 
-    positions: (S,) int token positions. Returns (out (B,S,d), (k, v)) —
-    k, v returned so that prefill can seed caches.
+    positions: (S,) int token positions. kv_src: (B,Sv,d), the source of
+    an ``xattn`` layer's k and v (default ``x``). Returns (out (B,S,d),
+    (k, v)) — k, v returned so that prefill can seed caches.
     """
-    _not_ported(kind)
-    q, k, v = _project_qkv(params, cfg, x, x)
-    if cfg.pos_emb == "rope":
+    causal = kind != "xattn"
+    src = x if kv_src is None else kv_src
+    q, k, v = _project_qkv(params, cfg, x, src)
+    if cfg.pos_emb == "rope" and causal:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     window = _window(cfg, kind)
+    kv_pos = (positions if causal
+              else torch.arange(src.shape[1], device=x.device))
     impl = impl or cfg.attn_impl
     if impl == "auto":
         impl = "xla" if x.shape[1] <= 2048 else "xla_chunked_skip"
     group = cfg.num_heads // cfg.num_kv_heads
-    if impl == "kernel":
+    if impl == "kernel" and causal:
         o = _attend_flash_kernel(q, k, v, scale=_scale(cfg), window=window,
                                  cap=cfg.attn_logit_softcap,
                                  chunk=cfg.attn_chunk)
     elif impl == "xla":
         o = _attend_dense(q, _expand_kv(k, group), _expand_kv(v, group),
-                          positions, positions, _scale(cfg), window,
-                          cfg.attn_logit_softcap, True)
-    elif impl in ("xla_chunked", "xla_chunked_skip"):
+                          positions, kv_pos, _scale(cfg), window,
+                          cfg.attn_logit_softcap, causal)
+    elif impl in ("xla_chunked", "xla_chunked_skip", "kernel"):
+        # the non-causal kernel impl (xattn) falls back to this path
         o = _attend_chunked(q, _expand_kv(k, group), _expand_kv(v, group),
-                            positions, positions, _scale(cfg), window,
-                            cfg.attn_logit_softcap, True, cfg.attn_chunk,
+                            positions, kv_pos, _scale(cfg), window,
+                            cfg.attn_logit_softcap, causal, cfg.attn_chunk,
                             skip=impl == "xla_chunked_skip")
     else:
         raise ValueError(f"unknown attn impl {impl}")
@@ -263,11 +266,14 @@ def attn_apply(params, x, *, cfg, kind, positions, impl=None):
 
 def attn_cache_init(cfg, kind, batch, seq_len, dtype, device=None):
     """Zero cache for one attention layer. Full attention: capacity =
-    seq_len. Windowed: a ring buffer of the window's size."""
-    _not_ported(kind)
+    seq_len. Windowed: a ring buffer of the window's size. xattn: the
+    static vision k/v, ``cfg.vision_seq`` slots."""
     k_, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     window = _window(cfg, kind)
-    cap = min(seq_len, window) if window else seq_len
+    if kind == "xattn":
+        cap = cfg.vision_seq
+    else:
+        cap = min(seq_len, window) if window else seq_len
     return {
         "k": torch.zeros((batch, cap, k_, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, cap, k_, hd), dtype=dtype, device=device),
@@ -283,11 +289,20 @@ def attn_decode(params, x, cache, *, cfg, kind, pos, impl=None):
     ``pos``, or ``pos % cap`` in a ring buffer) and the same dict is
     returned. ``impl="kernel"`` runs the decode-attention
     kernel against the cache as it lies (its plain version for CPU
-    tensors); anything else the grouped dense product.
+    tensors); anything else the grouped dense product. ``xattn`` attends
+    densely to its static vision cache, whatever the impl, and writes
+    nothing.
     Returns (out (B,1,d), cache).
     """
-    _not_ported(kind)
     group = cfg.num_heads // cfg.num_kv_heads
+    if kind == "xattn":
+        q, _, _ = _project_qkv(params, cfg, x, x)
+        k, v = cache["k"], cache["v"]
+        kv_pos = torch.arange(k.shape[1], device=x.device)
+        o = _attend_dense(q, _expand_kv(k, group), _expand_kv(v, group),
+                          None, kv_pos, _scale(cfg), 0,
+                          cfg.attn_logit_softcap, False)
+        return _out_proj(params, cfg, o), cache
     q, k_new, v_new = _project_qkv(params, cfg, x, x)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     vec = pos.dim() == 1                    # per-row positions

@@ -4,49 +4,51 @@ super-block's params form one ``Params`` node; ``model.py`` keeps one per
 group, and one more for the zamba-style shared block, whose pattern it
 passes as ``pattern``.
 
-Residual wiring: pre-norm (gemma2 adds sandwich post-norms). Ported
-mixers: the attention kinds ``attn``, ``local_attn`` and ``swa_attn``, and
-``mamba`` (Mamba2); ported FFNs: ``swiglu``, ``geglu``, ``gelu``, ``moe``
-and ``none``. The others raise ``NotImplementedError`` naming the ROADMAP
-item that ports them. A layer's decode cache is {"k", "v"} for attention
-and {"conv", "ssm"} for Mamba2. MoE aux losses are returned as a summed
-(load_balance, z_loss, dropped) triple, as in the reference.
+Residual wiring: pre-norm (gemma2 adds sandwich post-norms). Mixers: the
+attention kinds ``attn``, ``local_attn``, ``swa_attn`` and ``xattn``
+(cross-attention to the ``vision`` input), ``mamba`` (Mamba2), ``mlstm``
+and ``slstm`` (xLSTM); FFNs: ``swiglu``, ``geglu``, ``gelu``, ``moe`` and
+``none``. A layer's decode cache is {"k", "v"} for attention (the static
+vision k/v for ``xattn``), {"conv", "ssm"} for Mamba2, {"C", "m", "n"}
+for mLSTM and {"c", "h", "m", "n"} for sLSTM, the recurrent states in
+float32. MoE aux losses are returned as a summed (load_balance, z_loss,
+dropped) triple, as in the reference.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, mamba, mlp, moe
+from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.common import Params, make_norm, remat, remat_active
 
-# xattn raises in models/attention.py
-_NOT_PORTED = {
-    "mlstm": "ROADMAP item 17",
-    "slstm": "ROADMAP item 17",
-}
+ATTN_KINDS = ("attn", "local_attn", "swa_attn", "xattn")
+# the recurrent mixers' (init, apply, decode)
+_RECURRENT = {"mamba": (mamba.mamba_init, mamba.mamba_apply,
+                        mamba.mamba_decode),
+              "mlstm": (xlstm.mlstm_init, xlstm.mlstm_apply,
+                        xlstm.mlstm_decode),
+              "slstm": (xlstm.slstm_init, xlstm.slstm_apply,
+                        xlstm.slstm_decode)}
 
 
-def check_ported(pattern):
-    """Raise for any mixer or FFN of ``pattern`` that is not ported yet."""
-    for mixer, ffn in pattern:
-        for kind in (mixer, ffn):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{kind} is not ported yet: {_NOT_PORTED[kind]}")
+def _mixer_init(cfg, kind, **kw):
+    if kind in ATTN_KINDS:
+        return attention.attn_init(cfg, kind, **kw)
+    if kind in _RECURRENT:
+        return _RECURRENT[kind][0](cfg, **kw)
+    raise ValueError(f"unknown mixer kind {kind!r}")
 
 
 def block_init(cfg, *, generator, device=None, pattern=None):
     """Params for one super-block."""
     pattern = pattern if pattern is not None else cfg.block_pattern
-    check_ported(pattern)
     norm_init, _ = make_norm(cfg)
     kw = dict(generator=generator, device=device)
     layers = {}
     for idx, (mixer, ffn) in enumerate(pattern):
         layer = {"pre_norm": norm_init(cfg.d_model, device=device),
-                 "mixer": (mamba.mamba_init(cfg, **kw) if mixer == "mamba"
-                           else attention.attn_init(cfg, mixer, **kw))}
+                 "mixer": _mixer_init(cfg, mixer, **kw)}
         if cfg.sandwich_norm:
             layer["post_norm"] = norm_init(cfg.d_model, device=device)
         if ffn != "none":
@@ -88,11 +90,12 @@ def _apply_ffn(layer, x, cfg, ffn, norm_fn):
     return x + h, aux
 
 
-def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
-                build_cache=False, seq_len=None, dtype=None):
+def block_apply(params, x, *, cfg, positions, pattern=None, vision=None,
+                impl=None, build_cache=False, seq_len=None, dtype=None):
     """Full-sequence super-block. Returns (x, aux, cache|None): aux the
     layers' summed MoE losses (None without an MoE layer), and with
     ``build_cache`` (prefill) the cache holds this block's decode caches.
+    ``vision`` (B, Sv, d) is the source of the ``xattn`` layers' k and v.
     ``impl`` is the attention impl; Mamba2 reads ``cfg.ssd_impl``.
 
     Nested remat, as the reference: with ``cfg.remat`` and autograd
@@ -109,13 +112,13 @@ def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
         aux = None
         h = norm_fn(layer["pre_norm"], x)
         lcache = None
-        if mixer == "mamba":
-            h, lcache = mamba.mamba_apply(layer["mixer"], h, cfg,
-                                          return_state=build_cache)
+        if mixer in _RECURRENT:
+            h, lcache = _RECURRENT[mixer][1](layer["mixer"], h, cfg,
+                                             return_state=build_cache)
         else:
-            h, kv = attention.attn_apply(layer["mixer"], h, cfg=cfg,
-                                         kind=mixer, positions=positions,
-                                         impl=impl)
+            h, kv = attention.attn_apply(
+                layer["mixer"], h, cfg=cfg, kind=mixer, positions=positions,
+                kv_src=vision if mixer == "xattn" else None, impl=impl)
             if build_cache:
                 lcache = attention.attn_prefill_cache(cfg, mixer, kv,
                                                       seq_len, dtype)
@@ -143,16 +146,17 @@ def block_apply(params, x, *, cfg, positions, pattern=None, impl=None,
 
 def block_decode(params, x, cache, *, cfg, pos, pattern=None, impl=None):
     """One-token decode through a super-block; each layer's cache is
-    written in place. Returns (x, cache). An MoE layer routes every row,
-    idle slots included, and its aux is dropped, as in the reference."""
+    written in place (an ``xattn`` layer's vision k/v only read). Returns
+    (x, cache). An MoE layer routes every row, idle slots included, and
+    its aux is dropped, as in the reference."""
     pattern = pattern if pattern is not None else cfg.block_pattern
     _, norm_fn = make_norm(cfg)
     for idx, (mixer, ffn) in enumerate(pattern):
         layer = params[f"l{idx}"]
         h = norm_fn(layer["pre_norm"], x)
-        if mixer == "mamba":
-            h, _ = mamba.mamba_decode(layer["mixer"], h, cache[f"l{idx}"],
-                                      cfg)
+        if mixer in _RECURRENT:
+            h, _ = _RECURRENT[mixer][2](layer["mixer"], h, cache[f"l{idx}"],
+                                        cfg)
         else:
             h, _ = attention.attn_decode(layer["mixer"], h, cache[f"l{idx}"],
                                          cfg=cfg, kind=mixer, pos=pos,
@@ -166,13 +170,19 @@ def block_decode(params, x, cache, *, cfg, pos, pattern=None, impl=None):
 
 
 def block_cache_init(cfg, batch, seq_len, dtype, device=None, pattern=None):
-    """Zero decode cache for one super-block."""
+    """Zero decode cache for one super-block: attention k/v and Mamba2's
+    conv window in ``dtype``; the recurrent states in float32."""
     pattern = pattern if pattern is not None else cfg.block_pattern
-    check_ported(pattern)
-    return {f"l{idx}": (mamba.mamba_cache_init(cfg, batch, dtype,
-                                               device=device)
-                        if mixer == "mamba"
-                        else attention.attn_cache_init(cfg, mixer, batch,
-                                                       seq_len, dtype,
-                                                       device=device))
-            for idx, (mixer, _) in enumerate(pattern)}
+    cache = {}
+    for idx, (mixer, _) in enumerate(pattern):
+        if mixer == "mamba":
+            c = mamba.mamba_cache_init(cfg, batch, dtype, device=device)
+        elif mixer == "mlstm":
+            c = xlstm.mlstm_state_init(cfg, batch, device=device)
+        elif mixer == "slstm":
+            c = xlstm.slstm_state_init(cfg, batch, device=device)
+        else:
+            c = attention.attn_cache_init(cfg, mixer, batch, seq_len, dtype,
+                                          device=device)
+        cache[f"l{idx}"] = c
+    return cache

@@ -37,9 +37,12 @@ class Params(nn.Module):
 def param(shape, *, generator, device=None, scale=None, init="normal"):
     """A float32 leaf. ``normal``: truncated normal on [-2, 2] times
     ``scale`` (default 1/sqrt(shape[0]), the fan-in); ``zeros``: zeros
-    (norm scales, used as ``1 + scale``)."""
+    (norm scales, used as ``1 + scale``); ``ones``: ones (the mLSTM's
+    forget-gate bias)."""
     if init == "zeros":
         return torch.zeros(shape, dtype=torch.float32, device=device)
+    if init == "ones":
+        return torch.ones(shape, dtype=torch.float32, device=device)
     if scale is None:
         scale = 1.0 / math.sqrt(max(1, shape[0]))
     v = torch.empty(shape, dtype=torch.float32, device=device)

@@ -14,8 +14,10 @@ same weights. The apply functions take that tree.
 The decode cache mirrors the reference's: ``{"block": {"l<i>": leaves}}``,
 plus ``"shared": {"l0": {"k", "v"}}`` for the hybrids, every leaf stacked
 on a leading num_groups axis. An attention layer's leaves are k and v
-(G, B, cap, K, hd); a Mamba2 layer's are conv (G, B, W-1, C), the last
-inputs of its depthwise convolution, and ssm (G, B, H, P, N) in float32.
+(G, B, cap, K, hd) (an ``xattn`` layer's: the vision k/v, cap
+``vision_seq``); a Mamba2 layer's are conv (G, B, W-1, C), the last
+inputs of its depthwise convolution, and ssm (G, B, H, P, N) in float32;
+an mLSTM layer's C, m, n and an sLSTM layer's c, h, m, n, in float32.
 ``decode_step`` writes each layer's new entries into it in place, group by
 group, which is what the reference's ``unroll=True`` serve path makes XLA
 do with the donated cache buffer; no second copy of the cache is ever
@@ -38,7 +40,6 @@ SHARED_PATTERN = (("attn", "swiglu"),)  # zamba-style shared global block
 def init(cfg, *, seed=0, device=None):
     """A freshly initialised parameter tree for ``cfg`` on ``device``,
     drawn from a ``torch.Generator`` seeded with ``seed``."""
-    blocks.check_ported(cfg.block_pattern)
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=gen, device=device)
     norm_init, _ = make_norm(cfg)
@@ -93,9 +94,10 @@ def baseline_from_hidden(params, cfg, h):
     return h.float() @ params["baseline"].float()
 
 
-def forward(params, tokens, *, cfg, impl=None, build_cache=False,
-            cache_seq_len=None):
-    """Forward over a full sequence. tokens: (B, S) int.
+def forward(params, tokens, *, cfg, vision=None, impl=None,
+            build_cache=False, cache_seq_len=None):
+    """Forward over a full sequence. tokens: (B, S) int; vision: (B, Sv, d)
+    patch embeddings (the VLM stub), read by the ``xattn`` layers.
 
     Returns (hidden (B,S,d), aux, cache|None): aux = (load_balance,
     z_loss, dropped_frac) summed over all MoE layers (zeros without MoE),
@@ -116,7 +118,8 @@ def forward(params, tokens, *, cfg, impl=None, build_cache=False,
               build_cache=build_cache, seq_len=cache_seq_len, dtype=x.dtype)
 
     def body(block_params, x):
-        x, aux, cache = blocks.block_apply(block_params, x, **kw)
+        x, aux, cache = blocks.block_apply(block_params, x, vision=vision,
+                                           **kw)
         cache = {"block": cache}
         if cfg.shared_attn_every:
             x, saux, cache["shared"] = blocks.block_apply(
@@ -155,11 +158,11 @@ def cache_init(cfg, batch, seq_len, device=None):
                     one)
 
 
-def prefill(params, tokens, *, cfg, impl=None, cache_seq_len):
-    """Forward + build decode caches. Returns (hidden (B,S,d), aux,
-    cache)."""
-    return forward(params, tokens, cfg=cfg, impl=impl, build_cache=True,
-                   cache_seq_len=cache_seq_len)
+def prefill(params, tokens, *, cfg, vision=None, impl=None, cache_seq_len):
+    """Forward + build decode caches (an ``xattn`` layer's holds the vision
+    k/v). Returns (hidden (B,S,d), aux, cache)."""
+    return forward(params, tokens, cfg=cfg, vision=vision, impl=impl,
+                   build_cache=True, cache_seq_len=cache_seq_len)
 
 
 def decode_step(params, tokens, cache, pos, *, cfg, impl=None):
@@ -186,9 +189,9 @@ def decode_step(params, tokens, cache, pos, *, cfg, impl=None):
 # convenience heads for drivers/tests
 # ---------------------------------------------------------------------------
 
-def apply_lm(params, tokens, *, cfg, impl=None):
+def apply_lm(params, tokens, *, cfg, vision=None, impl=None):
     """(B,S) -> (logits float32 (B,S,V), baseline (B,S)|None, aux)."""
-    h, aux, _ = forward(params, tokens, cfg=cfg, impl=impl)
+    h, aux, _ = forward(params, tokens, cfg=cfg, vision=vision, impl=impl)
     return logits_from_hidden(params, cfg, h), \
         baseline_from_hidden(params, cfg, h), aux
 

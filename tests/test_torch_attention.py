@@ -289,10 +289,15 @@ def test_prefill_cache_rolls_like_the_reference():
     np.testing.assert_array_equal(got["v"].numpy(), want["v"])
 
 
-def test_xattn_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        TA.attn_init(get_reduced_config("qwen3-4b"), "xattn",
-                     generator=torch.Generator())
+def test_xattn_init_has_the_reference_leaves_and_shapes():
+    """Cross-attention builds the same leaves as self-attention, at the
+    reference's shapes (the VLM path: tests/test_torch_vlm.py)."""
+    jcfg = jax_reduced_config("llama-3.2-vision-90b")
+    jp = split_params(JA.attn_init(jax.random.PRNGKey(0), jcfg, "xattn"))[0]
+    tp = TA.attn_init(get_reduced_config("llama-3.2-vision-90b"), "xattn",
+                      generator=torch.Generator())
+    assert {k: tuple(v.shape) for k, v in tp.named_parameters()} == \
+        {k: tuple(v.shape) for k, v in jp.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """LM checkpoints across packages: a reduced ``--mode lm`` run checkpointed
 by the JAX package and resumed by the port, and one checkpointed by the
-port and resumed by the JAX package, for ``qwen3-4b`` and
-``granite-moe-1b-a400m``. Both packages write the reference's layout
+port and resumed by the JAX package, for ``qwen3-4b``,
+``granite-moe-1b-a400m`` and ``xlstm-125m`` (the mLSTM and sLSTM leaves). Both packages write the reference's layout
 (block leaves stacked on the group axis, AdamW's ``mu`` and ``nu`` as
 trees; ``repro_torch.convert.LMCheckpointLayout``), and the data
 iterator's state (seed, offset) crosses with them, so the resumed run
@@ -36,7 +36,7 @@ torch.set_num_threads(1)
 STEPS = 4
 TOL = dict(rtol=1e-5, atol=1e-5)
 STEP_ATOL = 3e-4 / 2     # half of AdamW's largest first step at lr 3e-4
-ARCHS = ["qwen3-4b", "granite-moe-1b-a400m"]
+ARCHS = ["qwen3-4b", "granite-moe-1b-a400m", "xlstm-125m"]
 
 
 def _argv(arch, directory, *extra):

@@ -10,7 +10,10 @@ a seed:
   state carried between them): loss and every parameter after each of two
   AdamW steps;
 * both steps on the reduced ``granite-moe-1b-a400m`` (two MoE layers,
-  dropless at capacity 4.0), whose router losses enter the gradient.
+  dropless at capacity 4.0), whose router losses enter the gradient;
+* both steps on the reduced ``xlstm-125m`` (an mLSTM and an sLSTM layer,
+  no kernel but V-trace's: the lm-rl step's 16 tokens are one mLSTM
+  chunk, the pretraining step's 32 two).
 
 Each through the kernel paths (the JAX Pallas kernels in interpret mode;
 the port's kernel wrappers, which on CPU tensors run their plain versions)
@@ -29,7 +32,15 @@ In the float32 lm-rl cases 1 to 3 elements of six of the reduced qwen3's
 leaves land there (``ffn/wg``, ``ffn/wo``, ``mixer/wk``, ``mixer/wo``,
 ``embed``), at most 5.7e-5 apart (0.19 lr); the pretraining cases have
 none. The optimizer's own arithmetic is held against the reference in
-tests/test_torch_optim.py."""
+tests/test_torch_optim.py.
+
+The xLSTM's losses are more sensitive to those few elements: in its
+float32 lm-rl case three ``mixer/wk`` elements 5.5e-5 apart after the
+first step move the second step's pg_loss by 2.3e-4, while the second
+step from the reference's own weights agrees within 1.3e-5. So its lm-rl
+cases restart each step from the reference's parameters (``_resync``): every
+step's metrics are held at the tolerance from the same weights, and every
+update as above; the optimizer state carries over."""
 
 import dataclasses
 
@@ -118,7 +129,15 @@ def _rollout(vocab, t, b, seed):
             "reward": np.ascontiguousarray(reward), "done": done}
 
 
-def _lm_rl_steps(arch, dtype, attn, vtrace):
+def _resync(tparams, jparams):
+    """The reference's parameters into the port's tree: the next step
+    starts from the same weights (module docstring, xLSTM)."""
+    with torch.no_grad():
+        tparams.load_state_dict(lm_state_dict_from_jax(jparams),
+                                strict=True)
+
+
+def _lm_rl_steps(arch, dtype, attn, vtrace, resync=False):
     t, b = 16, 4
     jcfg, tcfg, jparams, tparams = _setup(arch, dtype, attn)
     jtc, ttc = JTrainConfig(**RL_TRAIN), TTrainConfig(**RL_TRAIN)
@@ -145,6 +164,8 @@ def _lm_rl_steps(arch, dtype, attn, vtrace):
             np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]),
                                        err_msg=f"{k} step {step}", **tol)
         _assert_params_close(tparams, jparams, tol, f"after step {step}")
+        if resync:
+            _resync(tparams, jparams)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -161,6 +182,12 @@ def test_granite_lm_rl_train_step_matches_jax(dtype, attn, vtrace):
     """Granite's MoE layers under remat: the router's load-balance and
     z-loss terms enter the gradient, as in the reference."""
     _lm_rl_steps("granite-moe-1b-a400m", dtype, attn, vtrace)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vtrace", ["kernel", "scan"])
+def test_xlstm_lm_rl_train_step_matches_jax(dtype, vtrace):
+    _lm_rl_steps("xlstm-125m", dtype, "xla", vtrace, resync=True)
 
 
 def _pretrain_steps(arch, dtype, impl):
@@ -199,3 +226,10 @@ def test_granite_lm_pretrain_step_matches_jax(dtype, impl):
     """As the lm-rl case: the router's terms in the pretraining gradient,
     through remat's per-group checkpoint regions."""
     _pretrain_steps("granite-moe-1b-a400m", dtype, impl)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xlstm_lm_pretrain_step_matches_jax(dtype):
+    """The sLSTM's 32-step loop and two mLSTM chunks under autograd, with
+    remat's per-layer and per-group regions."""
+    _pretrain_steps("xlstm-125m", dtype, "xla")

@@ -7,6 +7,9 @@ task's, and every behavior log-prob equals the log-prob that the port's
 own full-sequence forward gives the sampled token (float32, 1e-5) — also
 after the learner has moved the weights in place, which the session reads
 without a copy. Its generator state resumes the exact episode stream.
+Its ``temperature`` and ``reward_fn`` (the reference's arguments) change
+the behavior log-probs and the rewards as they do there, and their
+defaults change nothing, bit for bit.
 
 ``DataSource`` over the packed batch iterator: its state nests the
 iterator's, so a restored source hands out the same batches; a
@@ -40,18 +43,23 @@ def _setup(arch="qwen3-4b", attn="kernel"):
     return cfg, tmodel.init(cfg, seed=0)
 
 
-def _full_forward_logprob(params, cfg, obs):
+def _full_forward_logprob(params, cfg, obs, temperature=1.0):
     with torch.no_grad():
         tokens = obs.T.long()                                # (B, T+1)
         logits = tmodel.apply_lm(params, tokens[:, :-1], cfg=cfg)[0]
-        lp = torch.log_softmax(logits, dim=-1)
+        lp = torch.log_softmax(logits / temperature, dim=-1)
         return lp.gather(-1, tokens[:, 1:, None])[..., 0].T  # (T, B)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b"])
+def _episode_length(arch):
+    # Mamba2 and mLSTM: one whole chunk
+    return 16 if arch in ("zamba2-2.7b", "xlstm-125m") else T
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b", "xlstm-125m"])
 def test_generator_rollout_contract(arch):
     cfg, params = _setup(arch)
-    t = 16 if arch == "zamba2-2.7b" else T    # Mamba2: one whole chunk
+    t = _episode_length(arch)
     src = sources.GeneratorSource(cfg, batch_size=B, episode_length=t,
                                   seed=7)
     for _ in range(2):
@@ -74,6 +82,40 @@ def test_generator_rollout_contract(arch):
         with torch.no_grad():       # the learner's in-place update
             for p in params.parameters():
                 p.add_(0.01 * torch.sign(p))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "xlstm-125m"])
+def test_generator_temperature_and_reward_fn(arch):
+    """The defaults are bitwise today's stream; temperature 0.5 samples
+    from and records log softmax(logits / 0.5); ``reward_fn`` gets the
+    (B, T+1) tokens on the session's device and its (B, T) rewards come
+    back time-major."""
+    cfg, params = _setup(arch)
+    t = _episode_length(arch)
+    seen = []
+
+    def parity(tokens):
+        seen.append(tokens)
+        return (tokens[:, 1:] % 2 == 0).float()
+
+    plain = sources.GeneratorSource(cfg, batch_size=B, episode_length=t,
+                                    seed=7)
+    explicit = sources.GeneratorSource(
+        cfg, batch_size=B, episode_length=t, seed=7, temperature=1.0,
+        reward_fn=lambda tok: sources.token_task_reward(tok, cfg.vocab_size))
+    cold = sources.GeneratorSource(cfg, batch_size=B, episode_length=t,
+                                   seed=7, temperature=0.5, reward_fn=parity)
+    ra, rb, rc = (s.next_batch(params) for s in (plain, explicit, cold))
+    for k in ra:
+        assert torch.equal(ra[k], rb[k]), k
+    np.testing.assert_allclose(
+        rc["behavior_logprob"].numpy(),
+        _full_forward_logprob(params, cfg, rc["obs"], 0.5).numpy(),
+        rtol=1e-5, atol=1e-5)
+    assert len(seen) == 1 and seen[0].shape == (B, t + 1)
+    assert seen[0].device == next(params.parameters()).device
+    assert torch.equal(seen[0], rc["obs"].T.to(seen[0].dtype))
+    assert torch.equal(rc["reward"], (rc["obs"][1:] % 2 == 0).float())
 
 
 def test_generator_state_resumes_the_episode_stream():

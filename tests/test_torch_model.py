@@ -4,8 +4,10 @@ baseline and MoE aux for the reduced ``qwen3-4b``, ``gemma2-27b`` (window,
 both softcaps, sandwich norms, GeGLU), ``zamba2-2.7b`` (Mamba2 layers and
 the shared attention block, also at the published head_dim 80) and
 ``granite-moe-1b-a400m`` (MoE FFNs, dropless at the reduced capacity 4.0),
-the same in bf16, and teacher forcing of JAX ``generate``'s token stream
-through the port."""
+``xlstm-125m`` (an mLSTM and an sLSTM layer) and ``llama-3.2-vision-90b``
+(a self-attention and a cross-attention layer, fed a seeded vision
+input), the same in bf16, and teacher forcing of JAX ``generate``'s token
+stream through the port."""
 
 import dataclasses
 
@@ -30,11 +32,12 @@ from repro_torch.models import model as tmodel
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_attn_impl.py's float32 bar
-ARCHS = ["qwen3-4b", "gemma2-27b", "zamba2-2.7b", "granite-moe-1b-a400m"]
-# Mamba2 takes sequences of at most one chunk (16 tokens reduced) or a
-# multiple of it, as in the reference: zamba2's lengths are multiples
-FORWARD_LEN = {"zamba2-2.7b": 48}
-PREFILL_LEN = {"zamba2-2.7b": 32}
+ARCHS = ["qwen3-4b", "gemma2-27b", "zamba2-2.7b", "granite-moe-1b-a400m",
+         "xlstm-125m", "llama-3.2-vision-90b"]
+# Mamba2 and mLSTM take sequences of at most one chunk (16 tokens reduced)
+# or a multiple of it, as in the reference: their lengths are multiples
+FORWARD_LEN = {"zamba2-2.7b": 48, "xlstm-125m": 48}
+PREFILL_LEN = {"zamba2-2.7b": 32, "xlstm-125m": 32}
 
 
 def _setup(arch, **over):
@@ -48,6 +51,16 @@ def _setup(arch, **over):
 
 def _tokens(cfg, shape, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def _vision(cfg, batch, seed=11):
+    """A VLM's seeded patch embeddings as (JAX, port) inputs; (None, None)
+    for the other archs."""
+    if not cfg.vision_seq:
+        return None, None
+    v = np.random.default_rng(seed).normal(
+        0, 1, (batch, cfg.vision_seq, cfg.d_model)).astype(np.float32)
+    return jnp.asarray(v), torch.from_numpy(v)
 
 
 def _leaves(tree, prefix=""):
@@ -100,16 +113,26 @@ def test_converter_round_trip(arch):
     layouts and the group axis is unstacked."""
     _, tcfg, jparams, tparams = _setup(arch)
     sd = tparams.state_dict()
-    attn = "shared.l0" if tcfg.shared_attn_every else "blocks.0.l0"
-    assert tuple(sd[f"{attn}.mixer.wq"].shape) == (
-        tcfg.d_model, tcfg.num_heads, tcfg.resolved_head_dim)
-    assert tuple(sd[f"{attn}.mixer.wo"].shape) == (
-        tcfg.num_heads, tcfg.resolved_head_dim, tcfg.d_model)
-    if tcfg.is_recurrent:
+    d, h, hd = tcfg.d_model, tcfg.num_heads, tcfg.resolved_head_dim
+    mixers = [m for m, _ in tcfg.block_pattern]
+    attn = ("shared.l0" if tcfg.shared_attn_every
+            else "blocks.0.l0" if mixers[0].endswith("attn") else None)
+    if attn is not None:
+        assert tuple(sd[f"{attn}.mixer.wq"].shape) == (d, h, hd)
+        assert tuple(sd[f"{attn}.mixer.wo"].shape) == (h, hd, d)
+    if "mamba" in mixers:
         # Mamba2 leaves keep the reference's layouts: conv_w (W, C)
         assert tuple(sd["blocks.0.l0.mixer.conv_w"].shape) == (
             tcfg.ssm_conv_width,
-            tcfg.ssm_expand * tcfg.d_model + 2 * tcfg.ssm_state)
+            tcfg.ssm_expand * d + 2 * tcfg.ssm_state)
+    if "mlstm" in mixers:
+        # xLSTM leaves too: mLSTM wq (d, H, dh), wo (d, d); sLSTM wx (d,
+        # 4, H, dh), wr (4, H, dh, dh)
+        dh = d // h
+        assert tuple(sd["blocks.0.l0.mixer.wq"].shape) == (d, h, dh)
+        assert tuple(sd["blocks.0.l0.mixer.wo"].shape) == (d, d)
+        assert tuple(sd["blocks.0.l1.mixer.wx"].shape) == (d, 4, h, dh)
+        assert tuple(sd["blocks.0.l1.mixer.wr"].shape) == (4, h, dh, dh)
     back = lm_state_dict_to_jax(sd)
     flat_want = jax.tree_util.tree_leaves_with_path(jparams)
     flat_got = jax.tree_util.tree_leaves_with_path(back)
@@ -118,11 +141,17 @@ def test_converter_round_trip(arch):
         np.testing.assert_array_equal(got, np.asarray(want), err_msg=path)
 
 
-def test_unported_mixers_raise_naming_the_roadmap_item():
-    for arch, item in [("xlstm-125m", "item 17"),
-                       ("llama-3.2-vision-90b", "item 16")]:
-        with pytest.raises(NotImplementedError, match=item):
-            tmodel.init(tconfigs.get_reduced_config(arch))
+def test_every_arch_initialises_with_the_reference_leaves():
+    """Every arch of the registry (reduced) initialises in the port, with
+    the reference's leaf names and shapes (its group axis unstacked)."""
+    for arch in tconfigs.ARCHS:
+        jparams, _ = jmodel.init(jax.random.PRNGKey(0),
+                                 jconfigs.get_reduced_config(arch))
+        want = {k: tuple(v.shape)
+                for k, v in lm_state_dict_from_jax(jparams).items()}
+        got = {k: tuple(v.shape) for k, v in tmodel.init(
+            tconfigs.get_reduced_config(arch)).state_dict().items()}
+        assert got == want, arch
 
 
 # ---------------------------------------------------------------------------
@@ -135,11 +164,14 @@ def test_forward_logits_baseline_match_jax(arch, impl):
     """``impl`` picks both the attention and the Mamba2 SSD path."""
     jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl)
     tokens = _tokens(tcfg, (2, FORWARD_LEN.get(arch, 40)))
+    jvis, tvis = _vision(tcfg, 2)
     want_l, want_b, want_aux = jmodel.apply_lm(jparams, jnp.asarray(tokens),
-                                               cfg=jcfg, impl=impl)
+                                               cfg=jcfg, vision=jvis,
+                                               impl=impl)
     with torch.no_grad():
         got_l, got_b, got_aux = tmodel.apply_lm(
-            tparams, torch.from_numpy(tokens), cfg=tcfg, impl=impl)
+            tparams, torch.from_numpy(tokens), cfg=tcfg, vision=tvis,
+            impl=impl)
     np.testing.assert_allclose(got_l.numpy(), want_l, **TOL)
     np.testing.assert_allclose(got_b.numpy(), want_b, **TOL)
     for got, want in zip(got_aux, want_aux):   # zeros without MoE
@@ -150,19 +182,22 @@ def test_forward_logits_baseline_match_jax(arch, impl):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_match_jax(arch, impl):
     """A 36-token prefill (past gemma2's 32-token window: the ring is
-    rolled; zamba2: two 16-token chunks, the state carried through the SSD
-    chunk) builds the reference's caches, every subtree and leaf of them,
-    and 8 decode steps at per-row positions (wrapping the ring) track its
-    logits and baseline."""
+    rolled; zamba2 and xlstm: two 16-token chunks, the state carried
+    through the SSD chunk or the mLSTM's chunk step; the VLM: its xattn
+    cache holds the vision k/v) builds the reference's caches, every
+    subtree and leaf of them, and 8 decode steps at per-row positions
+    (wrapping the ring) track its logits and baseline."""
     jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl)
     p, n = PREFILL_LEN.get(arch, 36), 8
     tokens = _tokens(tcfg, (2, p + n), seed=2)
+    jvis, tvis = _vision(tcfg, 2)
     _, _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens[:, :p]),
-                                  cfg=jcfg, impl=impl, cache_seq_len=p + n)
+                                  cfg=jcfg, vision=jvis, impl=impl,
+                                  cache_seq_len=p + n)
     with torch.no_grad():
         _, _, tcache = tmodel.prefill(
-            tparams, torch.from_numpy(tokens[:, :p]), cfg=tcfg, impl=impl,
-            cache_seq_len=p + n)
+            tparams, torch.from_numpy(tokens[:, :p]), cfg=tcfg, vision=tvis,
+            impl=impl, cache_seq_len=p + n)
     paths = [path for path, _ in _leaves(tcache)]
     assert paths == [path for path, _ in _leaves(jcache)]
     for path, got in _leaves(tcache):
@@ -271,14 +306,15 @@ def test_teacher_forced_generate_stream_matches_jax(arch):
     jcfg, tcfg, jparams, tparams = _setup(arch)
     p, n, temp = 6, 10, 0.7
     prompt = _tokens(tcfg, (2, p), seed=4)
+    jvis, tvis = _vision(tcfg, 2)
     ref = jax.tree.map(np.asarray, jgen.generate(
         jparams, jnp.asarray(prompt, jnp.int32), jax.random.PRNGKey(9),
-        cfg=jcfg, num_steps=n, temperature=temp))
+        cfg=jcfg, num_steps=n, temperature=temp, vision=jvis))
     stream = torch.from_numpy(ref["tokens"].astype(np.int64))
     lps, ents, bases = [], [], []
     with torch.no_grad():
         hidden, _, cache = tmodel.prefill(tparams, stream[:, :p], cfg=tcfg,
-                                          cache_seq_len=p + n)
+                                          vision=tvis, cache_seq_len=p + n)
         h = hidden[:, -1:]
         for t in range(p, p + n):
             logits = tmodel.logits_from_hidden(tparams, tcfg, h)[:, 0]
@@ -295,11 +331,11 @@ def test_teacher_forced_generate_stream_matches_jax(arch):
 
 
 @pytest.mark.parametrize("impl", ["xla", "kernel"])
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", "zamba2-2.7b",
-                                  "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_remat_on_and_off_give_the_same_values_and_grads(arch, impl):
     """``cfg.remat`` (checkpoint regions per group, and per layer of a
-    multi-layer group: gemma2's pair, zamba2's Mamba2 layers) changes what
+    multi-layer group: gemma2's pair, zamba2's Mamba2 layers, the xLSTM's
+    (mLSTM, sLSTM) pair, the VLM's pair) changes what
     autograd keeps, not what it computes: the hidden states, the MoE aux
     (its router losses in the loss) and every parameter's gradient are
     bitwise those without it."""
@@ -309,10 +345,14 @@ def test_remat_on_and_off_give_the_same_values_and_grads(arch, impl):
                                   remat=remat, attn_impl=impl, ssd_impl=impl)
         params = tmodel.init(cfg, seed=0)
         tokens = torch.from_numpy(_tokens(cfg, (2, FORWARD_LEN.get(arch, 40))))
-        hidden, aux, _ = tmodel.forward(params, tokens, cfg=cfg)
+        hidden, aux, _ = tmodel.forward(params, tokens, cfg=cfg,
+                                        vision=_vision(cfg, 2)[1])
         loss = torch.sum(torch.square(hidden)) \
             + tmodel.baseline_from_hidden(params, cfg, hidden).sum() \
             + aux[0] + aux[1]
+        if not cfg.tie_embeddings:      # the VLM's unembedding
+            loss = loss + tmodel.logits_from_hidden(params, cfg,
+                                                    hidden).mean()
         names, plist = zip(*params.named_parameters())
         runs[remat] = (hidden.detach(), [a.detach() for a in aux], names,
                        torch.autograd.grad(loss, plist))

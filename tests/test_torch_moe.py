@@ -277,8 +277,27 @@ def test_group_size_contract_raises_like_the_reference():
         moe.moe_apply(tp, torch.from_numpy(x), tcfg)
 
 
-def test_moe_is_ported_and_the_others_still_raise():
-    blocks.check_ported((("attn", "moe"),))
-    for kind, item in [("mlstm", "item 17"), ("slstm", "item 17")]:
-        with pytest.raises(NotImplementedError, match=item):
-            blocks.check_ported(((kind, "none"),))
+def test_every_mixer_and_ffn_kind_builds_and_unknown_kinds_raise():
+    """Every (mixer, ffn) kind of the registry's patterns builds a block in
+    the port; an unknown mixer kind raises ValueError, as the reference's
+    ``_mixer_init`` does, and so does an unknown FFN kind."""
+    from repro_torch.configs import ARCHS, get_config
+    # granite's experts and d_ff, zamba2's reduced SSM widths
+    cfg = dataclasses.replace(get_reduced_config("granite-moe-1b-a400m"),
+                              ssm_state=16, ssm_head_dim=32)
+    mixers = {m for a in ARCHS for m, _ in get_config(a).block_pattern}
+    ffns = {f for a in ARCHS for _, f in get_config(a).block_pattern}
+    assert mixers == {"attn", "local_attn", "swa_attn", "xattn", "mamba",
+                      "mlstm", "slstm"}
+    pattern = tuple(zip(sorted(mixers), sorted(ffns) * 2))
+    assert {f for _, f in pattern} == ffns
+    block = blocks.block_init(cfg, generator=torch.Generator(),
+                              pattern=pattern)
+    assert [n for n, _ in block.named_children()] == [
+        f"l{i}" for i in range(len(pattern))]
+    with pytest.raises(ValueError, match="conv"):
+        blocks.block_init(cfg, generator=torch.Generator(),
+                          pattern=(("conv", "none"),))
+    with pytest.raises(ValueError):
+        blocks.block_init(cfg, generator=torch.Generator(),
+                          pattern=(("attn", "relu"),))

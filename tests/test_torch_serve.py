@@ -8,9 +8,11 @@ file is bitwise —
 and batched admission, the server's thread and failure handling, and the
 serve CLI on the CPU; for the reduced Zamba2 hybrid too (Mamba2 conv and
 ssm state in the slot's cache row, the shared block's KV), whose session
-is also held against the JAX ``DecodeSession`` by teacher forcing; and for
+is also held against the JAX ``DecodeSession`` by teacher forcing; for
 the reduced Granite MoE, whose capacity 4.0 is dropless, so that a token's
-experts never depend on its neighbours in the batch."""
+experts never depend on its neighbours in the batch; and for the reduced
+xLSTM (the mLSTM and sLSTM states in the slot's cache row, float32),
+teacher-forced against the JAX session too."""
 
 import dataclasses
 
@@ -35,7 +37,7 @@ SEED = 7
 
 @pytest.fixture(scope="module",
                 params=["qwen3-4b", "gemma2-27b", "zamba2-2.7b",
-                        "granite-moe-1b-a400m"])
+                        "granite-moe-1b-a400m", "xlstm-125m"])
 def setup(request):
     cfg = get_reduced_config(request.param)
     params = model_lib.init(cfg, seed=0)
@@ -277,8 +279,10 @@ def test_failed_prefill_fails_only_its_request(monkeypatch):
     ["--arch", "zamba2-2.7b", "--ssd-impl", "kernel", "--prompt-len", "16",
      "--gen-tokens", "8"],
     ["--arch", "granite-moe-1b-a400m", "--prompt-len", "12", "--gen-tokens",
-     "5", "--max-batch", "4"]],
-    ids=["qwen3-4b", "zamba2-2.7b", "granite-moe-1b-a400m"])
+     "5", "--max-batch", "4"],
+    ["--arch", "xlstm-125m", "--prompt-len", "16", "--gen-tokens", "8",
+     "--max-batch", "4"]],
+    ids=["qwen3-4b", "zamba2-2.7b", "granite-moe-1b-a400m", "xlstm-125m"])
 def test_serve_cli_on_cpu(capsys, argv):
     """``--device cpu --reduced``: every request served, prompts echoed,
     each admission one flash-attention call per layer (and one SSD chunk
@@ -303,6 +307,23 @@ def test_zamba2_session_teacher_forced_matches_jax(monkeypatch):
     token the reference sampled at the same call; every slot's logprob,
     entropy and baseline must then agree within 1e-4, as in
     tests/test_torch_model.py's teacher forcing."""
+    _session_teacher_forced(monkeypatch, "zamba2-2.7b")
+
+
+def test_xlstm_session_teacher_forced_matches_jax(monkeypatch):
+    """The same for the reduced xLSTM (prompts of at most one mLSTM chunk,
+    16 tokens); a prompt of 24 tokens, over one chunk and not a multiple
+    of it, is refused with ValueError (the reference asserts)."""
+    cfg = _session_teacher_forced(monkeypatch, "xlstm-125m")
+    sess = G.DecodeSession(model_lib.init(cfg, seed=0), cfg, max_batch=1,
+                           max_len=32)
+    with pytest.raises(ValueError, match="multiple"):
+        sess.prefill_into(0, np.arange(24) % cfg.vocab_size, seed=0)
+
+
+def _session_teacher_forced(monkeypatch, arch):
+    """The module's teacher-forced session check (see the Zamba2 test) on
+    ``arch``; returns the port's config."""
     import jax
     import jax.numpy as jnp
 
@@ -311,8 +332,8 @@ def test_zamba2_session_teacher_forced_matches_jax(monkeypatch):
     from repro.models import model as jmodel
     from repro_torch.convert import lm_state_dict_from_jax
 
-    jcfg = jconfigs.get_reduced_config("zamba2-2.7b")
-    cfg = get_reduced_config("zamba2-2.7b")
+    jcfg = jconfigs.get_reduced_config(arch)
+    cfg = get_reduced_config(arch)
     jparams, _ = jmodel.init(jax.random.PRNGKey(0), jcfg)
     params = model_lib.init(cfg, seed=0)
     params.load_state_dict(lm_state_dict_from_jax(jparams), strict=True)
@@ -355,6 +376,7 @@ def test_zamba2_session_teacher_forced_matches_jax(monkeypatch):
         for key in ("logprob", "entropy", "baseline"):
             np.testing.assert_allclose(g[key], w[key], rtol=1e-4, atol=1e-4,
                                        err_msg=f"call {n} {key}")
+    return cfg
 
 
 def test_serve_cli_cuda_without_gpu_raises():
