@@ -36,6 +36,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import Params, apply_rope, param, softcap
 
+# the self-attention kinds: causal, rotary, and the only kinds that run
+# the attention kernels (``xattn`` is the fourth kind)
+CAUSAL_KINDS = ("attn", "local_attn", "swa_attn")
 
 # ---------------------------------------------------------------------------
 # init
@@ -228,7 +231,7 @@ def attn_apply(params, x, *, cfg, kind, positions, kv_src=None, impl=None):
     an ``xattn`` layer's k and v (default ``x``). Returns (out (B,S,d),
     (k, v)) — k, v returned so that prefill can seed caches.
     """
-    causal = kind != "xattn"
+    causal = kind in CAUSAL_KINDS
     src = x if kv_src is None else kv_src
     q, k, v = _project_qkv(params, cfg, x, src)
     if cfg.pos_emb == "rope" and causal:

@@ -22,14 +22,18 @@ import torch
 from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.common import Params, make_norm, remat, remat_active
 
-ATTN_KINDS = ("attn", "local_attn", "swa_attn", "xattn")
-# the recurrent mixers' (init, apply, decode)
-_RECURRENT = {"mamba": (mamba.mamba_init, mamba.mamba_apply,
-                        mamba.mamba_decode),
-              "mlstm": (xlstm.mlstm_init, xlstm.mlstm_apply,
-                        xlstm.mlstm_decode),
-              "slstm": (xlstm.slstm_init, xlstm.slstm_apply,
-                        xlstm.slstm_decode)}
+ATTN_KINDS = attention.CAUSAL_KINDS + ("xattn",)
+# the recurrent mixers' (init, apply, decode, cache_init(cfg, batch, dtype,
+# device)); the xLSTM states are float32 whatever the activation's type
+_RECURRENT = {
+    "mamba": (mamba.mamba_init, mamba.mamba_apply, mamba.mamba_decode,
+              mamba.mamba_cache_init),
+    "mlstm": (xlstm.mlstm_init, xlstm.mlstm_apply, xlstm.mlstm_decode,
+              lambda cfg, batch, dtype, device: xlstm.mlstm_state_init(
+                  cfg, batch, device=device)),
+    "slstm": (xlstm.slstm_init, xlstm.slstm_apply, xlstm.slstm_decode,
+              lambda cfg, batch, dtype, device: xlstm.slstm_state_init(
+                  cfg, batch, device=device))}
 
 
 def _mixer_init(cfg, kind, **kw):
@@ -175,12 +179,8 @@ def block_cache_init(cfg, batch, seq_len, dtype, device=None, pattern=None):
     pattern = pattern if pattern is not None else cfg.block_pattern
     cache = {}
     for idx, (mixer, _) in enumerate(pattern):
-        if mixer == "mamba":
-            c = mamba.mamba_cache_init(cfg, batch, dtype, device=device)
-        elif mixer == "mlstm":
-            c = xlstm.mlstm_state_init(cfg, batch, device=device)
-        elif mixer == "slstm":
-            c = xlstm.slstm_state_init(cfg, batch, device=device)
+        if mixer in _RECURRENT:
+            c = _RECURRENT[mixer][3](cfg, batch, dtype, device=device)
         else:
             c = attention.attn_cache_init(cfg, mixer, batch, seq_len, dtype,
                                           device=device)
