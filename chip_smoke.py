@@ -20,13 +20,15 @@ exits nonzero without printing a result:
               16), at Granite-3.0-1B-A400M's (phases 19–21: 16 query
               heads over 8 KV heads, head_dim 64) and at
               Llama-3.2-Vision-90B's (phase 25: 64 query heads over 8, a
-              300-token prompt and a 364-slot cache); each in bf16 and
+              300-token prompt and a 364-slot cache) and at one model
+              rank's of phase 26 (half the heads); each in bf16 and
               float32, with events and graph times,
               bounds and the share of them reached, SDPA's events and
               graph times, the wrapper's host time per call, and the split
               count decode attention launched with; the SSD chunk at a
               Zamba2-2.7B admission (80 heads sharing B/C, N = P = 64), 8
-              rows, ragged lengths and the reference's sweep
+              rows, ragged lengths, the reference's sweep and one model
+              rank's chunk of phase 26a (40 heads)
   4. learner  three learner steps of the IMPALA deep ResNet at full width
               (84x84x4 obs, 18 actions, T=80, B=32, Table G.1 RMSProp) on a
               seeded synthetic rollout, held against the plain-loop V-trace
@@ -170,11 +172,30 @@ exits nonzero without printing a result:
               on the reduced config (an AdamW step of one full-width group
               needs about 102 GB), K2 exact, and its float32
               kernel-against-plain step with the seeded vision stub
+ 26. mp       --mesh-model 2, the ranks sharing cuda:0 through gloo (NCCL
+              refuses two ranks on one device; the times are checks of
+              the collectives, not speed figures): 26a Zamba2-2.7B --mode
+              lm and 26b Granite-3.0-1B-A400M --mode lm-rl at full width
+              through the entry point's builders and Runtime, each rank's
+              losses, step ms, model-group all-reduces and peak memory,
+              K1-K4 launches exact a rank (the unmeshed run's counts),
+              the ranks' losses and tokens equal, and one float32 step of
+              each rank at full width, depth cut (MP_F32_GROUPS), against
+              the single-process step on the same weights (loss and norm
+              within MODEL_TOL, each leaf's slice within LM_GRAD_TOL;
+              Granite's routing pinned); 26c reduced Qwen3-4B on (2, 2),
+              four ranks, both LM modes, each step within MP_TOL of the
+              unmeshed one; 26d a reduced --mode lm --mesh-model 2 run
+              (train._train's ranks on the card; the killed leg in a
+              process of its own, MP_CLI) SIGKILLed after its step-3
+              checkpoint and resumed, bitwise the uninterrupted run, then
+              that checkpoint restored at (2, 1) and (1, 1), every leaf
+              bitwise, the next step's losses within MP_TOL
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
               phase 17's launches; recurrent_*: phase 18's; granite_*:
               phases 20 and 21's; xlstm_*: phase 24's; vlm_*: phase
-              25's), then
+              25's; mp_*: phase 26's, one entry a rank), then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
 
@@ -239,14 +260,18 @@ BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
 # then Granite's (16 query heads over 8 KV heads, hd 64): a 256-token
 # prompt and a server admission of 8 prompts of 64; then the VLM's
 # self-attention prefill (64 query heads over 8, phase 25's 4 x 300); last,
-# the reduced VLM's --mode lm (4 query heads over 2, hd 64, B 4, S 64)
+# the reduced VLM's --mode lm (4 query heads over 2, hd 64, B 4, S 64);
+# then one model rank's of phase 26 (half the heads): Zamba2's shared
+# block in --mode lm, Granite's lm-rl prefill (bucket 1) and learner
 FLASH_SHAPES = [(1, 32, 8, s, 128, 0, 0.0) for s in (1, 16, 256, 300, 512)] \
     + [(1, 32, 16, 4608, 128, 4096, 50.0), (1, 8, 2, 256, 64, 0, 0.0),
        (1, 8, 2, 256, 256, 0, 0.0), (1, 32, 32, 256, 80, 0, 0.0)] \
     + [(8, 32, 8, 1, 128, 0, 0.0), (8, 32, 8, 64, 128, 0, 0.0),
        (4, 32, 32, 512, 80, 0, 0.0)] \
     + [(1, 16, 8, 256, 64, 0, 0.0), (8, 16, 8, 64, 64, 0, 0.0)] \
-    + [(4, 64, 8, 300, 128, 0, 0.0), (4, 4, 2, 64, 64, 0, 0.0)]
+    + [(4, 64, 8, 300, 128, 0, 0.0), (4, 4, 2, 64, 64, 0, 0.0)] \
+    + [(4, 16, 16, 512, 80, 0, 0.0), (8, 8, 4, 1, 64, 0, 0.0),
+       (8, 8, 4, 64, 64, 0, 0.0)]
 FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
 # (B, H, K, cap, hd, pos, window, softcap): the serving decode (8 slots at
 # their own positions in 576-slot caches), scalar pos, 4096-slot caches, a
@@ -254,7 +279,8 @@ FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
 # 80, 8 slots of 320); the lm-rl episodes' 65-slot caches (--seq + 1:
 # ranges of 32, 32 and a ragged 1); Granite's decode (16 query heads over
 # 8 KV heads, hd 64) in 576-slot caches; last, the VLM's (64 over 8) in
-# phase 25's 364-slot caches (300-token prompts + 64)
+# phase 25's 364-slot caches (300-token prompts + 64); then one model
+# rank's of phase 26b: Granite's lm-rl episodes on 8 of 16 query heads
 DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 8, 576, 128, "scalar", 0, 0.0),
                  (8, 32, 8, 4096, 128, "rows", 0, 0.0),
@@ -264,26 +290,29 @@ DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 32, 320, 80, "rows", 0, 0.0),
                  (8, 32, 8, 65, 128, "rows", 0, 0.0),
                  (8, 16, 8, 576, 64, "rows", 0, 0.0),
-                 (4, 64, 8, 364, 128, "rows", 0, 0.0)]
+                 (4, 64, 8, 364, 128, "rows", 0, 0.0),
+                 (8, 8, 4, 65, 64, "rows", 0, 0.0)]
 DECODE_MAIN = ((8, 32, 8, 576, 128, "rows", 0, 0.0), "bfloat16")
 # (slices, L, N, P, heads, decay): heads > 1 is the model's layout, one B/C
 # group per batch row read by all its heads; da = -U(0, decay) per step.
 # One Zamba2-2.7B admission of a whole 256-token chunk (80 heads, N = P =
 # 64; decay 0.55 takes acs to about -70, as at full width), the same for
 # 8 rows, ragged admissions, the same admission in the reference's layout
-# (B/C repeated per head), then the reference's sweep (tests/test_kernels.py)
+# (B/C repeated per head), then the reference's sweep (tests/test_kernels.py);
+# last, one model rank's chunk of phase 26a (B 4 x 40 of the 80 heads)
 SSD_SHAPES = [(80, 256, 64, 64, 80, 0.55), (640, 256, 64, 64, 80, 0.55),
               (80, 1, 64, 64, 80, 0.55), (80, 37, 64, 64, 80, 0.55),
               (80, 255, 64, 64, 80, 0.55), (80, 256, 64, 64, 1, 0.55),
               (4, 64, 32, 32, 1, 0.1), (2, 128, 64, 64, 1, 0.1),
-              (1, 128, 128, 64, 1, 0.1), (3, 96, 64, 32, 1, 0.1)]
+              (1, 128, 128, 64, 1, 0.1), (3, 96, 64, 32, 1, 0.1),
+              (160, 256, 64, 64, 40, 0.55)]
 SSD_MAIN = (80, 256, 64, 64, 80, 0.55)
 MODEL_TOL = 1e-3               # full-width logits, kernel vs dense path
 # one float32 LM learner step, kernel vs plain paths: each leaf's largest
 # gradient difference over that leaf's largest gradient; about five times
 # the largest measured on an H100 (4.1e-5, a Zamba2 dt_bias; PERF.md)
 LM_GRAD_TOL = 2e-4
-LM_SPLIT_REPS = 3              # timed next_batch / learner calls after a run
+LM_SPLIT_REPS = 1              # timed next_batch / learner calls after a run
 SERVE_ARGV = ["--arch", "qwen3-4b", "--attn-impl", "kernel", "--requests",
               "24", "--prompt-len", "512", "--gen-tokens", "64",
               "--max-batch", "8"]
@@ -352,7 +381,7 @@ XSERVE_ARGV = ["--arch", XLSTM, "--requests", "24", "--prompt-len", "64",
 XLM_RL_ARGV = ["--mode", "lm-rl", "--arch", XLSTM, "--vtrace-impl",
                "kernel", "--batch", "8", "--seq", "64", "--steps", "4"]
 XLM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq", "512",
-            "--steps", "2"]
+            "--steps", "1"]
 # phase 25: Llama-3.2-Vision-90B, one of its 20 groups at every published
 # width (25.5 GB of float32 weights; all 20 are 351 GB), and its training
 # on the reduced config
@@ -361,6 +390,23 @@ VLM_GROUPS = 1
 VLM_PROMPT, VLM_GEN = 300, 64
 VLM_LM_ARGV = ["--mode", "lm", "--arch", VLM, "--reduced", "--attn-impl",
                "kernel", "--batch", "4", "--seq", "64", "--steps", "2"]
+# phase 26, model parallel: two ranks share the card through gloo. 26a
+# Zamba2-2.7B --mode lm, 26b Granite lm-rl at full width, each with one
+# float32 step at MP_F32_GROUPS groups (full width, depth cut: each rank
+# also runs the single-process step it is held to); 26c reduced Qwen3-4B
+# on (2, 2); 26d the checkpoint run, killed and resumed, and its elastic
+# restores
+ZMP_ARGV = ["--mode", "lm", "--arch", "zamba2-2.7b", "--attn-impl",
+            "kernel", "--ssd-impl", "kernel", "--batch", "4", "--seq",
+            "512", "--steps", "3", "--mesh-model", "2"]
+GMP_ARGV = ["--mode", "lm-rl", "--arch", GRANITE, "--attn-impl", "kernel",
+            "--vtrace-impl", "kernel", "--batch", "8", "--seq", "64",
+            "--steps", "4", "--mesh-model", "2"]
+MP_F32_GROUPS = {"zamba2-2.7b": 1, GRANITE: 2}
+MP22_STEPS = 3
+MP_TOL = 1e-5
+MP_CKPT_ARGV = ["--mode", "lm", "--arch", "qwen3-4b", "--reduced",
+                "--batch", "8", "--seq", "32", "--steps", "6"]
 # the LM trainers at full published width (phases 15, 16)
 LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
               "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
@@ -2797,6 +2843,524 @@ def phase_vlm(ops):
     return launches, phase_lm(ops, VLM_LM_ARGV, phase="vlm_lm")
 
 
+# ---------------------------------------------------------------------------
+# 26. model parallel (--mesh-model): ranks sharing the card through gloo
+
+
+def _mp_grad_probe():
+    """An optimizer that keeps the gradients and the norm the step's
+    clipping would use (a model-parallel rank's: the whole tree's), and
+    moves no weight."""
+    from repro_torch.optim import optimizers
+    kept = {}
+
+    def keep(g, state, plist, step, norm_fn=optimizers.global_norm):
+        kept["grads"] = list(g)
+        kept["norm"] = float(norm_fn(g))
+        g.clear()
+        return state
+
+    return optimizers.Optimizer(init=lambda p: {}, step=keep), kept
+
+
+def _mp_f32_check(ops, mesh, cfg, batch, make_step, want, routed):
+    """One float32 step of ``cfg`` (full width, depth cut to its
+    num_groups) on this rank's mesh against the single-process step on the
+    same seed-0 weights and ``batch``, both through the kernel paths: the
+    loss and the gradients' global norm within MODEL_TOL, each leaf's
+    gradient (this rank's slice against the same slice of the whole one)
+    within LM_GRAD_TOL of that slice's largest; the meshed step launches
+    exactly ``want``. ``routed``: an MoE arch, whose meshed run takes the
+    single-process run's routing (``pinned_routes``)."""
+    import gc
+
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as model_lib
+
+    cfg = dataclasses.replace(cfg, dtype="float32", attn_impl="kernel",
+                              ssd_impl="kernel")
+    routes, flips = [], []
+    runs = {}
+    for path in ("single", "mesh"):
+        params = model_lib.init(cfg, seed=0, device=mesh.device)
+        rules = None
+        if path == "mesh":
+            rules = sharding.MEGATRON_RULES
+            model_lib.shard_model(params, cfg, mesh, rules)
+        opt, kept = _mp_grad_probe()
+        ctx = contextlib.nullcontext()
+        if routed:
+            ctx = recorded_routes(routes) if path == "single" \
+                else pinned_routes(routes, flips)
+        ops.reset_stats()
+        with ctx:
+            _, _, metrics = make_step(cfg, opt, path == "mesh" and mesh,
+                                      rules)(params, {}, 0, batch)
+        runs[path] = dict(loss=float(metrics["loss"]), norm=kept["norm"],
+                          launches=ops.stats())
+        runs[path]["grads"] = dict(zip(
+            [n for n, _ in params.named_parameters()], kept["grads"]))
+        runs[path]["dims"] = model_lib.split_dims(params)
+        del params, metrics
+        gc.collect()
+    worst = dict(rel=0.0, leaf=None)
+    single, meshed = runs["single"], runs["mesh"]
+    for name, g in meshed["grads"].items():
+        w = single["grads"][name]
+        dim = meshed["dims"][name]
+        if dim is not None:
+            n = w.shape[dim] // mesh.model
+            w = w.narrow(dim, mesh.model_index * n, n)
+        scale = w.abs().max().item()
+        diff = (g - w).abs().max().item()
+        rel = diff / scale if scale else (0.0 if not diff else math.inf)
+        if not math.isfinite(diff) or rel > worst["rel"]:
+            worst = dict(rel=rel, leaf=name, abs=diff, scale=scale)
+    out = dict(groups=cfg.num_groups, loss=meshed["loss"],
+               single_loss=single["loss"], norm=meshed["norm"],
+               single_norm=single["norm"], worst_leaf=worst,
+               launches=meshed["launches"], want=want,
+               flips=sum(f.numel() for f in flips) if routed else None)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_check_bars(label, rank, check):
+    for a, b in (("loss", "single_loss"), ("norm", "single_norm")):
+        if not (math.isfinite(check[a]) and math.isclose(
+                check[a], check[b], rel_tol=MODEL_TOL, abs_tol=MODEL_TOL)):
+            raise AssertionError(f"{label} rank {rank} float32 step: {a} "
+                                 f"{check[a]} against {check[b]}")
+    if not check["worst_leaf"]["rel"] <= LM_GRAD_TOL:
+        raise AssertionError(f"{label} rank {rank} float32 step: "
+                             f"{check['worst_leaf']} beyond {LM_GRAD_TOL}")
+    want = {**dict.fromkeys(check["launches"], 0), **check["want"]}
+    if check["launches"] != want:
+        raise AssertionError(f"{label} rank {rank} float32 step launched "
+                             f"{check['launches']}, want {want}")
+
+
+def _mp_rank(mesh, argv, f32_groups):
+    """26a / 26b in each rank: the entry point's builder for this rank
+    (``train._BUILDERS``, the mesh's model slices) driven by ``Runtime``
+    as ``train._train`` drives it: the per-step losses and step ms, the
+    run's launches and peak memory, the model-group all-reduces of its
+    steps after the first (calls, bytes, host seconds), and the last
+    batch; then the float32 check of the same mode at ``f32_groups``
+    groups on that batch. Returns every rank's record on rank 0."""
+    import torch
+
+    import repro_torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import learner, sources
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import common
+
+    repro_torch.resolve_device("cuda")
+    args = train._parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    ops.reset_stats()
+    t0 = time.perf_counter()
+    source, step_fn, params, opt_state, extras = train._BUILDERS[
+        args.mode](args, mesh)
+    extras.pop("checkpoint_layout")
+    build_s = time.perf_counter() - t0
+    losses, stamps, last = [], [time.perf_counter()], {}
+    next_batch = source.next_batch
+
+    def keep_last(params):
+        last["batch"] = next_batch(params)
+        return last["batch"]
+
+    def on_metrics(step, metrics):
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize(mesh.device)
+        stamps.append(time.perf_counter())
+        if step == 0:
+            common.reset_collective_stats()
+
+    source.next_batch = keep_last
+    runtime = Runtime(source, step_fn, params, opt_state,
+                      total_steps=args.steps, log_every=0,
+                      on_metrics=on_metrics, mesh=mesh, **extras)
+    _, lines = _quiet(runtime.run)
+    launches = ops.stats()
+    collectives = common.collective_stats()
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    batch = last["batch"]
+    cfg = get_config(args.arch)
+    seq = args.seq
+    if args.mode == "lm-rl":
+        tokens = batch["obs"].cpu()
+        loss_cfg = TrainConfig(entropy_cost=0.003)
+
+        def make_step(cfg, opt, mesh, rules):
+            return sources.lm_rl_step_from_rollout(learner.make_lm_train_step(
+                cfg, opt, loss_cfg, loss_chunk=seq, vtrace_impl="kernel",
+                mesh=mesh or None, rules=rules))
+        want = {**remat_step_launches(dataclasses.replace(
+            cfg, num_groups=f32_groups), seq), "vtrace": 1}
+    else:
+        tokens = batch["tokens"].cpu()
+
+        def make_step(cfg, opt, mesh, rules):
+            return learner.make_lm_pretrain_step(
+                cfg, opt, loss_chunk=seq, mesh=mesh or None, rules=rules)
+        want = remat_step_launches(dataclasses.replace(
+            cfg, num_groups=f32_groups), seq)
+    del runtime, source, step_fn, params, opt_state
+    torch.cuda.empty_cache()
+    check = _mp_f32_check(ops, mesh, dataclasses.replace(
+        cfg, num_groups=f32_groups), batch, make_step, want,
+        routed=bool(cfg.num_experts))
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    steady = max(1, len(step_ms) - 1)
+    return sharding.gather_to_main(dict(
+        rank=mesh.rank, model_index=mesh.model_index, losses=losses,
+        step_ms=step_ms, build_s=build_s, launches=launches,
+        peak_mem_bytes=peak, steady_collectives=collectives,
+        allreduce_s_per_step=collectives["seconds"] / steady,
+        allreduce_share=collectives["seconds"] / (sum(step_ms[1:]) / 1e3)
+        if len(step_ms) > 1 else None,
+        tokens=tokens, log=lines, f32=check), mesh)
+
+
+def phase_mp(argv, f32_groups, phase):
+    """26a / 26b: ``argv`` (a --mesh-model 2 run) as two ranks sharing
+    cuda:0 through gloo (rank 1 spawned). Every rank must launch exactly
+    ``want`` (the unmeshed run's counts: the same layers on half the
+    heads), produce finite losses, and pass its float32 check; the ranks'
+    losses and last batch's tokens must be bitwise equal. Gloo stages CUDA
+    tensors through the host: the times are checks of the collectives,
+    not speed figures. Returns each rank's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+
+    arch, steps = _arg(argv, "--arch"), int(_arg(argv, "--steps"))
+    seq = int(_arg(argv, "--seq"))
+    cfg = get_config(arch)
+    layers, _ = kernel_layers(cfg)
+    per_step = remat_step_launches(cfg, seq)
+    if _arg(argv, "--mode") == "lm-rl":
+        want = {"vtrace": steps, "ssd_chunk": 0,
+                "flash_attention": (layers + per_step["flash_attention"])
+                * steps,
+                "decode_attention": layers * (seq - 1) * steps}
+    else:
+        want = {"vtrace": 0, "decode_attention": 0,
+                **{k: v * steps for k, v in per_step.items()}}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.launch(_mp_rank, 2, device="cuda", model=2,
+                            devices=["cuda:0", "cuda:0"], backend="gloo",
+                            args=(argv, f32_groups), timeout_s=300)
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"{phase} rank {r['rank']} launched "
+                                 f"{r['launches']}, want {want}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"{phase} rank {r['rank']} losses "
+                                 f"{r['losses']}")
+        _mp_check_bars(phase, r["rank"], r["f32"])
+    if ranks[0]["losses"] != ranks[1]["losses"] or not torch.equal(
+            ranks[0]["tokens"], ranks[1]["tokens"]):
+        raise AssertionError(f"{phase}: the model ranks disagree: losses "
+                             f"{ranks[0]['losses']} / {ranks[1]['losses']}"
+                             " or their tokens")
+    for r in ranks:
+        del r["tokens"]
+    emit(phase, argv=argv, mesh=[1, 2], backend="gloo",
+         device="cuda:0 (both ranks)", want_launches=want, seconds=seconds,
+         timing="gloo's host-staging path, not a speed figure",
+         ranks_agree=True, ranks=ranks)
+    return [r["launches"] for r in ranks]
+
+
+def _mp22_rank(mesh, steps_from):
+    """26c in each of four ranks: reduced Qwen3-4B float32, both LM
+    steps, each of MP22_STEPS batches from the seed-0 weights; the losses
+    on rank 0. ``steps_from``: the batches (batch-major, CPU)."""
+    import repro_torch
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+
+    repro_torch.resolve_device("cuda")
+    ops.reset_stats()
+    out = _mp22_losses(mesh, steps_from)
+    out["launches"] = ops.stats()
+    return sharding.gather_to_main(out, mesh)
+
+
+def _mp22_losses(mesh, batches):
+    """Each of ``batches``' steps from the seed-0 weights of reduced
+    Qwen3-4B (float32, K2 in attention), both LM modes, on this rank of
+    ``mesh`` (None: one process); their losses by mode."""
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_reduced_config
+    from repro_torch.core import learner
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(get_reduced_config("qwen3-4b"),
+                              attn_impl="kernel")
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    rules = None if mesh is None else sharding.MEGATRON_RULES
+    out = {}
+    for mode in ("lm-rl", "lm"):
+        tc = TrainConfig(optimizer="adamw", learning_rate=1e-3,
+                         grad_clip=1.0, lr_schedule="constant",
+                         total_steps=3, entropy_cost=0.003)
+        opt = make_optimizer(tc)
+        step = learner.make_lm_pretrain_step(cfg, opt, loss_chunk=16,
+                                             mesh=mesh, rules=rules) \
+            if mode == "lm" else learner.make_lm_train_step(
+                cfg, opt, tc, loss_chunk=16, vtrace_impl="kernel",
+                mesh=mesh, rules=rules)
+        losses = []
+        for batch in batches[mode]:
+            params = model_lib.init(cfg, seed=0, device=device)
+            if mesh is not None:
+                model_lib.shard_model(params, cfg, mesh, rules)
+            b = {k: v.to(device) for k, v in batch.items()}
+            if mesh is not None:
+                b = sharding.shard_lm_batch(b, mesh, rules)
+            _, _, m = step(params, opt.init(list(params.parameters())), 0, b)
+            losses.append(float(m["loss"]))
+        out[mode] = losses
+    return out
+
+
+def phase_mp22():
+    """26c: reduced Qwen3-4B on a (2, 2) mesh, four ranks sharing cuda:0
+    through gloo: each step's loss from the seed-0 weights within MP_TOL
+    of the unmeshed step's (mesh (1, 1) is the unmeshed path bitwise:
+    tests/test_torch_mesh2d.py), both LM modes, float32: the bar of the
+    reference's own (2, 2) test, rtol and atol MP_TOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import mesh as mesh_lib
+
+    rng = np.random.default_rng(0)
+    vocab = get_reduced_config("qwen3-4b").vocab_size
+    batches = {"lm": [], "lm-rl": []}
+    for _ in range(MP22_STEPS):
+        tokens = torch.from_numpy(rng.integers(0, vocab, (8, 17)))
+        batches["lm"].append({"tokens": tokens})
+        batches["lm-rl"].append({
+            "tokens": tokens,
+            "behavior_logprob": torch.full((8, 16), -math.log(vocab)),
+            "reward": (tokens[:, 1:] == (5 * tokens[:, :-1] + 3) % vocab
+                       ).float(),
+            "done": torch.arange(16).expand(8, 16) == 15})
+    want = _mp22_losses(None, batches)
+    t0 = time.perf_counter()
+    ranks = mesh_lib.launch(_mp22_rank, 4, device="cuda", model=2,
+                            devices=["cuda:0"] * 4, backend="gloo",
+                            args=(batches,), timeout_s=300)
+    seconds = time.perf_counter() - t0
+    # as assert_allclose(rtol=MP_TOL, atol=MP_TOL): the gap over 1 + |loss|
+    gaps = {mode: max(abs(a - b) / (1.0 + abs(b)) for r in ranks
+                      for a, b in zip(r[mode], want[mode]))
+            for mode in want}
+    emit("mp22", arch="qwen3-4b (reduced)", mesh=[2, 2], backend="gloo",
+         dtype="float32", losses={m: ranks[0][m] for m in want},
+         unmeshed=want, gaps=gaps, tol=MP_TOL, seconds=seconds,
+         launches=[r["launches"] for r in ranks])
+    for mode, gap in gaps.items():
+        if not gap <= MP_TOL:
+            raise AssertionError(f"26c {mode}: (2, 2) losses {gap} from "
+                                 f"the unmeshed steps, beyond {MP_TOL}")
+
+
+def _elastic_rank(mesh, ckpt_dir, argv, batch):
+    """26d's elastic leg in each rank: build the run of ``argv`` on this
+    mesh (None: one process), restore ``ckpt_dir``'s latest checkpoint
+    through ``--resume``'s path, and return its learner state as whole
+    leaves under the checkpoint's keys (the slices gathered over the model
+    group, the block leaves stacked) and one step's loss on ``batch``."""
+    import torch
+
+    import repro_torch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train
+    from repro_torch.models import common
+    from repro_torch.models import model as model_lib
+    from repro_torch.tree import flatten
+
+    repro_torch.resolve_device("cuda")
+    args = train._parser().parse_args(argv + ["--checkpoint-dir", ckpt_dir])
+    source, step_fn, params, opt_state, extras = train._BUILDERS[
+        args.mode](args, *(() if mesh is None else (mesh,)))
+    opt_state, start = train._resume(args, source, params, opt_state,
+                                     extras["checkpoint_layout"],
+                                     lambda line: None, mesh)
+    dims = model_lib.split_dims(params)
+    names = [n for n, _ in params.named_parameters()]
+    state = {}
+    with common.use_rules(mesh, sharding.MEGATRON_RULES):
+        for key, v in flatten({"params": params.state_dict(),
+                               "opt_state": opt_state}):
+            name = key.partition("/")[2] if key.startswith("params/") \
+                else names[int(key.rsplit("#", 1)[1])]
+            if dims[name] is not None:
+                v = common.gather_model_slices(v, dims[name])
+            state[key] = v.detach().cpu().clone().numpy()
+    state = extras["checkpoint_layout"].to_disk(state)
+    b = {k: v.to(params.embed.device) for k, v in batch.items()}
+    if mesh is not None:
+        b = sharding.shard_lm_batch(b, mesh, sharding.MEGATRON_RULES)
+    _, _, m = step_fn(params, opt_state, start, b)
+    out = dict(state=state, loss=float(m["loss"]), step=start)
+    return out if mesh is None else sharding.gather_to_main(out, mesh)
+
+
+def _killed_at(cmd, marker, deadline_s=300):
+    """Run ``cmd`` in a session of its own and SIGKILL the whole session
+    (the spawned ranks too) once ``marker`` exists."""
+    import signal
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL,
+                            start_new_session=True, env=_cli_env())
+    try:
+        deadline = time.monotonic() + deadline_s
+        while proc.poll() is None and time.monotonic() < deadline:
+            if os.path.exists(marker):
+                os.killpg(proc.pid, signal.SIGKILL)
+                break
+            time.sleep(0.05)
+        proc.wait(timeout=60)
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+    if not os.path.exists(marker):
+        raise AssertionError(f"26d: {marker} never landed")
+
+
+def _cli_env():
+    return dict(os.environ, PYTHONPATH=SRC + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+# 26d's killed leg: the entry point's parser and rank body (train._train)
+# in a process of its own, its second rank spawned onto the same card
+# through gloo (train.main would place rank r on cuda:r)
+MP_CLI = """
+import sys
+import repro_torch
+from repro_torch.launch import mesh, train
+repro_torch.resolve_device("cuda")
+args = train._parser().parse_args(sys.argv[1:])
+mesh.launch(train._train, 2, device="cuda", model=2, args=(args,),
+            devices=["cuda:0", "cuda:0"], backend="gloo", timeout_s=300)
+"""
+
+
+def _mp_train(argv):
+    """``train._train`` (the entry point's rank body) of ``argv`` on two
+    ranks sharing cuda:0 through gloo, rank 0 in this process; its log
+    lines."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    args = train._parser().parse_args(argv)
+    _, lines = _quiet(lambda: mesh_lib.launch(
+        train._train, 2, device="cuda", model=2, args=(args,),
+        devices=["cuda:0", "cuda:0"], backend="gloo", timeout_s=300))
+    return lines
+
+
+def phase_mp_checkpoint(workdir):
+    """26d: reduced --mode lm --mesh-model 2 through the entry point's
+    rank body with both ranks on the card: an uninterrupted run; the same
+    run in a process of its own (``MP_CLI``) SIGKILLed, with its spawned
+    rank (the whole session), once its step-3 checkpoint lands; its
+    resume to the same horizon, whose final parameters and AdamW state
+    must be bitwise the uninterrupted run's. Then that step-3 checkpoint
+    restored elastically at (2, 1) and (1, 1): every leaf bitwise the one
+    saved, and the next step's loss on one batch within MP_TOL across the
+    two (the same-mesh restore is the resume's)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.launch import mesh as mesh_lib
+
+    argv = MP_CKPT_ARGV + ["--mesh-model", "2"]
+    dir_a, dir_b = os.path.join(workdir, "a"), os.path.join(workdir, "b")
+    t0 = time.perf_counter()
+    _mp_train(argv + ["--checkpoint-dir", dir_a])
+    seconds_a = time.perf_counter() - t0
+    _killed_at([sys.executable, "-c", MP_CLI, *argv, "--checkpoint-dir",
+                dir_b, "--checkpoint-every", "3"],
+               os.path.join(dir_b, "step_3", "manifest.json"))
+    for name in os.listdir(dir_b):
+        if name.startswith("step_") and int(name[5:]) > 3:
+            shutil.rmtree(os.path.join(dir_b, name))
+    saved = os.path.join(workdir, "step3")
+    shutil.copytree(os.path.join(dir_b, "step_3"),
+                    os.path.join(saved, "step_3"))
+    t0 = time.perf_counter()
+    lines = _mp_train(argv + ["--checkpoint-dir", dir_b, "--resume"])
+    seconds_c = time.perf_counter() - t0
+    if not any("resumed" in ln and "source state restored" in ln
+               for ln in lines):
+        raise AssertionError(f"26d: the resume did not restore: {lines}")
+    flat_a, _ = ckpt_lib.load_flat(os.path.join(dir_a, "step_6"))
+    flat_b, _ = ckpt_lib.load_flat(os.path.join(dir_b, "step_6"))
+    if set(flat_a) != set(flat_b) or any(
+            not np.array_equal(flat_a[k], flat_b[k]) for k in flat_a):
+        raise AssertionError("26d: the resumed run's final state is not "
+                             "bitwise the uninterrupted run's")
+    # elastic: the (1, 2) step-3 checkpoint on (2, 1) and (1, 1)
+    flat3, _ = ckpt_lib.load_flat(os.path.join(saved, "step_3"))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 512, (8, 33)))
+    eargv = MP_CKPT_ARGV + ["--device", "cuda"]
+    got = {(2, 1): mesh_lib.launch(
+        _elastic_rank, 2, device="cuda", model=1,
+        devices=["cuda:0", "cuda:0"], backend="gloo",
+        args=(saved, eargv + ["--mesh-data", "2"], {"tokens": tokens}),
+        timeout_s=300),
+        (1, 1): [_elastic_rank(None, saved, eargv, {"tokens": tokens})]}
+    for key, ranks in got.items():
+        for r in ranks:
+            bad = [k for k, v in r["state"].items()
+                   if not np.array_equal(v, flat3[k])]
+            if bad or set(r["state"]) != set(flat3) or r["step"] != 3:
+                raise AssertionError(f"26d: restored at {key}: leaves "
+                                     f"{bad[:4]} differ, step {r['step']}")
+    base_loss = got[1, 1][0]["loss"]
+    losses = {f"{d}x{m}": [r["loss"] for r in ranks]
+              for (d, m), ranks in got.items()}
+    gaps = {k: max(abs(x - base_loss) / (1.0 + abs(base_loss)) for x in v)
+            for k, v in losses.items()}
+    emit("mp_checkpoint", argv=argv, killed_after_step=3,
+         resumed_bitwise=True, leaves=len(flat3),
+         seconds_uninterrupted=seconds_a, seconds_resume=seconds_c,
+         elastic_meshes=list(losses), elastic_bitwise=True,
+         next_step_losses=losses, gaps=gaps, tol=MP_TOL,
+         files=sorted(os.listdir(os.path.join(saved, "step_3"))))
+    if not all(g <= MP_TOL for g in gaps.values()):
+        raise AssertionError(f"26d: next-step losses {losses} beyond "
+                             f"{MP_TOL} of each other")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2971,6 +3535,15 @@ def main():
     # path against the plain path, bf16 generate(vision=), reduced lm
     vlm_generate_launches, vlm_lm_launches = phase_vlm(ops)
 
+    # 26. model parallel, ranks sharing the card through gloo: 26a
+    # Zamba2-2.7B --mode lm, 26b Granite lm-rl, 26c reduced (2, 2), 26d
+    # checkpoints (kill and resume, elastic restores)
+    zmp_launches = phase_mp(ZMP_ARGV, MP_F32_GROUPS["zamba2-2.7b"], "mp_lm")
+    gmp_launches = phase_mp(GMP_ARGV, MP_F32_GROUPS[GRANITE], "mp_lm_rl")
+    phase_mp22()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as workdir:
+        phase_mp_checkpoint(workdir)
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -3018,7 +3591,8 @@ def main():
         recurrent_launches["full_width"]["launches"],
         "recurrent_full_shape": recurrent_launches["full_width"]["shape"],
         "granite_lm_rl_launches": glm_rl_launches["vtrace"],
-        "xlstm_lm_rl_launches": xlm_rl_launches["vtrace"]}]
+        "xlstm_lm_rl_launches": xlm_rl_launches["vtrace"],
+        "mp_lm_rl_launches": [r["vtrace"] for r in gmp_launches]}]
     for name, replaces, all_rows, (shape, dtype) in [
             ("flash_attention", "src/repro/kernels/flash_attention.py:93",
              flash_rows, FLASH_MAIN),
@@ -3038,6 +3612,9 @@ def main():
             "granite_serve_launches": gserve_launches[name],
             "granite_lm_rl_launches": glm_rl_launches[name],
             "vlm_generate_launches": vlm_generate_launches[name],
+            "mp_lm_rl_launches": [r[name] for r in gmp_launches],
+            **({"mp_lm_launches": [r[name] for r in zmp_launches]}
+               if name == "flash_attention" else {}),
             **({"vlm_lm_launches": vlm_lm_launches[name]}
                if name == "flash_attention" else {}),
             "max_abs_err": max(errs.values()),
@@ -3058,6 +3635,7 @@ def main():
         "replaces": "src/repro/kernels/ssd_chunk.py:68",
         "launches": zamba_launches["ssd_chunk"],
         "lm_launches": lm_launches["ssd_chunk"],
+        "mp_lm_launches": [r["ssd_chunk"] for r in zmp_launches],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -1,14 +1,27 @@
-"""Manifest checkpoints, single process.
+"""Manifest checkpoints, single process or one file pair per rank.
 
 A checkpoint is a DIRECTORY, in the same on-disk format as the reference
 package's (``_FORMAT`` 2), so each package reads the other's:
 
     step_40/
-      shard-00000.npz    the process's arrays: every learner-tree leaf and
-                         the process's structured (source) state
-      shard-00000.json   sidecar: index/shape/dtype per leaf, structured
-                         schema, metadata
-      manifest.json      written LAST — the COMPLETION MARKER
+      shard-00000.npz    process 0's arrays: its slice of every learner-tree
+                         leaf it writes, and its structured (source) state
+      shard-00000.json   sidecar: global shape/dtype/spec per leaf and the
+                         global index of each slice, structured schema,
+                         metadata
+      shard-00001.*      process 1's, ... (a model-parallel run)
+      manifest.json      written LAST by process 0 — the COMPLETION MARKER
+
+A model-parallel run (``--mesh-model``: a ``launch/mesh.py::Mesh2D``)
+writes one pair per rank, as the reference's processes do: each unique
+slice once (model rank r of data index 0 writes slice r of a split leaf;
+a whole leaf is written by process 0 only), every rank its own
+structured state. Once the pairs have landed (a barrier on the mesh's
+rendezvous store, off the learner's collectives, as the reference waits
+on its coordination service), process 0 merges the sidecars into the
+manifest. ``restore(..., shardings=)`` assembles each block a rank asks
+for from whichever saved slices overlap it, so a checkpoint restores onto
+any mesh shape (elastic resume).
 
 All file writes are write-to-temp + ``os.replace``, and readers treat a
 step directory without ``manifest.json`` as nonexistent, so a kill at ANY
@@ -37,9 +50,8 @@ would change under the writer), and ``write_snapshot`` — all the disk
 I/O — runs wherever the caller likes, e.g. the background thread of
 ``checkpoint.writer.AsyncCheckpointWriter``.
 
-Not here: the multi-process completion barrier and the sharded, elastic
-restore onto a device mesh, and the reader of the reference's legacy
-single-file ``step_N.npz`` (a format this package never wrote).
+Not here: the reader of the reference's legacy single-file
+``step_N.npz`` (a format this package never wrote).
 """
 
 from __future__ import annotations
@@ -58,8 +70,21 @@ from repro_torch.tree import flatten, rebuild
 MANIFEST = "manifest.json"
 _FORMAT = 2
 _STRUCT_PREFIX = "__structured__/"
-_SHARD_NPZ = "shard-00000.npz"
-_SHARD_JSON = "shard-00000.json"
+# a mesh's saves so far, by (its mesh_id, path): every rank of the mesh
+# saves the same paths in the same order, so each barrier's name agrees
+_SAVES: Dict[Tuple[str, str], int] = {}
+
+
+def _shard_npz(pid: int) -> str:
+    return f"shard-{pid:05d}.npz"
+
+
+def _shard_json(pid: int) -> str:
+    return f"shard-{pid:05d}.json"
+
+
+def _full_index(shape) -> List[List[int]]:
+    return [[0, d] for d in shape]
 
 
 def _host_copy(x) -> np.ndarray:
@@ -139,10 +164,18 @@ def _decode(node: dict, data) -> Any:
 @dataclass
 class Snapshot:
     """Host-side copy of everything one checkpoint holds — safe to hand to
-    a background writer while training mutates the live tensors."""
+    a background writer while training mutates the live tensors.
+
+    ``layout``: for a rank of a mesh, key -> {"shape": the whole leaf's,
+    "index": the global index of ``leaves[key]``, "spec": the reference's
+    partition spec, "write": whether this process writes it}; a key it
+    does not name is a whole leaf, written. ``mesh``: the ``Mesh2D`` the
+    snapshot was taken on (None: one process)."""
     leaves: Dict[str, np.ndarray]
     structured: Dict[str, dict] = field(default_factory=dict)   # schemas
     arrays: Dict[str, np.ndarray] = field(default_factory=dict)  # npz extras
+    layout: Dict[str, dict] = field(default_factory=dict)
+    mesh: Any = None
 
 
 def snapshot(tree, structured: Optional[Dict[str, Any]] = None) -> Snapshot:
@@ -163,34 +196,84 @@ def snapshot(tree, structured: Optional[Dict[str, Any]] = None) -> Snapshot:
 def write_snapshot(path: str, snap: Snapshot,
                    metadata: Optional[dict] = None) -> None:
     """Persist a ``Snapshot`` under checkpoint directory ``path``: the
-    shard arrays, the sidecar, then the ``manifest.json`` completion
-    marker."""
+    process's shard arrays and sidecar, then (process 0, after every
+    process's pair has landed) the ``manifest.json`` completion marker.
+    Under a mesh every rank must call this with the same ``path``."""
+    mesh = snap.mesh
+    pid, nproc = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     os.makedirs(path, exist_ok=True)
     arrays = dict(snap.arrays)
     tree_entries: Dict[str, dict] = {}
     for key, arr in snap.leaves.items():
-        arrays[f"{key}@0"] = arr
-        tree_entries[key] = {
-            "shape": list(arr.shape), "dtype": str(arr.dtype), "spec": None,
-            "shards": [{"key": f"{key}@0",
-                        "index": [[0, d] for d in arr.shape]}]}
-    _atomic_write(os.path.join(path, _SHARD_NPZ),
+        lay = snap.layout.get(key, {})
+        shards = []
+        if lay.get("write", True):
+            arrays[f"{key}@0"] = arr
+            shards.append({"key": f"{key}@0",
+                           "index": lay.get("index", _full_index(arr.shape))})
+        tree_entries[key] = {"shape": list(lay.get("shape", arr.shape)),
+                             "dtype": str(arr.dtype),
+                             "spec": lay.get("spec"), "shards": shards}
+    _atomic_write(os.path.join(path, _shard_npz(pid)),
                   lambda f: np.savez(f, **arrays))
-    sidecar = {"process": 0, "tree": tree_entries,
-               "structured": snap.structured, "mesh": None,
+    sidecar = {"process": pid, "tree": tree_entries,
+               "structured": snap.structured,
+               "mesh": None if mesh is None else dict(mesh.shape),
                "metadata": metadata or {}}
-    _atomic_write(os.path.join(path, _SHARD_JSON),
+    _atomic_write(os.path.join(path, _shard_json(pid)),
                   lambda f: f.write(json.dumps(sidecar).encode()))
-    manifest = {
-        "format": _FORMAT, "num_processes": 1,
-        "metadata": metadata or {}, "mesh": None,
-        "tree": {key: dict(entry, shards=[dict(s, file=_SHARD_NPZ)
-                                          for s in entry["shards"]])
-                 for key, entry in tree_entries.items()},
-        "structured": {name: {"0": {"file": _SHARD_NPZ, "schema": schema}}
-                       for name, schema in snap.structured.items()}}
-    _atomic_write(os.path.join(path, MANIFEST),
-                  lambda f: f.write(json.dumps(manifest).encode()))
+    # every process's pair is on disk before the manifest names it
+    name = None
+    if mesh is not None:
+        key = (mesh.mesh_id, os.path.normpath(path))
+        _SAVES[key] = _SAVES.get(key, -1) + 1
+        name = f"ckpt:{key[0]}:{key[1]}:{_SAVES[key]}"
+    _barrier(mesh, f"{name}:shards")
+    if pid == 0:
+        _atomic_write(os.path.join(path, MANIFEST),
+                      lambda f: f.write(json.dumps(
+                          _merge_manifest(path, nproc)).encode()))
+    _barrier(mesh, f"{name}:done")
+
+
+def _barrier(mesh, name: str) -> None:
+    """A barrier of the mesh's processes on its rendezvous store (no
+    collective: the writer thread runs beside the learner's); a no-op for
+    one process."""
+    if mesh is None or mesh.size == 1:
+        return
+    from repro_torch.launch.mesh import store_barrier
+    store_barrier(mesh, name)
+
+
+def _merge_manifest(path: str, nproc: int) -> dict:
+    """The manifest of ``nproc`` processes' sidecars: each leaf's shape,
+    dtype and spec, and every process's slices of it with their file."""
+    tree: Dict[str, dict] = {}
+    structured: Dict[str, dict] = {}
+    metadata: dict = {}
+    mesh = None
+    for pid in range(nproc):
+        with open(os.path.join(path, _shard_json(pid)),
+                  encoding="utf-8") as f:
+            sc = json.load(f)
+        fname = _shard_npz(pid)
+        for key, entry in sc["tree"].items():
+            tgt = tree.setdefault(key, {"shape": entry["shape"],
+                                        "dtype": entry["dtype"],
+                                        "spec": entry["spec"],
+                                        "shards": []})
+            tgt["shards"].extend(dict(s, file=fname)
+                                 for s in entry["shards"])
+        for name, schema in sc["structured"].items():
+            structured.setdefault(name, {})[str(pid)] = {
+                "file": fname, "schema": schema}
+        if pid == 0:
+            metadata = sc["metadata"]
+            mesh = sc.get("mesh")
+    return {"format": _FORMAT, "num_processes": nproc,
+            "metadata": metadata, "mesh": mesh,
+            "tree": tree, "structured": structured}
 
 
 def save(path: str, tree, metadata: dict | None = None,
@@ -257,19 +340,37 @@ class _ShardFiles:
         self._open.clear()
 
 
-def _leaf(key: str, entry: dict, files: _ShardFiles) -> np.ndarray:
-    """A leaf saved whole, in one shard. A leaf split over several shards
-    (the reference's checkpoints of a device mesh) needs the sharded
-    restore, which is not here."""
-    shards = entry["shards"]
-    if len(shards) != 1 or shards[0]["index"] != [[0, d] for d in
-                                                  entry["shape"]]:
+def _assemble(key: str, entry: dict, files: _ShardFiles,
+              target: Sequence[Sequence[int]]) -> np.ndarray:
+    """The ``target`` block (a global index) of a leaf, from whichever
+    saved slices overlap it — the elastic core: the block may cut across
+    the saved slices' boundaries anywhere."""
+    tgt_shape = tuple(b - a for a, b in target)
+    out = np.empty(tgt_shape, dtype=np.dtype(entry["dtype"]))
+    covered = 0
+    for shard in entry["shards"]:
+        dst, src = [], []
+        vol = 1
+        for (t0, t1), (s0, s1) in zip(target, shard["index"]):
+            lo, hi = max(t0, s0), min(t1, s1)
+            if lo >= hi:
+                vol = 0
+                break
+            dst.append(slice(lo - t0, hi - t0))
+            src.append(slice(lo - s0, hi - s0))
+            vol *= hi - lo
+        if vol == 0:
+            continue
+        data = files[shard["file"]][shard["key"]]
+        out[tuple(dst)] = data[tuple(src)]    # 0-d: out[()] = data[()]
+        covered += vol
+    want = int(np.prod(tgt_shape, dtype=np.int64)) if tgt_shape else 1
+    if covered != want:
         raise ValueError(
-            f"checkpoint leaf {key!r} is saved in {len(shards)} shard(s) "
-            "of a device mesh; this package restores only leaves saved "
-            "whole")
-    return np.asarray(files[shards[0]["file"]][shards[0]["key"]],
-                      dtype=np.dtype(entry["dtype"]))
+            f"checkpoint slices of {key!r} cover {covered}/{want} elements "
+            f"of index {[list(t) for t in target]} — shard files are "
+            "missing or the save was interrupted")
+    return out
 
 
 def _validate_tree(manifest: dict, template_keys: Sequence[str],
@@ -294,32 +395,58 @@ def _validate_tree(manifest: dict, template_keys: Sequence[str],
         raise ValueError("".join(parts))
 
 
-def restore(path: str, like):
+def restore(path: str, like, shardings=None):
     """Restore into the structure of ``like``; returns (tree, metadata).
 
     Each tensor leaf of ``like`` comes back as a tensor on that leaf's
     device (the saved dtype kept); any other leaf comes back as a numpy
     array. The checkpoint's keys are checked against the template's
-    before any array is read."""
+    before any array is read.
+
+    ``shardings``: optional flat key -> (the whole leaf's shape, the
+    global index of the block to restore), for a rank of a mesh: the leaf
+    comes back as that block, assembled from whichever saved slices
+    overlap it, on whatever mesh the checkpoint was written (elastic
+    resume). A key it does not name comes back whole."""
     manifest = _read_manifest(path)
     pairs = flatten(like)
     _validate_tree(manifest, [k for k, _ in pairs], path)
+    shardings = shardings or {}
     files = _ShardFiles(path)
     try:
         leaves = []
         for key, leaf in pairs:
             entry = manifest["tree"][key]
-            if hasattr(leaf, "shape") \
-                    and tuple(entry["shape"]) != tuple(leaf.shape):
+            shape, index = shardings.get(
+                key, (entry["shape"], _full_index(entry["shape"])))
+            if tuple(entry["shape"]) != tuple(shape):
                 raise ValueError(
                     f"shape mismatch for {key}: {tuple(entry['shape'])} "
-                    f"vs {tuple(leaf.shape)}")
-            arr = _leaf(key, entry, files)
+                    f"vs {tuple(shape)}")
+            block = tuple(b - a for a, b in index)
+            if hasattr(leaf, "shape") and block != tuple(leaf.shape):
+                raise ValueError(
+                    f"shape mismatch for {key}: block {block} vs "
+                    f"{tuple(leaf.shape)}")
+            arr = _assemble(key, entry, files, index)
             leaves.append(torch.from_numpy(arr).to(leaf.device)
                           if isinstance(leaf, torch.Tensor) else arr)
     finally:
         files.close()
     return rebuild(like, iter(leaves)), manifest.get("metadata", {})
+
+
+def saved_shardings(path: str, mesh):
+    """Flat key -> the partition spec each leaf was saved with (a tuple,
+    or None for a leaf saved whole), when the checkpoint was written on a
+    mesh of ``mesh``'s shape; None when it was not (another mesh shape or
+    one process: an elastic resume, whose blocks the live mesh decides)."""
+    manifest = _read_manifest(path)
+    if mesh is None or manifest.get("mesh") != dict(mesh.shape):
+        return None
+    return {key: None if entry.get("spec") is None else tuple(
+        tuple(p) if isinstance(p, list) else p for p in entry["spec"])
+        for key, entry in manifest["tree"].items()}
 
 
 def load_flat(path: str):
@@ -328,24 +455,29 @@ def load_flat(path: str):
     manifest = _read_manifest(path)
     files = _ShardFiles(path)
     try:
-        flat = {key: _leaf(key, entry, files)
+        flat = {key: _assemble(key, entry, files,
+                               _full_index(entry["shape"]))
                 for key, entry in manifest["tree"].items()}
     finally:
         files.close()
     return flat, manifest.get("metadata", {})
 
 
-def restore_structured(path: str, name: str):
-    """Restore the self-describing tree saved via
+def restore_structured(path: str, name: str, process: int = 0,
+                       num_processes: int = 1):
+    """Restore process ``process``'s self-describing tree saved via
     ``save(..., structured={name: tree})``: nested dicts, lists, tuples,
     scalars and numpy arrays. ``None`` when the name is absent, or when
-    the checkpoint was written by several processes (source state is per
-    process; the caller starts that piece fresh)."""
+    the checkpoint was written by another number of processes than
+    ``num_processes`` (source state is per process; the caller starts
+    that piece fresh, while the learner state restores elastically)."""
     manifest = _read_manifest(path)
     entry = manifest.get("structured", {}).get(name)
-    if entry is None or manifest.get("num_processes", 1) != 1:
+    if entry is None or manifest.get("num_processes", 1) != num_processes:
         return None
-    mine = entry["0"]
+    mine = entry.get(str(process))
+    if mine is None:
+        return None
     with np.load(os.path.join(path, mine["file"]),
                  allow_pickle=False) as data:
         return _decode(mine["schema"], data)

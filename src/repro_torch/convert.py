@@ -154,10 +154,52 @@ class LMCheckpointLayout:
     {"mu": tree, "nu": tree}), every block leaf stacked on the group axis:
     ``params/blocks/l0/mixer/wq`` and ``opt_state/mu/blocks/l0/mixer/wq``.
     ``names`` are the parameter names in the order of the optimizer
-    state's lists (``params.named_parameters()``)."""
+    state's lists (``params.named_parameters()``).
 
-    def __init__(self, names: Sequence[str]):
+    A model-parallel rank's layout also takes ``model_layout`` (name ->
+    (the reference's spec, the split dimension of the port's leaf or
+    None, its whole shape): ``models/model.py::shard_model``) and the
+    ``mesh``: its leaves are then slices, and ``disk_layout`` gives each
+    disk key's whole (stacked) shape, the global index of this rank's
+    block, the spec, and whether this rank writes it."""
+
+    def __init__(self, names: Sequence[str], model_layout=None, mesh=None):
         self.names = list(names)
+        self.model_layout = model_layout
+        self.mesh = mesh
+
+    def disk_layout(self, keys: Sequence[str]) -> Dict[str, dict]:
+        """Disk key -> {"shape", "index", "spec", "write"} of this rank for
+        the port's ``keys`` (``checkpoint.Snapshot.layout``; ``restore``'s
+        ``shardings`` take its (shape, index)). A split leaf's slice is
+        written by the ranks of data index 0 (one writer a slice), a whole
+        leaf by rank 0."""
+        mesh = self.mesh
+        out: Dict[str, dict] = {}
+        groups: Dict[str, int] = {}
+        for key in keys:
+            where, group = self._where(key)
+            if group is not None:
+                groups[where] = max(groups.get(where, 0), group + 1)
+            name = key.partition("/")[2] if key.startswith("params/") \
+                else self.names[int(key.rsplit("#", 1)[1])]
+            spec, dim, shape = self.model_layout[name]
+            index = [[0, d] for d in shape]
+            if dim is not None:
+                n = shape[dim] // mesh.model
+                index[dim] = [mesh.model_index * n,
+                              (mesh.model_index + 1) * n]
+            out[where] = {
+                "shape": list(shape), "index": index,
+                "spec": [list(p) if isinstance(p, tuple) else p
+                         for p in spec],
+                "write": mesh.data_index == 0 if dim is not None
+                else mesh.rank == 0}
+        for where, g in groups.items():
+            entry = out[where]
+            entry["shape"] = [g] + entry["shape"]
+            entry["index"] = [[0, g]] + entry["index"]
+        return out
 
     def _where(self, key: str) -> Tuple[str, Any]:
         """(the reference's key, the group index or None) of a port key."""

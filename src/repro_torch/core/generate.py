@@ -24,6 +24,13 @@ their generators draw nothing, and admission rewrites the whole cache row,
 so a slot's token stream is determined by its own (prompt, seed,
 temperature): a single-request server is bitwise-identical to
 ``generate`` with the same seed.
+
+Under a model axis (``mesh=``, ``rules=``: a ``Mesh2D`` and its rules
+table, the params this rank's slices) each call runs the model under
+``common.use_rules``; the logits reach ``_sample`` whole (gathered over the
+model group where the vocabulary is split), and model rank 0's tokens,
+log-probs and entropies are broadcast to the other ranks of its group, so
+the ranks of a data index stay in lockstep whatever their arithmetic.
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.batcher import bucket_size
 from repro_torch.models import model as model_lib
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import model_mesh, tree_map, use_rules
 
 
 def logprob_entropy(logits, tokens):
@@ -60,6 +68,17 @@ def _sample(logits, temp, gens, active):
     tok = torch.argmax(scaled + noise, dim=-1)
     lp, ent = logprob_entropy(scaled, tok)
     return tok, lp, ent
+
+
+def _from_model_root(*tensors):
+    """Model rank 0's values of ``tensors`` on every rank of its model
+    group (a no-op without a model axis)."""
+    mesh = model_mesh()
+    if mesh is None:
+        return tensors
+    for t in tensors:
+        dist.broadcast(t, src=mesh.model_root, group=mesh.model_group)
+    return tensors
 
 
 def _out(tok, lp, ent, baseline):
@@ -92,7 +111,8 @@ def _session_prefill(params, prompt, gens, temp, *, cfg, cache_seq_len,
     logits0 = model_lib.logits_from_hidden(params, cfg, h_last)
     base0 = model_lib.baseline_from_hidden(params, cfg, h_last)
     active = np.ones(b, bool)
-    tok, lp, ent = _sample(logits0[:, 0], temp, gens, active)
+    tok, lp, ent = _from_model_root(*_sample(logits0[:, 0], temp, gens,
+                                             active))
     state = {"cache": cache, "pos": (li + 1).to(torch.int32), "last": tok,
              "gens": list(gens), "temp": temp, "active": active}
     return state, _out(tok, lp, ent, base0)
@@ -107,7 +127,8 @@ def _session_step(params, state, *, cfg):
     pos, last, active = state["pos"], state["last"], state["active"]
     logits, baseline, cache = model_lib.serve_step(
         params, last[:, None], state["cache"], pos, cfg=cfg)
-    tok, lp, ent = _sample(logits[:, 0], state["temp"], state["gens"], active)
+    tok, lp, ent = _from_model_root(*_sample(logits[:, 0], state["temp"],
+                                             state["gens"], active))
     live = torch.as_tensor(active, device=pos.device)
     new_state = dict(state, cache=cache,
                      pos=torch.where(live, pos + 1, pos),
@@ -160,19 +181,22 @@ class DecodeSession:
       evict(slot)                         -> frees the slot
     """
 
-    def __init__(self, params, cfg, *, max_batch: int, max_len: int):
+    def __init__(self, params, cfg, *, max_batch: int, max_len: int,
+                 mesh=None, rules=None):
         # as the reference: a VLM rolls out through generate(vision=) only
         if cfg.vision_seq:
             raise ValueError("DecodeSession serves text-only configs")
         self.cfg = cfg
+        self._rules = (mesh, rules)
         self.max_batch = max_batch
         self.max_len = max_len
         self._params = params
         self.device = next(params.parameters()).device
         dev = self.device
+        with use_rules(mesh, rules):
+            cache = model_lib.cache_init(cfg, max_batch, max_len, device=dev)
         self._state = {
-            "cache": model_lib.cache_init(cfg, max_batch, max_len,
-                                          device=dev),
+            "cache": cache,
             "pos": torch.zeros((max_batch,), dtype=torch.int32, device=dev),
             "last": torch.zeros((max_batch,), dtype=torch.int64, device=dev),
             "gens": [torch.Generator(device=dev) for _ in range(max_batch)],
@@ -219,10 +243,11 @@ class DecodeSession:
         gens = [state["gens"][s].manual_seed(int(seed))
                 for s, seed in zip(slots, seeds)]
         temp = torch.tensor(temps, dtype=torch.float32, device=dev)
-        rows, out = _session_prefill(
-            self._params, torch.as_tensor(padded, device=dev), gens, temp,
-            cfg=self.cfg, cache_seq_len=self.max_len,
-            last_index=lengths - 1)
+        with use_rules(*self._rules):
+            rows, out = _session_prefill(
+                self._params, torch.as_tensor(padded, device=dev), gens,
+                temp, cfg=self.cfg, cache_seq_len=self.max_len,
+                last_index=lengths - 1)
         idx = torch.tensor(slots, device=dev)
 
         def overwrite(full, row):
@@ -290,8 +315,9 @@ class DecodeSession:
     def step(self) -> Dict[str, np.ndarray]:
         """Advance every active slot one token. Returns per-slot arrays
         (B,); entries for inactive slots are garbage — gate on .active."""
-        self._state, out = _session_step(self._params, self._state,
-                                         cfg=self.cfg)
+        with use_rules(*self._rules):
+            self._state, out = _session_step(self._params, self._state,
+                                             cfg=self.cfg)
         return _host(out)
 
     def evict(self, slot: int) -> None:
@@ -303,7 +329,7 @@ class DecodeSession:
 # ---------------------------------------------------------------------------
 
 def generate(params, prompt, seed: int, *, cfg, num_steps: int,
-             temperature: float = 1.0, vision=None):
+             temperature: float = 1.0, vision=None, mesh=None, rules=None):
     """prompt: (B, P) int. Samples ``num_steps`` tokens for every row
     through the same session functions the continuous server runs; row i
     samples from a generator seeded with ``seed + i``, so a single-request
@@ -325,13 +351,14 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
     temp = torch.full((b,), temperature, dtype=torch.float32, device=dev)
     if vision is not None:
         vision = torch.as_tensor(vision, device=dev)
-    state, out0 = _session_prefill(params, prompt, gens, temp, cfg=cfg,
-                                   cache_seq_len=p + num_steps,
-                                   vision=vision)
-    outs = [out0]
-    for _ in range(num_steps - 1):
-        state, out = _session_step(params, state, cfg=cfg)
-        outs.append(out)
+    with use_rules(mesh, rules):
+        state, out0 = _session_prefill(params, prompt, gens, temp, cfg=cfg,
+                                       cache_seq_len=p + num_steps,
+                                       vision=vision)
+        outs = [out0]
+        for _ in range(num_steps - 1):
+            state, out = _session_step(params, state, cfg=cfg)
+            outs.append(out)
     stacked = {k: torch.stack([o[k] for o in outs], dim=1) for k in outs[0]}
     return {"tokens": torch.cat([prompt, stacked["token"]], dim=1),
             "logprob": stacked["logprob"], "entropy": stacked["entropy"],

@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import losses
 from repro_torch.distributed import sharding
 from repro_torch.models import model as model_lib
+from repro_torch.models.common import use_rules
 
 
 def _grads(loss, plist):
@@ -167,8 +168,35 @@ def make_recurrent_train_step(opt, train_cfg, *, vtrace_impl="kernel",
     return train_step
 
 
+def _lm_update(params, opt, opt_state, step, total, mesh):
+    """Gradients of ``total`` and the optimizer step, under ``mesh`` (a
+    ``Mesh2D`` or None): the gradients' mean over the data group, and
+    global-norm clipping whose norm sums the split leaves' squares over
+    the model group (``sharding.model_global_norm``). At mesh (1, 1) this
+    is the unmeshed update, bit for bit."""
+    plist = list(params.parameters())
+    grads = _grads(total, plist)
+    extra = {}
+    if mesh is not None and mesh.data > 1:
+        sharding.replicate(grads, mesh.data_view())
+    if mesh is not None and mesh.model > 1:
+        dims = [model_lib.split_dims(params)[n]
+                for n, _ in params.named_parameters()]
+        extra["norm_fn"] = lambda g: sharding.model_global_norm(
+            g, [d is not None for d in dims], mesh)
+    return opt.step(grads, opt_state, plist, step, **extra)
+
+
+def _lm_metrics(metrics, mesh):
+    """The step's metrics, averaged over the data group under a mesh (the
+    model ranks of a data index already agree)."""
+    if mesh is not None and mesh.data > 1:
+        return sharding.mean_scalars(metrics, mesh.data_view())
+    return metrics
+
+
 def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
-                       vtrace_impl="kernel"):
+                       vtrace_impl="kernel", mesh=None, rules=None):
     """IMPALA learner step for LLM policies.
 
     ``params`` is the decoder's parameter tree (``models.model.init``),
@@ -189,6 +217,13 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
     times the load-balance loss plus ``router_z_weight`` times the z-loss
     (zero without MoE); the reported ``loss`` leaves them out, as the
     reference's does.
+
+    mesh, rules: the ("data", "model") mesh of ``--mesh-data`` /
+    ``--mesh-model`` (a ``Mesh2D``; ``params`` this rank's slices, cut by
+    ``model_lib.shard_model``) and its rules table, or None. ``batch`` is
+    then this rank's data block; the step runs the model under
+    ``use_rules``, all-reduces the gradients over the data group and
+    clips by the global norm of the whole tree (``_lm_update``).
     """
     def loss_fn(params, batch):
         tokens = batch["tokens"]          # (B, S+1); model sees first S
@@ -197,7 +232,8 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
                                            vision=batch.get("vision"))
         logprob, entropy = losses.chunked_logprob_entropy(
             hidden, model_lib.unembed_matrix(params, cfg), tokens[:, 1:],
-            chunk=loss_chunk, final_softcap=cfg.final_logit_softcap)
+            chunk=loss_chunk, final_softcap=cfg.final_logit_softcap,
+            vocab_start=model_lib.vocab_start(cfg))
         values_all = model_lib.baseline_from_hidden(params, cfg, hidden)
         bootstrap = torch.zeros((tokens.shape[0],), dtype=torch.float32,
                                 device=tokens.device)
@@ -217,9 +253,9 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
         return loss_out.total + _router_loss(cfg, aux), loss_out
 
     def train_step(params, opt_state, step, batch):
-        plist = list(params.parameters())
-        total, loss_out = loss_fn(params, batch)
-        opt_state = opt.step(_grads(total, plist), opt_state, plist, step)
+        with use_rules(mesh, rules):
+            total, loss_out = loss_fn(params, batch)
+            opt_state = _lm_update(params, opt, opt_state, step, total, mesh)
         metrics = {
             "loss": loss_out.total.detach(),
             "pg_loss": loss_out.pg_loss.detach(),
@@ -227,28 +263,32 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
             "entropy_loss": loss_out.entropy_loss.detach(),
             "reward_per_step": batch["reward"].mean(),
         }
-        return params, opt_state, metrics
+        return params, opt_state, _lm_metrics(metrics, mesh)
 
     return train_step
 
 
-def make_lm_pretrain_step(cfg, opt, *, loss_chunk=512):
+def make_lm_pretrain_step(cfg, opt, *, loss_chunk=512, mesh=None,
+                          rules=None):
     """Plain next-token-prediction step (the LM pretraining driver; also
     the non-RL baseline). batch: {"tokens": (B, S+1) int} and, for a VLM,
     "vision" (B, Sv, d) as in ``make_lm_train_step``. Impls come from
     the config as in ``make_lm_train_step``; the gradient includes the
     router's auxiliary terms as there, the reported ``loss`` is the
-    cross-entropy alone."""
+    cross-entropy alone. mesh and rules as in ``make_lm_train_step``."""
     def train_step(params, opt_state, step, batch):
-        plist = list(params.parameters())
         tokens = batch["tokens"]
-        hidden, aux, _ = model_lib.forward(params, tokens[:, :-1], cfg=cfg,
-                                           vision=batch.get("vision"))
-        loss = losses.chunked_softmax_xent(
-            hidden, model_lib.unembed_matrix(params, cfg), tokens[:, 1:],
-            chunk=loss_chunk, final_softcap=cfg.final_logit_softcap)
-        opt_state = opt.step(_grads(loss + _router_loss(cfg, aux), plist),
-                             opt_state, plist, step)
-        return params, opt_state, {"loss": loss.detach()}
+        with use_rules(mesh, rules):
+            hidden, aux, _ = model_lib.forward(
+                params, tokens[:, :-1], cfg=cfg, vision=batch.get("vision"))
+            loss = losses.chunked_softmax_xent(
+                hidden, model_lib.unembed_matrix(params, cfg),
+                tokens[:, 1:], chunk=loss_chunk,
+                final_softcap=cfg.final_logit_softcap,
+                vocab_start=model_lib.vocab_start(cfg))
+            opt_state = _lm_update(params, opt, opt_state, step,
+                                   loss + _router_loss(cfg, aux), mesh)
+        return params, opt_state, _lm_metrics({"loss": loss.detach()},
+                                               mesh)
 
     return train_step

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import vtrace as vtrace_lib
-from repro_torch.models.common import remat, softcap
+from repro_torch.models.common import (copy_to_model, max_over_model,
+                                       reduce_from_model, remat, softcap)
 
 
 class ImpalaLossOutput(NamedTuple):
@@ -168,27 +169,48 @@ def impala_loss_from_logprobs(target_logprobs, target_entropy,
 # chunked vocab head: per-token log-prob of chosen action + entropy
 # ---------------------------------------------------------------------------
 
-def _logprob_entropy_chunk(h, unembed, a, final_softcap):
+def _logprob_entropy_chunk(h, unembed, a, final_softcap,
+                           vocab_start=None):
     """One chunk's (log p(a), entropy) under the reference's mixed
     precision: the unembedding rounded to the hidden's type, the product
-    and everything after it in float32."""
+    and everything after it in float32. With ``vocab_start`` the
+    unembedding is this rank's vocabulary slice from there on: the max
+    and the sum of exps are reduced over the model group, the taken
+    token's logit is a masked gather summed over it, and the entropy
+    comes from those reduced pieces (the softcap is elementwise)."""
+    if vocab_start is not None:
+        h = copy_to_model(h)
     logits = h.float() @ unembed.to(h.dtype).float()
     if final_softcap:
         logits = softcap(logits, final_softcap)
-    lp = F.log_softmax(logits, dim=-1)
-    alp = torch.gather(lp, -1, a.long()[..., None])[..., 0]
-    ent = -torch.sum(torch.exp(lp) * lp, dim=-1)
-    return alp, ent
+    if vocab_start is None:
+        lp = F.log_softmax(logits, dim=-1)
+        alp = torch.gather(lp, -1, a.long()[..., None])[..., 0]
+        ent = -torch.sum(torch.exp(lp) * lp, dim=-1)
+        return alp, ent
+    m = max_over_model(logits.amax(dim=-1, keepdim=True))
+    e = torch.exp(logits - m)
+    sum_e = reduce_from_model(e.sum(dim=-1))
+    lse = m[..., 0] + torch.log(sum_e)
+    local = a.long() - vocab_start
+    inside = (local >= 0) & (local < logits.shape[-1])
+    taken = torch.gather(logits, -1,
+                         local.clamp(0, logits.shape[-1] - 1)[..., None])
+    taken = reduce_from_model(taken[..., 0] * inside)
+    mean_logit = reduce_from_model(torch.sum(e * logits, dim=-1)) / sum_e
+    return taken - lse, lse - mean_logit
 
 
 def chunked_logprob_entropy(hidden, unembed, actions, *, chunk=512,
-                            final_softcap=None):
+                            final_softcap=None, vocab_start=None):
     """hidden: (B,S,d); unembed: (d,V); actions: (B,S) int.
 
     Runs over S-chunks so the (B,chunk,V) logits stay transient: each
     chunk is a checkpoint region (the reference's ``@jax.checkpoint``),
     its logits and log-softmax recomputed in the backward pass instead of
-    kept for every chunk.
+    kept for every chunk. ``vocab_start``: the unembedding is this rank's
+    vocabulary slice from that index (``models/model.py::vocab_start``),
+    reduced over the model group.
     Returns (logprob (B,S), entropy (B,S)) — both differentiable.
     """
     s = hidden.shape[1]
@@ -198,7 +220,7 @@ def chunked_logprob_entropy(hidden, unembed, actions, *, chunk=512,
     lps, ents = [], []
     for i in range(0, s, c):
         args = (hidden[:, i:i + c], unembed, actions[:, i:i + c],
-                final_softcap)
+                final_softcap, vocab_start)
         alp, ent = remat(_logprob_entropy_chunk, *args)
         lps.append(alp)
         ents.append(ent)
@@ -206,8 +228,10 @@ def chunked_logprob_entropy(hidden, unembed, actions, *, chunk=512,
 
 
 def chunked_softmax_xent(hidden, unembed, labels, *, chunk=512,
-                         final_softcap=None):
-    """Standard LM cross-entropy, chunked over S. Returns mean nats/token."""
+                         final_softcap=None, vocab_start=None):
+    """Standard LM cross-entropy, chunked over S. Returns mean nats/token.
+    ``vocab_start`` as in ``chunked_logprob_entropy``."""
     lp, _ = chunked_logprob_entropy(hidden, unembed, labels, chunk=chunk,
-                                    final_softcap=final_softcap)
+                                    final_softcap=final_softcap,
+                                    vocab_start=vocab_start)
     return -lp.mean()

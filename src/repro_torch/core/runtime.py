@@ -66,20 +66,26 @@ class Runtime:
       checkpoint_layout: None, or an object whose ``to_disk(leaves)`` maps
         the snapshot's flat host leaves to the keys written (the LM modes
         write the reference's layout: ``convert.LMCheckpointLayout``).
+        One with a ``mesh`` (a model-parallel or LM data-parallel rank's)
+        makes every rank write its own slices and source state
+        (``disk_layout``), the sharded checkpoint of
+        ``checkpoint/checkpoint.py``.
       on_metrics: optional callback ``(step, metrics)`` invoked every step
         with the raw (device-resident) metrics dict, after the source's own
         ``on_learner_metrics(step, metrics)`` hook where it has one (replay
         priorities); a source's ``stats()`` gauges join the log line.
       print_fn: sink for log lines.
-      mesh: the data mesh of ``--mesh-data N`` (``launch/mesh.py``), or
-        None. Every rank runs this loop over the same steps; rank 0 alone
-        prints and writes checkpoints. The source's ``stats()`` and
-        ``state_dict()`` are collectives there, so every rank calls them
-        at the same steps. ``frames`` counts the global frames (the
-        sharded sources' ``frames_per_batch`` is global). A failure skips
-        the crash checkpoint (gathering the source state would wait on
-        ranks that may be gone) and propagates, which takes the rank out
-        of the group (``launch/mesh.py``).
+      mesh: the data mesh of ``--mesh-data N`` (``launch/mesh.py``), the
+        LM paths' ``Mesh2D``, or None. Every rank runs this loop over the
+        same steps; rank 0 alone prints. Under a data mesh rank 0 alone
+        writes checkpoints, and the source's ``stats()`` and
+        ``state_dict()`` are collectives, so every rank calls them at the
+        same steps; under an LM mesh every rank writes its own slices and
+        source state (``checkpoint_layout``). ``frames`` counts the global
+        frames (the sharded sources' ``frames_per_batch`` is global). A
+        failure skips the crash checkpoint (the other ranks may be gone)
+        and propagates, which takes the rank out of the group
+        (``launch/mesh.py``).
     """
 
     def __init__(self, source, step_fn: Callable, params, opt_state, *,
@@ -170,14 +176,23 @@ class Runtime:
         # I/O runs on the writer thread ("saved {path}" is printed there
         # once the manifest lands). Under a mesh every rank gathers its
         # source state to rank 0, whose learner state equals the others'.
+        # A rank of an LM mesh writes its own slices and source state.
         source_state = self.source.state_dict()
-        if not self._main:
+        sharded = getattr(self.checkpoint_layout, "mesh", None) is not None
+        if not self._main and not sharded:
             return
         snap = ckpt_lib.snapshot({"params": self.params.state_dict(),
                                   "opt_state": self.opt_state},
                                  structured={"source": source_state})
+        if sharded:
+            snap.layout = self.checkpoint_layout.disk_layout(
+                list(snap.leaves))
+            snap.mesh = self.checkpoint_layout.mesh
         if self.checkpoint_layout is not None:
             snap.leaves = self.checkpoint_layout.to_disk(snap.leaves)
+            for key, entry in snap.layout.items():
+                if not entry["write"]:     # keep the dtype, drop the bytes
+                    snap.leaves[key] = snap.leaves[key][:0]
         if self._writer is None:
             self._writer = ckpt_lib.AsyncCheckpointWriter(
                 print_fn=self.print_fn)

@@ -840,15 +840,30 @@ class GeneratorSource:
     episode's prompts and per-slot sampling seeds are drawn from one host
     ``torch.Generator`` seeded with ``seed``; its state is the source's
     state for ``--resume``.
+
+    ``mesh``, ``rules``: the ("data", "model") mesh (a ``Mesh2D``) and its
+    rules table. Each data index then generates its own B/D episodes,
+    its generator seeded with ``sharding.rank_seed(seed, data_index)``
+    (data index 0 draws what the unmeshed source draws), and the ranks of
+    one model group generate them together (``generate.DecodeSession``
+    under the mesh). ``frames_per_batch`` stays global.
     """
 
     def __init__(self, cfg, *, batch_size: int, episode_length: int,
                  seed: int, reward_fn: Optional[Callable] = None,
-                 temperature: float = 1.0):
+                 temperature: float = 1.0, mesh=None, rules=None):
+        from repro_torch.distributed import sharding
         self._cfg = cfg
+        self._mesh, self._rules = mesh, rules
+        self.frames_per_batch = batch_size * episode_length
+        if mesh is not None:
+            if batch_size % mesh.data:
+                raise ValueError(f"batch {batch_size} not divisible by the "
+                                 f"data axis {mesh.data}")
+            batch_size //= mesh.data
+            seed = sharding.rank_seed(seed, mesh.data_index)
         self.batch_size = batch_size
         self.episode_length = episode_length
-        self.frames_per_batch = batch_size * episode_length
         self._gen = torch.Generator().manual_seed(seed)
         self._reward_fn = reward_fn or (
             lambda toks: token_task_reward(toks, cfg.vocab_size))
@@ -863,7 +878,8 @@ class GeneratorSource:
         if self._session is None:
             self._session = gen_lib.DecodeSession(
                 params, self._cfg, max_batch=self.batch_size,
-                max_len=self.episode_length + 1)
+                max_len=self.episode_length + 1, mesh=self._mesh,
+                rules=self._rules)
         self._session.params = params
         return self._session
 
@@ -944,19 +960,29 @@ class DataSource:
     ``--resume`` guarantee to ``--mode lm``.
 
     Each batch's numpy arrays become tensors on ``device``; ``stop``
-    closes the iterator, which reopens at its offset on the next batch."""
+    closes the iterator, which reopens at its offset on the next batch.
 
-    def __init__(self, iterator, *, frames_per_batch: int, device):
+    ``mesh``, ``rules``: under a ("data", "model") mesh every rank runs
+    the same iterator over the global batch and keeps its data block
+    (``sharding.shard_lm_batch``)."""
+
+    def __init__(self, iterator, *, frames_per_batch: int, device,
+                 mesh=None, rules=None):
         self._it = iterator
         self.frames_per_batch = frames_per_batch
         self._device = device
+        self._mesh, self._rules = mesh, rules
 
     def start(self, params) -> None:
         del params
 
     def next_batch(self, params):
-        return {k: torch.from_numpy(v).to(self._device)
-                for k, v in next(self._it).items()}
+        batch = {k: torch.from_numpy(v).to(self._device)
+                 for k, v in next(self._it).items()}
+        if self._mesh is not None:
+            from repro_torch.distributed import sharding
+            batch = sharding.shard_lm_batch(batch, self._mesh, self._rules)
+        return batch
 
     def stop(self) -> None:
         self._it.close()

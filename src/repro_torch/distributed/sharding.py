@@ -22,20 +22,195 @@ parameters, and the learner calls the collectives below itself:
 
 Only ``all_reduce`` and ``broadcast`` touch tensors, so the same code runs
 on NCCL, gloo over the CPU and gloo over CUDA tensors. Each takes the
-``DataMesh`` of ``launch/mesh.py``. The reference's other rule tables
-(``MEGATRON_RULES``, ``FSDP_RULES``, ...) belong to the LM meshes
-(ROADMAP item 20).
+``DataMesh`` of ``launch/mesh.py`` (or a ``Mesh2D``'s ``data_view()``).
+
+The LM paths' 2-D ("data", "model") mesh (``--mesh-model``) decides which
+slice of each parameter a rank holds with the reference's logical-axis
+rules: ``spec_for`` maps a leaf's logical axes (``models/model.py::
+logical_axes``) through a rules table to a partition spec, a tuple with
+one entry per dimension (None, or the mesh axis it is split over; the
+reference's ``PartitionSpec``), dropping a mapping whose dimension the
+axis size does not divide and, with ``fallback_model``, splitting the
+largest divisible dimension of a leaf that would otherwise keep nothing on
+"model". All the reference's tables are here as data; only
+``MEGATRON_RULES`` has compute behind it (``rules_named``). The
+collectives of the model axis live beside the layers
+(``models/common.py``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.tree import leaves, rebuild
+
+
+# ---------------------------------------------------------------------------
+# The reference's rules tables (``repro.distributed.sharding``), as data
+# ---------------------------------------------------------------------------
+
+# "batch" expands to every data-like mesh axis present (pod + data)
+MEGATRON_RULES: Dict[str, object] = {
+    "vocab": "model",
+    "mlp": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "ssm_heads": "model",
+    "conv_ch": "model",
+    "act_batch": "batch",
+    "act_seq": None,
+    "act_embed": None,
+    "act_vocab": "model",
+    "expert": None,
+}
+FSDP_RULES = dict(MEGATRON_RULES, embed="batch")
+SEQPAR_RULES = dict(MEGATRON_RULES, act_seq="model")
+EXPERT_RULES = dict(MEGATRON_RULES, expert="model", mlp=None,
+                    act_expert="model")
+FSDP_SEQPAR_RULES = dict(MEGATRON_RULES, embed="batch", act_seq="model")
+CP_FSDP_SEQPAR_RULES = dict(FSDP_SEQPAR_RULES, attn_pref="seq")
+EXPERT_SEQPAR_RULES = dict(SEQPAR_RULES, expert="model", mlp=None)
+RL_AGENT_RULES: Dict[str, object] = {
+    "conv_h": None, "conv_w": None, "conv_in": None, "conv_out": None,
+    "fc_in": None, "fc_out": None, "act_batch": "batch",
+}
+RULE_SETS = {
+    "megatron": MEGATRON_RULES,
+    "fsdp": FSDP_RULES,
+    "seqpar": SEQPAR_RULES,
+    "fsdp_seqpar": FSDP_SEQPAR_RULES,
+    "cp_fsdp_seqpar": CP_FSDP_SEQPAR_RULES,
+    "expert": EXPERT_RULES,
+    "expert_seqpar": EXPERT_SEQPAR_RULES,
+    "rl_agent": RL_AGENT_RULES,
+}
+
+
+def rules_named(name: str) -> Dict[str, object]:
+    """The rules table the LM layers compute under: ``megatron`` only; the
+    others are data for ``spec_for`` until their layers exist."""
+    if name not in RULE_SETS:
+        raise KeyError(f"unknown rules {name!r}; known: {sorted(RULE_SETS)}")
+    if name != "megatron":
+        raise NotImplementedError(
+            f"not ported yet: the {name!r} rules table (only 'megatron' has "
+            "model-parallel layers in this package)")
+    return MEGATRON_RULES
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """All batch-like axes of the mesh ('pod' + 'data' when present)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data", "fsdp"))
+
+
+def _resolve(rule, mesh):
+    if rule == "batch":
+        axes = data_axes(mesh)
+        return axes if len(axes) > 1 else (axes[0] if axes else None)
+    return rule
+
+
+def spec_for(logical_axes: Sequence[str], mesh, rules: Dict,
+             shape: Optional[Sequence[int]] = None,
+             fallback_model: bool = False) -> tuple:
+    """Logical axes -> partition spec (a tuple, trailing Nones dropped),
+    the reference's decision: a mapping whose dimension is not divisible
+    by the mesh-axis size is dropped (that dimension replicated), and with
+    ``fallback_model`` a leaf that uses no 'model' axis after the main pass
+    splits its largest still-replicated, divisible dimension over it.
+    ``mesh``: anything with ``shape`` (axis -> size) and ``axis_names``."""
+    used = set()
+    parts: List[Any] = []
+    for i, ax in enumerate(logical_axes):
+        rule = _resolve(rules.get(ax), mesh)
+        if rule is None:
+            parts.append(None)
+            continue
+        mesh_axes = rule if isinstance(rule, tuple) else (rule,)
+        mesh_axes = tuple(a for a in mesh_axes if a not in used)
+        if not mesh_axes:
+            parts.append(None)
+            continue
+        size = 1
+        for a in mesh_axes:
+            size *= mesh.shape[a]
+        if shape is not None and shape[i] % size != 0:
+            parts.append(None)
+            continue
+        used.update(mesh_axes)
+        parts.append(mesh_axes if len(mesh_axes) > 1 else mesh_axes[0])
+    if (fallback_model and "model" not in used and shape is not None
+            and "model" in mesh.shape):
+        msize = mesh.shape["model"]
+        for i in sorted(range(len(parts)), key=lambda i: -shape[i]):
+            if parts[i] is None and shape[i] % msize == 0 \
+                    and shape[i] >= msize:
+                parts[i] = "model"
+                break
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def param_shardings(axes: Dict[str, Sequence[str]], mesh, rules: Dict,
+                    shapes: Optional[Dict[str, Sequence[int]]] = None
+                    ) -> Dict[str, tuple]:
+    """Leaf name -> partition spec for a table of logical axes (and, as
+    the reference's, each leaf's shape: divisibility drops, and the
+    'model' fallback for a leaf of more than one dimension)."""
+    if shapes is None:
+        return {k: spec_for(ax, mesh, rules) for k, ax in axes.items()}
+    return {k: spec_for(ax, mesh, rules, shapes[k],
+                        fallback_model=len(shapes[k]) > 1)
+            for k, ax in axes.items()}
+
+
+def model_dim(spec: Sequence) -> Optional[int]:
+    """The dimension a partition spec splits over 'model', or None."""
+    for i, part in enumerate(spec):
+        if part == "model" or (isinstance(part, tuple) and "model" in part):
+            return i
+    return None
+
+
+def batch_axes_spec(mesh, rules: Dict, ndim: int, shape,
+                    batch_dim: int) -> Optional[tuple]:
+    """The spec splitting ``batch_dim`` over the data axes named by the
+    rules' 'act_batch' entry; None when unmapped, of size 1, or not
+    divisible (the batch then stays whole on every rank)."""
+    rule = _resolve(rules.get("act_batch", "batch"), mesh)
+    if rule is None:
+        return None
+    mesh_axes = rule if isinstance(rule, tuple) else (rule,)
+    size = 1
+    for a in mesh_axes:
+        size *= mesh.shape[a]
+    if size == 1 or shape[batch_dim] % size != 0:
+        return None
+    parts: List[Any] = [None] * ndim
+    parts[batch_dim] = mesh_axes if len(mesh_axes) > 1 else mesh_axes[0]
+    return tuple(parts)
+
+
+def shard_lm_batch(batch: Dict[str, Any], mesh, rules: Dict
+                   ) -> Dict[str, Any]:
+    """This rank's rows of a BATCH-MAJOR LM batch (tokens (B, S+1),
+    behavior_logprob / reward / done (B, S), vision (B, Sv, d)): data
+    index i of D takes rows [i*B/D, (i+1)*B/D) of each leaf the rules
+    split (a leaf whose B does not divide stays whole)."""
+    out = {}
+    for k, v in batch.items():
+        spec = batch_axes_spec(mesh, rules, v.dim(), v.shape, 0)
+        if spec is None:
+            out[k] = v
+            continue
+        n = v.shape[0] // mesh.data
+        out[k] = v.narrow(0, mesh.data_index * n, n).contiguous()
+    return out
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -126,3 +301,18 @@ def gather_to_main(obj, mesh) -> Optional[List[Any]]:
     out = [None] * mesh.size if mesh.is_main else None
     dist.gather_object(obj, out, dst=0, group=mesh.object_group)
     return out
+
+
+def model_global_norm(tensors: Sequence[torch.Tensor],
+                      sharded: Sequence[bool], mesh) -> torch.Tensor:
+    """The global norm of a model-parallel rank's gradients: the squares
+    of the leaves it holds a slice of (``sharded``) summed over the model
+    group, those of its replicated leaves counted once, as the norm of
+    the whole tree."""
+    zero = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    parts = [zero, zero]
+    for t, s in zip(tensors, sharded):
+        parts[bool(s)] = parts[bool(s)] + torch.sum(torch.square(t.float()))
+    split = parts[1].clone()
+    dist.all_reduce(split, group=mesh.model_group)
+    return torch.sqrt(split + parts[0])

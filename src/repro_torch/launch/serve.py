@@ -119,18 +119,26 @@ class Server:
     and the host-clock seconds spent in admissions (``prefill_seconds``)
     and decode steps (``decode_seconds``); both end in a copy of the
     sampled tokens to the host, so they include the device's work.
+
+    ``mesh``, ``rules``: a model-parallel rank's ``Mesh2D`` and rules
+    (``params`` its slices), passed to the session. Each rank of a model
+    group runs its own server, and they stay in lockstep only if every
+    one of them admits the same requests at the same steps: submit them
+    all before the loop takes the first (``policy='static'`` then admits
+    one batch and runs it out on every rank alike).
     """
 
     def __init__(self, cfg, params, *, max_batch: int = 8,
                  max_len: int = 256, policy: str = "continuous",
-                 default_max_tokens: int = 16, seed: int = 0):
+                 default_max_tokens: int = 16, seed: int = 0, mesh=None,
+                 rules=None):
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown policy {policy!r}")
         self.cfg = cfg
         self.policy = policy
         self.default_max_tokens = default_max_tokens
         self.session = DecodeSession(params, cfg, max_batch=max_batch,
-                                     max_len=max_len)
+                                     max_len=max_len, mesh=mesh, rules=rules)
         self._rng = np.random.default_rng(seed)
         self._cv = threading.Condition()
         self._queue: collections.deque = collections.deque()

@@ -42,10 +42,22 @@ every rank holds the same parameters; rank 0 alone prints and writes
 checkpoints. On CUDA, N may not exceed the visible GPUs (rank r runs on
 ``cuda:r``); on the CPU any N runs. ``main`` returns rank 0's Runtime.
 
+``--mesh-data N --mesh-model M`` (lm, lm-rl) trains over the reference's
+2-D ("data", "model") mesh of N x M ranks, one process each: each rank
+holds its model slice of the decoder (``MEGATRON_RULES``: heads, mlp,
+SSM heads and a divisible vocabulary split over "model"), and the token
+batch is split over "data" (``launch/mesh.py::Mesh2D``). Every rank
+writes its slices of each checkpoint, and ``--resume`` restores onto any
+mesh shape (elastic). ``--coordinator HOST:PORT --num-processes N
+--process-id i`` runs one rank per command instead of spawning them
+(``launch/multihost.py``). Mesh (1, 1) is the unmeshed run, bit for bit.
+On CUDA rank r runs on ``cuda:r``, so the mesh needs as many GPUs (NCCL
+refuses two ranks on one device; ``launch/mesh.py::launch(devices=,
+backend="gloo")`` puts them on one card, as ``chip_smoke.py`` does). The xLSTM mixers and the VLM's cross-attention take no model axis
+yet (``--mesh-model`` > 1 raises).
+
 Runs on CUDA unless ``--device cpu`` is given; without a GPU and without
-``--device cpu`` it raises. The reference's 2-D mesh and multi-host flags
-(``--mesh-model``, ``--coordinator``, ``--num-processes``,
-``--process-id``) are not ported yet and exit with an error that says so.
+``--device cpu`` it raises.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode rl-agent \
@@ -76,6 +88,12 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
       --arch llama-3.2-vision-90b --reduced --attn-impl kernel --steps 2 \
       --batch 2 --seq 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+      --arch qwen3-4b --reduced --steps 4 --batch 8 --seq 32 \
+      --mesh-model 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm-rl \
+      --arch qwen3-4b --reduced --steps 3 --batch 8 --seq 16 \
+      --mesh-data 2 --mesh-model 2 --device cpu
 
 A VLM (``vision_seq``) trains in ``--mode lm`` on the vision stub (zero
 patch embeddings); ``--mode lm-rl`` refuses it, as the reference's does
@@ -104,11 +122,6 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.common import dtype_of
 from repro_torch.models.convnet import impala_deep, minatar_net
 from repro_torch.optim import make_optimizer
-
-# Flags of repro.launch.train that this package does not have yet.
-_NOT_PORTED_FLAGS = (
-    "--mesh-model", "--coordinator", "--num-processes", "--process-id")
-
 
 def build_rl_agent(args, mesh=None):
     """The rl-agent run: (device | sharded | host) actors, optionally
@@ -169,50 +182,70 @@ def _lm_config(args):
     return ImplContext.from_args(args).apply(cfg)
 
 
-def _lm_layout(params):
+def _lm_layout(params, mesh=None):
     """The LM modes checkpoint in the reference's layout (block leaves
     stacked on the group axis, AdamW's mu and nu as trees), so that each
-    package resumes the other's checkpoints."""
-    return LMCheckpointLayout([n for n, _ in params.named_parameters()])
+    package resumes the other's checkpoints; under a mesh every rank
+    writes its slices (``LMCheckpointLayout.disk_layout``)."""
+    names = [n for n, _ in params.named_parameters()]
+    if mesh is None:
+        return LMCheckpointLayout(names)
+    return LMCheckpointLayout(names, params.model_layout, mesh)
 
 
-def build_lm_rl(args):
-    device = resolve_device(args.device)
+def _lm_params(args, cfg, seed, mesh):
+    """(device, the decoder's params, rules): the whole tree from
+    ``seed``, cut to this rank's model slices under ``mesh``."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    params = model_lib.init(cfg, seed=seed, device=device)
+    rules = None
+    if mesh is not None:
+        rules = sharding.rules_named("megatron")
+        model_lib.shard_model(params, cfg, mesh, rules)
+    return device, params, rules
+
+
+def build_lm_rl(args, mesh=None):
+    """The lm-rl run; ``mesh``: this rank's ``Mesh2D`` (--mesh-data /
+    --mesh-model), or None."""
     cfg = _lm_config(args)
     train_cfg = TrainConfig(optimizer="adamw", learning_rate=args.lr or 3e-4,
                             grad_clip=1.0, total_steps=args.steps,
                             lr_schedule="constant", entropy_cost=0.003)
-    params = model_lib.init(cfg, seed=train_cfg.seed, device=device)
+    _, params, rules = _lm_params(args, cfg, train_cfg.seed, mesh)
     opt = make_optimizer(train_cfg)
     opt_state = opt.init(list(params.parameters()))
     source = sources_lib.GeneratorSource(
-        cfg, batch_size=args.batch or 16, episode_length=args.seq, seed=7)
+        cfg, batch_size=args.batch or 16, episode_length=args.seq, seed=7,
+        mesh=mesh, rules=rules)
     step_fn = sources_lib.lm_rl_step_from_rollout(
         learner_lib.make_lm_train_step(cfg, opt, train_cfg,
                                        loss_chunk=args.seq,
-                                       vtrace_impl=args.vtrace_impl))
+                                       vtrace_impl=args.vtrace_impl,
+                                       mesh=mesh, rules=rules))
     extras = {"log_keys": ("reward_per_step", "pg_loss", "entropy_loss"),
-              "checkpoint_layout": _lm_layout(params)}
+              "checkpoint_layout": _lm_layout(params, mesh)}
     return source, step_fn, params, opt_state, extras
 
 
-def build_lm(args):
+def build_lm(args, mesh=None):
+    """The lm run; ``mesh`` as in ``build_lm_rl``."""
     from repro_torch.data import PackedBatchIterator, markov_corpus
-    device = resolve_device(args.device)
     cfg = _lm_config(args)
     train_cfg = TrainConfig(optimizer="adamw", learning_rate=args.lr or 3e-4,
                             grad_clip=1.0, total_steps=args.steps,
                             lr_schedule="cosine", warmup_steps=10)
-    params = model_lib.init(cfg, seed=0, device=device)
+    device, params, rules = _lm_params(args, cfg, 0, mesh)
     opt = make_optimizer(train_cfg)
     opt_state = opt.init(list(params.parameters()))
     step_fn = learner_lib.make_lm_pretrain_step(
-        cfg, opt, loss_chunk=min(512, args.seq))
+        cfg, opt, loss_chunk=min(512, args.seq), mesh=mesh, rules=rules)
     b = args.batch or 16
     if cfg.vision_seq:
         # the VLM's vision stub, as the reference's: zero patch embeddings
-        # in the activation type beside every batch
-        vision = torch.zeros((b, cfg.vision_seq, cfg.d_model),
+        # in the activation type beside every (this rank's) batch
+        rows = b if mesh is None else b // mesh.data
+        vision = torch.zeros((rows, cfg.vision_seq, cfg.d_model),
                              dtype=dtype_of(cfg), device=device)
         pretrain_step = step_fn
 
@@ -226,9 +259,9 @@ def build_lm(args):
     it = PackedBatchIterator(corpus, b, args.seq, seed=train_cfg.seed)
 
     source = sources_lib.DataSource(it, frames_per_batch=b * args.seq,
-                                    device=device)
+                                    device=device, mesh=mesh, rules=rules)
     extras = {"log_keys": ("loss",), "fps_label": "tok/s",
-              "checkpoint_layout": _lm_layout(params)}
+              "checkpoint_layout": _lm_layout(params, mesh)}
     return source, step_fn, params, opt_state, extras
 
 
@@ -278,9 +311,24 @@ def _parser():
     p.add_argument("--replay-ratio", type=float, default=1.0,
                    help="replayed:fresh columns per learner batch")
     p.add_argument("--mesh-data", type=int, default=0, metavar="N",
-                   help="rl-agent: data-parallel learning over N ranks, one "
-                        "process each (NCCL on CUDA, at most the visible "
-                        "GPUs; gloo on the CPU); 0: one process, no mesh")
+                   help="data-parallel learning over N ranks, one process "
+                        "each (NCCL on CUDA, at most the visible GPUs; gloo "
+                        "on the CPU); lm/lm-rl: the 'data' axis of the "
+                        "('data', 'model') mesh; 0: one process, no mesh")
+    p.add_argument("--mesh-model", type=int, default=0, metavar="M",
+                   help="lm/lm-rl: the 'model' axis of the ('data', "
+                        "'model') mesh: MEGATRON_RULES split the decoder's "
+                        "parameters over M ranks, the token batch over "
+                        "--mesh-data; composes with --resume (elastic)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="lm/lm-rl: run ONE rank of the mesh in this process "
+                        "(--process-id of --num-processes), joining the "
+                        "others at process 0's rendezvous HOST:PORT "
+                        "(launch/multihost.py) instead of spawning them")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="with --coordinator: the mesh's rank count")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="with --coordinator: this process's rank")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -314,12 +362,16 @@ def _checkpoint_meta(args):
     return meta
 
 
-def _resume(args, source, params, opt_state, layout=None, print_fn=print):
+def _resume(args, source, params, opt_state, layout=None, print_fn=print,
+            mesh=None):
     """Load the latest checkpoint under --checkpoint-dir into the learner's
     module, the optimizer state and the source (under a mesh, each rank
     reads it and takes its own entries); returns (opt_state,
     start_step). ``layout``: the LM modes' ``LMCheckpointLayout``, whose
-    checkpoints either package may have written."""
+    checkpoints either package may have written, on any mesh: a rank of
+    an LM mesh (``mesh``, a ``Mesh2D``) restores its own blocks and, when
+    the checkpoint was written by as many processes, its own source
+    state (else the source starts fresh, as the reference's)."""
     from repro_torch import checkpoint as ckpt_lib
     from repro_torch.tree import flatten
     path = ckpt_lib.latest_step_path(args.checkpoint_dir)
@@ -341,7 +393,11 @@ def _resume(args, source, params, opt_state, layout=None, print_fn=print):
     # SourceState: replay the exact rollout stream (env carry, generator,
     # in-flight rollout, the actors' parameter copy; the LM iterator's
     # position or the episode generator).
-    source_state = ckpt_lib.restore_structured(path, "source")
+    if isinstance(mesh, mesh_lib.Mesh2D):
+        source_state = ckpt_lib.restore_structured(
+            path, "source", process=mesh.rank, num_processes=mesh.size)
+    else:
+        source_state = ckpt_lib.restore_structured(path, "source")
     if args.mode == "lm-rl" and source_state is not None \
             and "generator" not in source_state:
         raise SystemExit(
@@ -357,8 +413,14 @@ def _resume(args, source, params, opt_state, layout=None, print_fn=print):
         opt_state = restored["opt_state"]
     else:
         leaves = flatten(like)
+        blocks = None
+        if layout.mesh is not None:
+            blocks = {key: (entry["shape"], entry["index"])
+                      for key, entry in layout.disk_layout(
+                          [k for k, _ in leaves]).items()}
         on_disk, meta = ckpt_lib.restore(
-            path, layout.template([(k, v.shape) for k, v in leaves]))
+            path, layout.template([(k, v.shape) for k, v in leaves]),
+            shardings=blocks)
         arrays = layout.from_disk(dict(flatten(on_disk)),
                                   [k for k, _ in leaves])
         with torch.no_grad():
@@ -378,19 +440,41 @@ def main(argv=None) -> Runtime:
     ``params`` are the trained agent or decoder, ``metrics`` the last
     step's)."""
     p = _parser()
-    args, unknown = p.parse_known_args(argv)
-    not_ported = sorted({a.split("=")[0] for a in unknown
-                         if a.split("=")[0] in _NOT_PORTED_FLAGS})
-    if not_ported:
-        p.error(f"not ported yet: {' '.join(not_ported)}")
-    if unknown:
-        p.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = p.parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         p.error("--resume requires --checkpoint-dir")
+    if args.mesh_model and args.mode == "rl-agent":
+        p.error("--mesh-model applies to the LM paths (--mode lm/lm-rl); "
+                "rl-agent is data-parallel only (--mesh-data)")
+    if args.num_processes > 1 and not args.coordinator:
+        # without the rendezvous each process would train a whole model
+        # of its own and clobber the shared checkpoint directory
+        p.error("--num-processes > 1 requires --coordinator")
+    lm_mesh = args.mode != "rl-agent" and bool(
+        args.mesh_data or args.mesh_model or args.coordinator)
+    if args.coordinator and not lm_mesh:
+        given = [flag for flag, on in (
+            ("--num-processes", args.num_processes > 1),
+            ("--mesh-data", args.mesh_data), ("--coordinator", True)) if on]
+        p.error(f"not ported yet: {', '.join(given)} with --mode rl-agent "
+                "(its --mesh-data ranks are spawned, one command for all)")
+    if lm_mesh:
+        data, model = args.mesh_data or 1, args.mesh_model or 1
+        cfg = _lm_config(args)
+        try:
+            model_lib.check_model_parallel(cfg, model)
+        except NotImplementedError as exc:
+            p.error(str(exc))
+        device = resolve_device(args.device)    # no GPU: raises here
+        if args.coordinator:
+            from repro_torch.launch.multihost import bootstrap
+            with bootstrap(args.coordinator, args.num_processes,
+                           args.process_id, data=data, model=model,
+                           device=device) as mesh:
+                return _train(mesh, args)
+        return mesh_lib.launch(_train, data * model, device=device,
+                               args=(args,), model=model)
     if args.mesh_data:
-        if args.mode != "rl-agent":
-            p.error(f"not ported yet: --mesh-data with --mode {args.mode} "
-                    "(the LM paths' meshes; --mode rl-agent takes it)")
         device = resolve_device(args.device)    # no GPU: raises here
         return mesh_lib.launch(_train, args.mesh_data, device=device,
                                args=(args,))
@@ -401,18 +485,20 @@ def _train(mesh, args) -> Runtime:
     """Build, resume and run one process's part of the training: all of it
     without a mesh, else this rank's (the body every rank runs)."""
     print_fn = print if mesh is None or mesh.is_main else (lambda line: None)
+    lm_mesh = isinstance(mesh, mesh_lib.Mesh2D)
     if mesh is None:
         built = _BUILDERS[args.mode](args)
     else:
         resolve_device(args.device)   # pins float32 in a spawned rank too
-        built = build_rl_agent(args, mesh)
+        built = (_BUILDERS[args.mode](args, mesh) if lm_mesh
+                 else build_rl_agent(args, mesh))
     source, step_fn, params, opt_state, extras = built
     start_step = 0
     if args.resume:
         opt_state, start_step = _resume(
             args, source, params, opt_state,
-            extras.get("checkpoint_layout"), print_fn)
-    if mesh is not None:
+            extras.get("checkpoint_layout"), print_fn, mesh)
+    if mesh is not None and not lm_mesh:
         sharding.broadcast_module(params, mesh)   # rank 0's params everywhere
     runtime = Runtime(source, step_fn, params, opt_state,
                       total_steps=args.steps, start_step=start_step,

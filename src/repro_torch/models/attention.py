@@ -24,6 +24,14 @@ plain PyTorch; ``auto`` picks dense up to 2048 tokens. The kernels are
 causal: ``xattn`` under ``kernel`` takes the chunked plain path in prefill
 (every KV chunk visited, as the reference) and the dense product against
 its static vision cache in decode.
+
+Under a model axis of M (``common.use_rules``) a layer whose query and kv
+head counts both divide by M runs on this rank's H/M query heads and K/M
+kv heads (``wq``/``wk``/``wv`` split on their head axis, ``wo`` on its
+first), the kernels on those heads unchanged, and the output projection's
+partial sums all-reduced; its decode cache holds the local kv heads only.
+Otherwise it runs whole on every rank. ``xattn`` does not take a model
+axis yet.
 """
 
 from __future__ import annotations
@@ -34,11 +42,20 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.common import Params, apply_rope, param, softcap
+from repro_torch.models.common import (Params, apply_rope, copy_to_model,
+                                       model_mesh, model_split, operand,
+                                       param, reduce_from_model, softcap)
 
 # the self-attention kinds: causal, rotary, and the only kinds that run
 # the attention kernels (``xattn`` is the fourth kind)
 CAUSAL_KINDS = ("attn", "local_attn", "swa_attn")
+
+# the reference's logical axes of each leaf (its ``attn_init``)
+AXES = {"wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "q_norm": ("head_dim",), "k_norm": ("head_dim",)}
 
 # ---------------------------------------------------------------------------
 # init
@@ -60,6 +77,30 @@ def attn_init(cfg, kind, *, generator, device=None):
     return Params(**p)
 
 
+def head_split(cfg) -> int:
+    """How many parts the active model axis splits a layer's heads into:
+    M where both head counts divide by it, else 1 (the layer runs whole)."""
+    parts = model_split(cfg.num_heads)
+    return parts if cfg.num_kv_heads % parts == 0 else 1
+
+
+def _weights(params, cfg, kind):
+    """The layer's leaves as this rank computes with them (all of them
+    outside a model-parallel context), and whether its heads are split."""
+    if kind == "xattn" and model_mesh() is not None:
+        raise NotImplementedError(
+            "not ported yet: xattn (the VLM's cross-attention) under a "
+            "model axis larger than 1")
+    split = head_split(cfg) > 1
+    w = {n: operand(params, n, 1 if split else None)
+         for n in ("wq", "wk", "wv")}
+    w["wo"] = operand(params, "wo", 0 if split else None)
+    if cfg.use_qk_norm:
+        for n in ("q_norm", "k_norm"):
+            w[n] = operand(params, n, None, local=split)
+    return w, split
+
+
 def _qk_norm(x, scale, eps):
     dt = x.dtype
     x = x.float()
@@ -68,8 +109,11 @@ def _qk_norm(x, scale, eps):
     return y.to(dt)
 
 
-def _project_qkv(params, cfg, x, kv_src):
-    """Returns q (B,S,H,hd), k, v (B,Skv,K,hd) in x's type."""
+def _project_qkv(params, cfg, x, kv_src, split=False):
+    """Returns q (B,S,H,hd), k, v (B,Skv,K,hd) in x's type (H and K this
+    rank's heads when ``split``). ``params``: ``_weights``'s."""
+    if split:
+        x = kv_src = copy_to_model(x)
     xf, sf = x.float(), kv_src.float()
     q = torch.einsum("bsd,dhe->bshe", xf, params["wq"]).to(x.dtype)
     k = torch.einsum("bsd,dke->bske", sf, params["wk"]).to(x.dtype)
@@ -92,10 +136,13 @@ def _scale(cfg):
             else cfg.resolved_head_dim ** -0.5)
 
 
-def _out_proj(params, cfg, o):
-    """o: (B,S,H,hd) -> (B,S,d)."""
-    return torch.einsum("bshe,hed->bsd", o.float(),
-                        params["wo"]).to(o.dtype)
+def _out_proj(params, cfg, o, split=False):
+    """o: (B,S,H,hd) -> (B,S,d); with ``split`` the heads are this rank's
+    and the partial products are summed over the model group."""
+    out = torch.einsum("bshe,hed->bsd", o.float(), params["wo"])
+    if split:
+        out = reduce_from_model(out)
+    return out.to(o.dtype)
 
 
 def _window(cfg, kind):
@@ -233,7 +280,8 @@ def attn_apply(params, x, *, cfg, kind, positions, kv_src=None, impl=None):
     """
     causal = kind in CAUSAL_KINDS
     src = x if kv_src is None else kv_src
-    q, k, v = _project_qkv(params, cfg, x, src)
+    params, split = _weights(params, cfg, kind)
+    q, k, v = _project_qkv(params, cfg, x, src, split)
     if cfg.pos_emb == "rope" and causal:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -243,7 +291,7 @@ def attn_apply(params, x, *, cfg, kind, positions, kv_src=None, impl=None):
     impl = impl or cfg.attn_impl
     if impl == "auto":
         impl = "xla" if x.shape[1] <= 2048 else "xla_chunked_skip"
-    group = cfg.num_heads // cfg.num_kv_heads
+    group = q.shape[2] // k.shape[2]
     if impl == "kernel" and causal:
         o = _attend_flash_kernel(q, k, v, scale=_scale(cfg), window=window,
                                  cap=cfg.attn_logit_softcap,
@@ -260,7 +308,7 @@ def attn_apply(params, x, *, cfg, kind, positions, kv_src=None, impl=None):
                             skip=impl == "xla_chunked_skip")
     else:
         raise ValueError(f"unknown attn impl {impl}")
-    return _out_proj(params, cfg, o), (k, v)
+    return _out_proj(params, cfg, o, split), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -270,8 +318,9 @@ def attn_apply(params, x, *, cfg, kind, positions, kv_src=None, impl=None):
 def attn_cache_init(cfg, kind, batch, seq_len, dtype, device=None):
     """Zero cache for one attention layer. Full attention: capacity =
     seq_len. Windowed: a ring buffer of the window's size. xattn: the
-    static vision k/v, ``cfg.vision_seq`` slots."""
-    k_, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    static vision k/v, ``cfg.vision_seq`` slots. Under a model axis that
+    splits the layer's heads, this rank's kv heads only."""
+    k_, hd = cfg.num_kv_heads // head_split(cfg), cfg.resolved_head_dim
     window = _window(cfg, kind)
     if kind == "xattn":
         cap = cfg.vision_seq
@@ -298,6 +347,7 @@ def attn_decode(params, x, cache, *, cfg, kind, pos, impl=None):
     Returns (out (B,1,d), cache).
     """
     group = cfg.num_heads // cfg.num_kv_heads
+    params, split = _weights(params, cfg, kind)
     if kind == "xattn":
         q, _, _ = _project_qkv(params, cfg, x, x)
         k, v = cache["k"], cache["v"]
@@ -306,7 +356,7 @@ def attn_decode(params, x, cache, *, cfg, kind, pos, impl=None):
                           None, kv_pos, _scale(cfg), 0,
                           cfg.attn_logit_softcap, False)
         return _out_proj(params, cfg, o), cache
-    q, k_new, v_new = _project_qkv(params, cfg, x, x)
+    q, k_new, v_new = _project_qkv(params, cfg, x, x, split)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     vec = pos.dim() == 1                    # per-row positions
     if cfg.pos_emb == "rope":
@@ -341,7 +391,7 @@ def attn_decode(params, x, cache, *, cfg, kind, pos, impl=None):
             q[:, 0], k.transpose(1, 2), v.transpose(1, 2), slot_pos, pos,
             scale=_scale(cfg), softcap=cfg.attn_logit_softcap or 0.0,
             window=window)
-        return _out_proj(params, cfg, o[:, None]), cache
+        return _out_proj(params, cfg, o[:, None], split), cache
 
     # grouped GQA product directly against the compact (B,S,K,hd) cache:
     # the small q is reshaped to (K, G), the cache keeps its K axis
@@ -349,7 +399,7 @@ def attn_decode(params, x, cache, *, cfg, kind, pos, impl=None):
     if window:
         valid &= rpos - slot_pos < window
     b, hd = q.shape[0], q.shape[-1]
-    qg = q.reshape(b, 1, cfg.num_kv_heads, group, hd)
+    qg = q.reshape(b, 1, k.shape[2], group, hd)
     s = torch.einsum("bqkgh,btkh->bkgqt", qg.float(), k.float()) * _scale(cfg)
     if cfg.attn_logit_softcap:
         s = softcap(s, cfg.attn_logit_softcap)
@@ -359,8 +409,8 @@ def attn_decode(params, x, cache, *, cfg, kind, pos, impl=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkh->bqkgh", p.to(q.dtype).float(),
                      v.float()).to(q.dtype)
-    o = o.reshape(b, 1, cfg.num_heads, hd)
-    return _out_proj(params, cfg, o), cache
+    o = o.reshape(b, 1, q.shape[2], hd)
+    return _out_proj(params, cfg, o, split), cache
 
 
 def attn_prefill_cache(cfg, kind, kv, seq_len, dtype):

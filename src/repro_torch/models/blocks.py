@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention, mamba, mlp, moe, xlstm
-from repro_torch.models.common import Params, make_norm, remat, remat_active
+from repro_torch.models.common import (Params, make_norm, model_mesh,
+                                       remat, remat_active)
 
 ATTN_KINDS = attention.CAUSAL_KINDS + ("xattn",)
 # the recurrent mixers' (init, apply, decode, cache_init(cfg, batch, dtype,
@@ -34,6 +35,13 @@ _RECURRENT = {
     "slstm": (xlstm.slstm_init, xlstm.slstm_apply, xlstm.slstm_decode,
               lambda cfg, batch, dtype, device: xlstm.slstm_state_init(
                   cfg, batch, device=device))}
+
+
+def _check_mixer(kind):
+    if kind in ("mlstm", "slstm") and model_mesh() is not None:
+        raise NotImplementedError(
+            f"not ported yet: the {kind} mixer under a model axis larger "
+            "than 1")
 
 
 def _mixer_init(cfg, kind, **kw):
@@ -116,6 +124,7 @@ def block_apply(params, x, *, cfg, positions, pattern=None, vision=None,
         aux = None
         h = norm_fn(layer["pre_norm"], x)
         lcache = None
+        _check_mixer(mixer)
         if mixer in _RECURRENT:
             h, lcache = _RECURRENT[mixer][1](layer["mixer"], h, cfg,
                                              return_state=build_cache)
@@ -158,6 +167,7 @@ def block_decode(params, x, cache, *, cfg, pos, pattern=None, impl=None):
     for idx, (mixer, ffn) in enumerate(pattern):
         layer = params[f"l{idx}"]
         h = norm_fn(layer["pre_norm"], x)
+        _check_mixer(mixer)
         if mixer in _RECURRENT:
             h, _ = _RECURRENT[mixer][2](layer["mixer"], h, cache[f"l{idx}"],
                                         cfg)

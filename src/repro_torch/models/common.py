@@ -7,13 +7,43 @@ the same tree is a tree of :class:`Params` modules: each node holds named
 reference's dicts are, so ``params["mixer"]["wq"]`` reads the same in both
 packages. Leaves keep the reference's layouts (``wq`` as (d, H, hd), ``wo``
 as (H, hd, d)), and a node's ``state_dict`` names each leaf by its path.
+
+Model parallel (``--mesh-model``). The reference places each leaf by its
+logical axes (``distributed/sharding.py::spec_for``) and lets XLA insert
+the collectives. Here a rank's tree holds its slice of each split leaf
+(``shard_params``; the node's ``shard_dims`` names the split dimension of
+each of its leaves) and the layers call the collectives themselves, as
+Megatron does, inside a ``use_rules(mesh, rules)`` context:
+
+  ``copy_to_model``    identity forward, all-reduce backward: where a
+                       replicated activation (or leaf) enters rank-local
+                       work, whose gradients are partial sums
+  ``reduce_from_model``  all-reduce forward, identity backward: the
+                       partial outputs of a row-parallel product
+  ``gather_from_model``  a leaf's slices concatenated (a zero-padded
+                       all-reduce), backward the rank's own slice of the
+                       (replicated) gradient; the gathered leaf is kept,
+                       across steps and calls, until the leaf changes in
+                       place or is freed
+
+``operand(node, name, want, local)`` hands a layer a leaf in the layout
+its arithmetic needs: split on ``want`` or whole, gathered or sliced from
+whatever the rules left it as, and behind ``copy_to_model`` where its use
+is rank-local. Outside a context, or with a model axis of 1, every one of
+these is the identity, so the unmeshed path runs unchanged, bit for bit.
+Every collective is an ``all_reduce`` (or a ``broadcast``): gloo over CUDA
+tensors, which lets two ranks share one card, takes those.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
+import weakref
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
 
@@ -32,6 +62,12 @@ class Params(nn.Module):
 
     def __getitem__(self, name):
         return getattr(self, name)
+
+    @property
+    def shard_dims(self) -> dict:
+        """Leaf name -> the dimension this rank holds a slice of (leaves
+        held whole are absent)."""
+        return self.__dict__.get("_shard_dims", {})
 
 
 def param(shape, *, generator, device=None, scale=None, init="normal"):
@@ -80,7 +116,7 @@ def rmsnorm(params, x, eps=1e-6):
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
-    return (y * (1.0 + params["scale"].float())).to(dt)
+    return (y * (1.0 + operand(params, "scale").float())).to(dt)
 
 
 def layernorm_init(dim, *, device=None):
@@ -95,7 +131,8 @@ def layernorm(params, x, eps=1e-5):
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
-    y = y * (1.0 + params["scale"].float()) + params["bias"].float()
+    y = y * (1.0 + operand(params, "scale").float()) \
+        + operand(params, "bias").float()
     return y.to(dt)
 
 
@@ -158,3 +195,241 @@ def tree_map(fn, tree, *rest):
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Model parallel: the rules context, the boundary functions, the slicer
+# ---------------------------------------------------------------------------
+
+_RULES = None            # (mesh, rules) of the active use_rules context
+_GATHERED: dict = {}     # gather_from_model's leaves: key -> (ref, v, whole)
+
+
+@contextlib.contextmanager
+def use_rules(mesh, rules):
+    """Run the layers inside with ``mesh``'s model axis (a ``Mesh2D``) and
+    the rules table ``rules``; ``mesh=None`` leaves the context as it is
+    (none: the unmeshed path). The context is the process's (each rank
+    is a process of its own)."""
+    global _RULES
+    prev = _RULES
+    if mesh is not None:
+        _RULES = (mesh, rules)
+    try:
+        yield
+    finally:
+        _RULES = prev
+
+
+def model_mesh():
+    """The active mesh when its model axis is larger than 1, else None:
+    the one test every layer makes."""
+    if _RULES is None or _RULES[0].model == 1:
+        return None
+    return _RULES[0]
+
+
+def model_split(n: int) -> int:
+    """How many parts a dimension of size ``n`` is split into: the model
+    axis's size when a model-parallel context is active and it divides
+    ``n``, else 1."""
+    mesh = model_mesh()
+    return mesh.model if mesh is not None and n % mesh.model == 0 else 1
+
+
+class _DataMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        mesh = _RULES[0]
+        out = x.detach().clone()
+        dist.all_reduce(out, group=mesh.data_group)
+        return out.div_(mesh.data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def data_mean(x):
+    """The mean of ``x`` over the data group (a statistic of the whole
+    batch, where each rank holds its block), its gradient passed to the
+    rank's own ``x`` unscaled: the learner's mean of the ranks' gradients
+    is then the whole batch's. Identity without a data axis."""
+    if _RULES is None or _RULES[0].data == 1:
+        return x
+    return _DataMean.apply(x)
+
+
+_COLLECTIVES = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def collective_stats() -> dict:
+    """The model-group all-reduces since ``reset_collective_stats``: calls,
+    bytes reduced, and host seconds inside them (each waits for the work
+    queued before it; gloo stages a CUDA tensor through the host)."""
+    return dict(_COLLECTIVES)
+
+
+def reset_collective_stats() -> None:
+    _COLLECTIVES.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _all_reduce(x, op=dist.ReduceOp.SUM):
+    mesh = model_mesh()
+    x = x.contiguous()
+    t0 = time.perf_counter()
+    dist.all_reduce(x, op=op, group=mesh.model_group)
+    _COLLECTIVES["seconds"] += time.perf_counter() - t0
+    _COLLECTIVES["calls"] += 1
+    _COLLECTIVES["bytes"] += x.numel() * x.element_size()
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone())
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def copy_to_model(x):
+    """Identity forward; the gradient summed over the model group."""
+    return x if model_mesh() is None else _CopyToModel.apply(x)
+
+
+def reduce_from_model(x):
+    """``x`` summed over the model group; the gradient passes as it is."""
+    return x if model_mesh() is None else _ReduceFromModel.apply(x)
+
+
+def sum_over_model(x):
+    """``x`` summed over the model group where each rank's share of the
+    result's gradient is itself partial (a norm's sum of squares over a
+    split dimension): the sum forward and backward."""
+    return copy_to_model(reduce_from_model(x))
+
+
+def max_over_model(x):
+    """The elementwise max over the model group, without a gradient."""
+    if model_mesh() is None:
+        return x
+    return _all_reduce(x.detach().clone(), dist.ReduceOp.MAX)
+
+
+def _pad_to_full(x, dim, parts, index):
+    shape = list(x.shape)
+    n = shape[dim]
+    shape[dim] = n * parts
+    full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    full.narrow(dim, index * n, n).copy_(x)
+    return full
+
+
+def gather_model_slices(x, dim):
+    """The model group's slices of ``x`` (each rank's its own, along
+    ``dim``) concatenated in model order, on every rank, no gradient: a
+    zero-padded buffer summed over the group, exact."""
+    mesh = model_mesh()
+    if mesh is None:
+        return x
+    return _all_reduce(_pad_to_full(x.detach(), dim, mesh.model,
+                                    mesh.model_index))
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        mesh = model_mesh()
+        ctx.dim, ctx.index = dim, mesh.model_index
+        # one entry a leaf, replaced when the leaf changes in place (its
+        # version) or is another tensor at the same address (the weakref)
+        key = (x.data_ptr(), tuple(x.shape), dim)
+        ref, version, full = _GATHERED.get(key, (None, None, None))
+        if ref is None or ref() is not x or version != x._version:
+            for k in [k for k, v in _GATHERED.items() if v[0]() is None]:
+                del _GATHERED[k]          # leaves that no longer exist
+            full = gather_model_slices(x, dim)
+            _GATHERED[key] = (weakref.ref(x), x._version, full)
+        return full.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // model_mesh().model
+        return g.narrow(ctx.dim, ctx.index * n, n).contiguous(), None
+
+
+def gather_from_model(x, dim):
+    """A leaf split along ``dim`` made whole on every rank; its backward
+    takes the rank's slice of the gradient, which must be the same on
+    every rank (a replicated use, or one behind ``copy_to_model``)."""
+    return x if model_mesh() is None else _GatherFromModel.apply(x, dim)
+
+
+def local_slice(x, dim):
+    """This rank's contiguous share of ``x`` along ``dim``."""
+    mesh = model_mesh()
+    n = x.shape[dim] // mesh.model
+    return x.narrow(dim, mesh.model_index * n, n)
+
+
+def full_size(node, name, dim) -> int:
+    """The whole leaf's size along ``dim`` (the slice's times the model
+    axis where this rank holds a slice along it)."""
+    size = node[name].shape[dim]
+    mesh = model_mesh()
+    if mesh is not None and node.shard_dims.get(name) == dim:
+        size *= mesh.model
+    return size
+
+
+def operand(node, name, want=None, local=False):
+    """Leaf ``name`` of ``node`` as the layer's arithmetic needs it: split
+    along ``want`` (this rank's contiguous slice) or whole (``want``
+    None), whatever the rules split it on. ``local``: the whole leaf is
+    used in rank-local work, whose gradient each rank has only a part
+    of. A leaf used split is always rank-local. Outside a model-parallel
+    context: the leaf itself."""
+    x = node[name]
+    if model_mesh() is None:
+        return x
+    have = getattr(node, "shard_dims", {}).get(name)
+    if have == want:
+        return copy_to_model(x) if want is None and local else x
+    if have is not None:
+        x = gather_from_model(x, have)
+    if want is None:
+        return copy_to_model(x) if local else x
+    return local_slice(copy_to_model(x), want)
+
+
+def shard_params(params, dims, mesh):
+    """Cut the whole tree ``params`` down to ``mesh``'s model slice, in
+    place: each leaf named in ``dims`` (state-dict name -> dimension, as
+    ``models/model.py::param_specs`` decides it) keeps its contiguous slice
+    ``model_index`` of ``mesh.model`` along that dimension; every node
+    records its leaves' dimensions in ``shard_dims``. Returns ``params``."""
+    for path, node in params.named_modules():
+        node.__dict__["_shard_dims"] = {}
+        for name, leaf in list(node._parameters.items()):
+            full = f"{path}.{name}" if path else name
+            dim = dims.get(full)
+            if dim is None or mesh.model == 1:
+                continue
+            n = leaf.shape[dim] // mesh.model
+            part = leaf.detach().narrow(dim, mesh.model_index * n, n)
+            node._parameters[name] = nn.Parameter(part.clone())
+            node.__dict__["_shard_dims"][name] = dim
+    return params

@@ -18,6 +18,20 @@ between chunks.
 As in the reference, a sequence longer than one chunk must be a multiple of
 it. ``mamba_decode`` is the one-token recurrence; it writes the new conv
 window and state into the cache in place.
+
+Under a model axis of M (``common.use_rules``) that divides the head
+count, a rank runs H/M heads: ``in_proj_z`` / ``in_proj_x`` /
+``in_proj_dt`` split on their output axis, ``dt_bias`` / ``a_log`` /
+``d_skip`` / ``norm`` on theirs, ``out_proj`` on its input axis (its
+partial sums all-reduced), and the SSD chunk kernel on those heads.
+``in_proj_bc`` (no rule: the rules split its ``embed`` axis instead) is
+used whole, so every rank computes the one B/C group its heads share. The
+gated norm runs over all of d_inner, so its sum of squares is summed over
+the model group. ``conv_w`` / ``conv_b`` are split by the rules
+contiguously over their d_inner + 2N channels, which does not follow the
+x | B C layout: each use gathers them whole (they are small) and takes
+this rank's x channels and every B/C channel. The decode cache holds the
+conv window of those channels and the state of the local heads.
 """
 
 from __future__ import annotations
@@ -28,7 +42,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import Params, param, rmsnorm
+from repro_torch.models.common import (Params, copy_to_model, local_slice,
+                                       model_split, operand, param,
+                                       reduce_from_model, rmsnorm,
+                                       sum_over_model)
+
+# the reference's logical axes of each leaf (its ``mamba_init``)
+AXES = {"in_proj_z": ("embed", "mlp"), "in_proj_x": ("embed", "mlp"),
+        "in_proj_bc": ("embed", "ssm_state2"),
+        "in_proj_dt": ("embed", "ssm_heads"),
+        "conv_w": ("conv_width", "conv_ch"), "conv_b": ("conv_ch",),
+        "dt_bias": ("ssm_heads",), "a_log": ("ssm_heads",),
+        "d_skip": ("ssm_heads",), "norm": ("mlp",),
+        "out_proj": ("mlp", "embed")}
 
 
 def _dims(cfg):
@@ -92,21 +118,69 @@ def _segsum(a):
     return torch.where(mask, out, -math.inf)
 
 
-def _in_proj(params, x):
-    """z, x, bc in x's type and dt in float32, each a float32 product."""
+def head_split(cfg) -> int:
+    """How many parts the active model axis splits the heads into."""
+    return model_split(_dims(cfg)[1])
+
+
+def _local_dims(cfg):
+    """``_dims`` of this rank's share: d_inner and the heads divided by
+    ``head_split``."""
+    d_in, nh, p, n = _dims(cfg)
+    parts = head_split(cfg)
+    return d_in // parts, nh // parts, p, n
+
+
+def _weights(params, cfg):
+    """The layer's leaves as this rank computes with them (all of them
+    outside a model-parallel context), and whether its heads are split."""
+    split = head_split(cfg) > 1
+    if not split:
+        return {name: operand(params, name) for name in AXES}, False
+    w = {name: operand(params, name, 1) for name in
+         ("in_proj_z", "in_proj_x", "in_proj_dt")}
+    w.update({name: operand(params, name, 0) for name in
+              ("dt_bias", "a_log", "d_skip", "norm", "out_proj")})
+    w["in_proj_bc"] = operand(params, "in_proj_bc")
+    d_in = _dims(cfg)[0]
+    for name in ("conv_w", "conv_b"):
+        full = operand(params, name, local=True)
+        dim = full.dim() - 1
+        w[name] = torch.cat([local_slice(full.narrow(dim, 0, d_in), dim),
+                             full.narrow(dim, d_in, full.shape[dim] - d_in)],
+                            dim=dim)
+    return w, True
+
+
+def _in_proj(params, x, split=False):
+    """z, x, bc in x's type and dt in float32, each a float32 product.
+    With ``split``, z, x and dt are this rank's and bc, which its heads
+    share with the others', enters their work behind ``copy_to_model``."""
     xf = x.float()
-    z = (xf @ params["in_proj_z"]).to(x.dtype)
-    xs = (xf @ params["in_proj_x"]).to(x.dtype)
+    xl = copy_to_model(x).float() if split else xf
+    z = (xl @ params["in_proj_z"]).to(x.dtype)
+    xs = (xl @ params["in_proj_x"]).to(x.dtype)
     bc = (xf @ params["in_proj_bc"]).to(x.dtype)
-    return z, xs, bc, xf @ params["in_proj_dt"]
+    if split:
+        bc = copy_to_model(bc)
+    return z, xs, bc, xl @ params["in_proj_dt"]
 
 
-def _out(params, y, z, x_dtype, cfg):
+def _out(params, y, z, x_dtype, cfg, split=False):
     """Gate by silu(z), normalise, project out; y and z in the activation
-    type."""
-    y = rmsnorm({"scale": params["norm"]},
-                y * F.silu(z.float()).to(x_dtype), cfg.norm_eps)
-    return (y.float() @ params["out_proj"]).to(x_dtype)
+    type. With ``split`` they are this rank's channels: the norm's sum of
+    squares and the projection's partial sums are summed over the model
+    group."""
+    g = y * F.silu(z.float()).to(x_dtype)
+    if not split:
+        y = rmsnorm({"scale": params["norm"]}, g, cfg.norm_eps)
+        return (y.float() @ params["out_proj"]).to(x_dtype)
+    gf = g.float()
+    var = sum_over_model(torch.sum(torch.square(gf), dim=-1, keepdim=True)
+                         ) / _dims(cfg)[0]
+    y = (gf * torch.rsqrt(var + cfg.norm_eps)
+         * (1.0 + params["norm"].float())).to(x_dtype)
+    return reduce_from_model(y.float() @ params["out_proj"]).to(x_dtype)
 
 
 def _chunk_xla(c, b, x, da, h):
@@ -134,13 +208,14 @@ def mamba_apply(params, x, cfg, state=None, return_state=False, impl=None):
     if impl not in ("xla", "kernel"):
         raise ValueError(f"unknown ssd impl {impl}")
     bsz, s, _ = x.shape
-    d_in, nh, p, n = _dims(cfg)
+    params, split = _weights(params, cfg)
+    d_in, nh, p, n = _local_dims(cfg)
     chunk = min(cfg.ssm_chunk, s)
     if s % chunk:
         raise ValueError(f"Mamba2 sequence length {s} is neither at most the "
                          f"chunk {cfg.ssm_chunk} nor a multiple of it")
 
-    z, xs, bc, dt = _in_proj(params, x)
+    z, xs, bc, dt = _in_proj(params, x, split)
     conv_out, new_conv = _conv1d(
         torch.cat([xs, bc], dim=-1), params["conv_w"], params["conv_b"],
         None if state is None else state["conv"])
@@ -161,14 +236,15 @@ def mamba_apply(params, x, cfg, state=None, return_state=False, impl=None):
                   else _chunk_xla(*args))
         ys.append(y_i)
     y = torch.cat(ys, dim=1) + params["d_skip"][None, None, :, None] * xh
-    out = _out(params, y.reshape(bsz, s, d_in).to(x.dtype), z, x.dtype, cfg)
+    out = _out(params, y.reshape(bsz, s, d_in).to(x.dtype), z, x.dtype, cfg,
+               split)
     if return_state:
         return out, {"conv": new_conv, "ssm": h}
     return out, None
 
 
 def mamba_cache_init(cfg, batch, dtype, device=None):
-    d_in, nh, p, n = _dims(cfg)
+    d_in, nh, p, n = _local_dims(cfg)
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, d_in + 2 * n),
                             dtype=dtype, device=device),
@@ -182,8 +258,9 @@ def mamba_decode(params, x, cache, cfg):
     written into ``cache`` in place and the same dict is returned.
     Returns (y (B,1,d), cache)."""
     bsz = x.shape[0]
-    d_in, nh, p, n = _dims(cfg)
-    z, xs, bc, dt = _in_proj(params, x)
+    params, split = _weights(params, cfg)
+    d_in, nh, p, n = _local_dims(cfg)
+    z, xs, bc, dt = _in_proj(params, x, split)
     conv_out, new_conv = _conv1d(torch.cat([xs, bc], dim=-1),
                                  params["conv_w"], params["conv_b"],
                                  cache["conv"])
@@ -198,7 +275,8 @@ def mamba_decode(params, x, cache, cfg):
         "bhp,bn,bh->bhpn", xh, bv, dt)
     y = torch.einsum("bhpn,bn->bhp", h, cv)
     y = y + params["d_skip"][None, :, None] * xh
-    out = _out(params, y.reshape(bsz, 1, d_in).to(x.dtype), z, x.dtype, cfg)
+    out = _out(params, y.reshape(bsz, 1, d_in).to(x.dtype), z, x.dtype, cfg,
+               split)
     cache["conv"].copy_(new_conv)
     cache["ssm"].copy_(h)
     return out, cache

@@ -2,13 +2,24 @@
 
 Each product takes the activation to float32 against the float32 weight
 and rounds the result to the activation's type, where the reference
-rounds (its ``preferred_element_type=float32`` einsums)."""
+rounds (its ``preferred_element_type=float32`` einsums).
+
+Under a model axis of M (``common.use_rules``) that divides d_ff, a rank
+computes its d_ff/M hidden units (``wi``/``wg`` split on their output
+axis, ``wo`` on its input axis) and the output's partial sums are
+all-reduced over the model group (Megatron's column- then row-parallel
+pair)."""
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, param
+from repro_torch.models.common import (Params, copy_to_model, full_size,
+                                       model_split, operand, param,
+                                       reduce_from_model)
+
+# the reference's logical axes of each leaf (its ``mlp_init``)
+AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"), "wo": ("mlp", "embed")}
 
 
 def mlp_init(cfg, ffn, *, generator, device=None):
@@ -23,14 +34,21 @@ def mlp_init(cfg, ffn, *, generator, device=None):
 
 
 def mlp_apply(params, x, ffn):
-    xf = x.float()
-    h = (xf @ params["wi"]).to(x.dtype)
+    split = model_split(full_size(params, "wi", 1)) > 1
+    names = ("wi", "wo") if ffn == "gelu" else ("wi", "wg", "wo")
+    w = {n: operand(params, n, (0 if n == "wo" else 1) if split else None)
+         for n in names}
+    xf = (copy_to_model(x) if split else x).float()
+    h = (xf @ w["wi"]).to(x.dtype)
     if ffn == "swiglu":
-        g = xf @ params["wg"]
+        g = xf @ w["wg"]
         h = h * F.silu(g).to(x.dtype)
     elif ffn == "geglu":
-        g = xf @ params["wg"]
+        g = xf @ w["wg"]
         h = h * F.gelu(g, approximate="tanh").to(x.dtype)
     elif ffn == "gelu":
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return (h.float() @ params["wo"]).to(x.dtype)
+    out = h.float() @ w["wo"]
+    if split:
+        out = reduce_from_model(out)
+    return out.to(x.dtype)

@@ -22,6 +22,19 @@ an mLSTM layer's C, m, n and an sLSTM layer's c, h, m, n, in float32.
 group, which is what the reference's ``unroll=True`` serve path makes XLA
 do with the donated cache buffer; no second copy of the cache is ever
 made.
+
+Model parallel (``--mesh-model``): ``param_specs`` decides, with the
+reference's ``spec_for`` over ``logical_axes`` (its ``param(..., axes)``
+declarations, block leaves with the stacked ``layers`` axis first), which
+dimension of each leaf a rank holds, and ``shard_model`` cuts a whole
+tree down to a rank's slices. Under ``common.use_rules`` the embedding is
+vocab-parallel where the rules split ``vocab``: each rank looks up the
+tokens in its rows (the others' rows give zero) and the sum over the
+model group is the embedding; the tied or untied head then gives each
+rank its vocabulary slice of the logits, which the losses reduce over the
+group (``core/losses.py``) and ``logits_from_hidden`` gathers. Where the
+rules drop ``vocab`` (an odd vocabulary), every rank computes the whole
+logits. The xLSTM mixers do not take a model axis yet.
 """
 
 from __future__ import annotations
@@ -29,9 +42,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models import blocks
-from repro_torch.models.common import (Params, dtype_of, make_norm, param,
-                                       remat, remat_active,
+from repro_torch.distributed import sharding
+from repro_torch.models import attention, blocks, mamba, mlp, moe, xlstm
+from repro_torch.models.common import (Params, copy_to_model, dtype_of,
+                                       gather_model_slices, make_norm,
+                                       model_mesh, model_split, operand,
+                                       param, reduce_from_model, remat,
+                                       remat_active, shard_params,
                                        sinusoidal_pos_emb, softcap, tree_map)
 
 SHARED_PATTERN = (("attn", "swiglu"),)  # zamba-style shared global block
@@ -62,8 +79,134 @@ def init(cfg, *, seed=0, device=None):
     return Params(**p)
 
 
+# ---------------------------------------------------------------------------
+# model parallel: the logical-axes table and the slicer
+# ---------------------------------------------------------------------------
+
+_NORMS = ("pre_norm", "post_norm", "ffn_pre_norm", "ffn_post_norm")
+_TOP_AXES = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+             "baseline": ("embed",)}
+
+
+def _mixer_axes(kind):
+    if kind in blocks.ATTN_KINDS:
+        return attention.AXES
+    return {"mamba": mamba.AXES, "mlstm": xlstm.MLSTM_AXES,
+            "slstm": xlstm.SLSTM_AXES}[kind]
+
+
+def logical_axes(params, cfg):
+    """State-dict name -> the reference's logical axes of that leaf (a
+    block leaf's without the stacked ``layers`` axis)."""
+    out = {}
+    for name, _ in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] in _TOP_AXES:
+            out[name] = _TOP_AXES[parts[0]]
+            continue
+        if parts[0] == "final_norm":
+            out[name] = ("embed",)
+            continue
+        pattern = SHARED_PATTERN if parts[0] == "shared" \
+            else cfg.block_pattern
+        layer, part, leaf = parts[-3:]
+        mixer, ffn = pattern[int(layer[1:])]
+        if part in _NORMS:
+            out[name] = ("embed",)
+        elif part == "mixer":
+            out[name] = _mixer_axes(mixer)[leaf]
+        else:
+            out[name] = (moe.AXES if ffn == "moe" else mlp.AXES)[leaf]
+    return out
+
+
+def param_specs(params, cfg, mesh, rules):
+    """State-dict name -> (the reference's partition spec of its leaf,
+    the dimension of the port's leaf a rank holds a slice of, or None) for
+    a WHOLE tree. A block leaf's spec is that of the reference's stacked
+    leaf (``layers`` first, ``num_groups`` long), as its checkpoints
+    record it; a split of the ``layers`` axis itself is not taken."""
+    axes, shapes = logical_axes(params, cfg), {}
+    for name, leaf in params.named_parameters():
+        shapes[name] = tuple(leaf.shape)
+        if name.startswith("blocks."):
+            axes[name] = ("layers",) + tuple(axes[name])
+            shapes[name] = (cfg.num_groups,) + shapes[name]
+    out = {}
+    for name, spec in sharding.param_shardings(axes, mesh, rules,
+                                               shapes).items():
+        dim = sharding.model_dim(spec)
+        if name.startswith("blocks.") and dim is not None:
+            if dim == 0:
+                raise NotImplementedError(
+                    f"not ported yet: {name} split over its stacked "
+                    "layers axis")
+            dim -= 1
+        out[name] = (spec, dim)
+    return out
+
+
+def check_model_parallel(cfg, model: int) -> None:
+    """Refuse what has no model-parallel layers yet: the xLSTM mixers and
+    the VLM's cross-attention under a model axis larger than 1."""
+    if model <= 1:
+        return
+    kinds = {m for m, _ in cfg.block_pattern}
+    if kinds & {"mlstm", "slstm"}:
+        raise NotImplementedError(
+            f"not ported yet: --mesh-model {model} for {cfg.name} (the "
+            "xLSTM mixers take no model axis)")
+    if "xattn" in kinds:
+        raise NotImplementedError(
+            f"not ported yet: --mesh-model {model} for {cfg.name} (the "
+            "VLM's cross-attention takes no model axis)")
+
+
+def shard_model(params, cfg, mesh, rules):
+    """Cut the whole tree ``params`` (every rank builds the same one from
+    the same seed) down to ``mesh``'s model slice, in place, and record
+    each leaf's spec and whole shape on it (``params.model_layout``, which
+    the sharded checkpoint reads). Returns ``params``."""
+    check_model_parallel(cfg, mesh.model)
+    specs = param_specs(params, cfg, mesh, rules)
+    shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    shard_params(params, {n: d for n, (_, d) in specs.items()
+                          if d is not None}, mesh)
+    params.__dict__["model_layout"] = {
+        n: (spec, dim, shapes[n]) for n, (spec, dim) in specs.items()}
+    return params
+
+
+def split_dims(params):
+    """State-dict name -> the dimension of the leaf this rank holds a
+    slice of (None: whole), from the tree's nodes."""
+    out = {}
+    for path, node in params.named_modules():
+        for name in node._parameters:
+            full = f"{path}.{name}" if path else name
+            out[full] = node.shard_dims.get(name)
+    return out
+
+
+def vocab_start(cfg):
+    """The first vocabulary index of this rank's slice of the logits, or
+    None when every rank computes the whole vocabulary."""
+    parts = model_split(cfg.vocab_size)
+    if parts == 1:
+        return None
+    return model_mesh().model_index * (cfg.vocab_size // parts)
+
+
 def _embed(params, cfg, tokens, positions):
-    x = params["embed"][tokens].to(dtype_of(cfg))
+    start = vocab_start(cfg)
+    if start is None:
+        x = operand(params, "embed")[tokens].to(dtype_of(cfg))
+    else:
+        table = operand(params, "embed", 0)               # (V/M, d)
+        local = tokens - start
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = table[local.clamp(0, table.shape[0] - 1)] * inside[..., None]
+        x = reduce_from_model(rows).to(dtype_of(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.pos_emb == "sinusoidal":
@@ -72,26 +215,33 @@ def _embed(params, cfg, tokens, positions):
 
 
 def unembed_matrix(params, cfg):
+    """(d, V) — this rank's (d, V/M) columns where ``vocab_start`` is not
+    None."""
+    split = vocab_start(cfg) is not None
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["unembed"]
+        return operand(params, "embed", 0 if split else None).T
+    return operand(params, "unembed", 1 if split else None)
 
 
 def logits_from_hidden(params, cfg, h):
     """float32 logits. As in the reference, the unembedding is first
     rounded to the hidden's type (bf16 on the serving path), then
-    multiplied in float32."""
+    multiplied in float32. With vocab-parallel logits every rank gets the
+    whole vocabulary, gathered over the model group without a gradient
+    (the learner's losses take the slices: ``core/losses.py``)."""
     w = unembed_matrix(params, cfg)
-    logits = h.float() @ w.to(h.dtype).float()
+    split = vocab_start(cfg) is not None
+    logits = (copy_to_model(h) if split else h).float() \
+        @ w.to(h.dtype).float()
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
-    return logits
+    return gather_model_slices(logits, -1) if split else logits
 
 
 def baseline_from_hidden(params, cfg, h):
     if not cfg.baseline_head:
         return None
-    return h.float() @ params["baseline"].float()
+    return h.float() @ operand(params, "baseline").float()
 
 
 def forward(params, tokens, *, cfg, vision=None, impl=None,

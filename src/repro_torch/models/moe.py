@@ -26,6 +26,21 @@ zero, summed so that a token's output is a function of its own routing
 Aux losses follow Switch/Mixtral: load-balance (mean routed fraction x
 mean router probability per expert, scaled by E/k) and router z-loss.
 The reference has no Pallas kernel here, so these are plain PyTorch ops.
+
+Under a model axis of M (``common.use_rules``; the megatron rules keep
+``expert`` whole) that divides ``moe_d_ff``, each expert's FFN is split
+as ``mlp.py``'s: ``wi``/``wg`` on their hidden axis, ``wo`` on its first.
+The router runs whole on every rank, so every rank routes, drops and
+combines alike; each rank combines its partial expert outputs in float32
+and the sum over the model group is the layer's output.
+
+Under a data axis (each rank routes its block of the batch), the
+load-balance loss's two per-expert means are taken over the whole batch
+(``common.data_mean``), as the reference computes them over its global
+batch: the loss is a product of means, not a mean. Capacity is counted
+per group of a rank's tokens; the groups are the reference's when each
+data block holds whole groups of ``MOE_GROUP_SIZE`` tokens (else, with
+capacity binding, other token-slots may be dropped).
 """
 
 from __future__ import annotations
@@ -35,9 +50,15 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, param
+from repro_torch.models.common import (Params, copy_to_model, data_mean,
+                                       full_size, model_split, operand,
+                                       param, reduce_from_model)
 
 MOE_GROUP_SIZE = 512
+
+# the reference's logical axes of each leaf (its ``moe_init``)
+AXES = {"router": ("embed", "expert"), "wi": ("expert", "embed", "mlp"),
+        "wg": ("expert", "embed", "mlp"), "wo": ("expert", "mlp", "embed")}
 
 
 class MoEAux(NamedTuple):
@@ -94,8 +115,13 @@ def moe_apply(params, x, cfg):
                          "of it, as in the reference")
     ng = n // gs
     xt = x.reshape(ng, gs, d)
+    split = model_split(full_size(params, "wi", 2)) > 1
+    w = {"router": operand(params, "router"),
+         "wi": operand(params, "wi", 2 if split else None),
+         "wg": operand(params, "wg", 2 if split else None),
+         "wo": operand(params, "wo", 1 if split else None)}
 
-    logits = xt.float() @ params["router"]                     # (g, n, e)
+    logits = xt.float() @ w["router"]                          # (g, n, e)
     probs = torch.softmax(logits, dim=-1)
     topk_prob, topk_idx = route(probs, k)                      # (g, n, k)
     topk_prob = topk_prob / torch.clamp(
@@ -104,8 +130,8 @@ def moe_apply(params, x, cfg):
     # aux losses: from the probabilities before renormalisation, over all
     # tokens
     onehot = F.one_hot(topk_idx, e).float()                    # (g, n, k, e)
-    me = probs.mean(dim=(0, 1))
-    ce = onehot.sum(2).mean(dim=(0, 1))
+    me = data_mean(probs.mean(dim=(0, 1)))
+    ce = data_mean(onehot.sum(2).mean(dim=(0, 1)))
     load_balance = e * torch.sum(me * ce) / k
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
 
@@ -126,20 +152,31 @@ def moe_apply(params, x, cfg):
 
     xin = torch.einsum("gnec,gnd->gecd", dispatch.float(),
                        xt.float()).to(dt)
-    h = torch.einsum("gecd,edf->gecf", xin.float(), params["wi"]).to(dt)
-    g_ = torch.einsum("gecd,edf->gecf", xin.float(), params["wg"])
+    if split:
+        xin = copy_to_model(xin)
+    h = torch.einsum("gecd,edf->gecf", xin.float(), w["wi"]).to(dt)
+    g_ = torch.einsum("gecd,edf->gecf", xin.float(), w["wg"])
     h = h * F.silu(g_).to(dt)
-    eo = torch.einsum("gecf,efd->gecd", h.float(), params["wo"]).to(dt)
+    eo = torch.einsum("gecf,efd->gecd", h.float(), w["wo"])
+    if not split:
+        eo = eo.to(dt)
     # combine: each token-slot's own routing weight (rounded to the
     # activation's type, as the reference's combine tensor) times the
     # expert output in its cell, summed over the k slots in their order.
     # This is the reference's combine einsum over (e, cap) cells, whose
     # only nonzero terms are these k; summed in slot order, a token's
     # output does not depend on which cells its neighbours pushed it to.
+    # Split: each rank's expert outputs are partial sums, kept in float32;
+    # the weights enter that rank-local work behind copy_to_model.
     weight = (topk_prob.to(dt) * keep.to(dt)).float()          # (g, n, k)
+    if split:
+        weight = copy_to_model(weight)
     picked = torch.gather(
         eo.reshape(ng, e * cap, d), 1,
         cell.reshape(ng, gs * k, 1).expand(ng, gs * k, d))
     out = torch.sum(weight[..., None]
-                    * picked.reshape(ng, gs, k, d).float(), dim=2).to(dt)
-    return out.reshape(b, s, d), MoEAux(load_balance, z_loss, dropped)
+                    * picked.reshape(ng, gs, k, d).float(), dim=2)
+    if split:
+        out = reduce_from_model(out)
+    return out.to(dt).reshape(b, s, d), MoEAux(load_balance, z_loss,
+                                                dropped)

@@ -34,6 +34,20 @@ import torch.nn.functional as F
 from repro_torch.models.common import Params, param, rmsnorm
 
 
+# the reference's logical axes of each leaf (its ``mlstm_init`` and
+# ``slstm_init``): the spec tables of ``--mesh-model``, whose layers these
+# mixers do not take yet
+MLSTM_AXES = {"wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "heads", "head_dim"),
+              "wv": ("embed", "heads", "head_dim"),
+              "wi": ("embed", "heads"), "wf": ("embed", "heads"),
+              "bf": ("heads",), "wo_gate": ("embed", "embed2"),
+              "norm": ("embed",), "wo": ("embed", "embed2")}
+SLSTM_AXES = {"wx": ("embed", "gates", "heads", "head_dim"),
+              "wr": ("gates", "heads", "head_dim", "head_dim2"),
+              "b": ("gates", "heads", "head_dim"), "norm": ("embed",),
+              "up": ("embed", "mlp"), "down": ("mlp", "embed")}
+
 def _dims(cfg):
     h = cfg.num_heads
     return h, cfg.d_model // h

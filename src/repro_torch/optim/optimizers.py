@@ -39,13 +39,15 @@ def global_norm(tensors) -> torch.Tensor:
                           for x in tensors))
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm):
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm,
+                         norm_fn=global_norm):
     """Scale the gradients in the list ``grads`` so that their global norm
     is at most ``max_norm``, in place: each is scaled where it lies (one
     that shares memory between its elements, such as an expanded tensor,
-    is replaced in the list instead). Returns the norm. Stays on the
-    device: no host sync."""
-    norm = global_norm(grads)
+    is replaced in the list instead). ``norm_fn``: the norm of a list (a
+    model-parallel rank's covers the whole tree). Returns the norm. Stays
+    on the device: no host sync."""
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for i, g in enumerate(grads):
         if g.is_contiguous():
@@ -68,13 +70,14 @@ def _optimizer(init, leaf_update, lr, grad_clip) -> Optimizer:
     lr_t, step)``, which updates leaf ``i`` of the state in place and
     returns that leaf's update (a tensor it may own or a new one)."""
 
-    def step_(grads: List[torch.Tensor], state, params, step):
+    def step_(grads: List[torch.Tensor], state, params, step,
+              norm_fn=global_norm):
         """Clip, then per leaf: compute the update, add it to the
         parameter, drop it and the leaf's gradient. ``grads`` must be a
         list the caller hands over: each entry is set to None once its
-        leaf is applied."""
+        leaf is applied. ``norm_fn`` as ``clip_by_global_norm_``'s."""
         if grad_clip:
-            clip_by_global_norm_(grads, grad_clip)
+            clip_by_global_norm_(grads, grad_clip, norm_fn)
         lr_t = _sched(lr, step)
         with torch.no_grad():
             for i, p in enumerate(params):

@@ -220,11 +220,14 @@ def test_torn_write_never_shadows_latest(tmp_path):
 
 
 def test_leaf_saved_in_shards_is_refused(tmp_path):
-    """A leaf the reference saved in several shards of a device mesh needs
-    the sharded restore (not in this package): every reader says so
-    instead of returning part of it."""
+    """A leaf saved in several shards (a device mesh's slices) is
+    assembled from them; one whose shards do not cover it (a shard
+    missing) is refused by every reader instead of returned in part."""
     path = str(tmp_path / "step_1")
-    ckpt_lib.save(path, {"w": torch.zeros(2, 3)}, {"step": 1})
+    w = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    ckpt_lib.save(path, {"w": w}, {"step": 1})
+    np.savez(os.path.join(path, "shard-00000.npz"),
+             **{"w@0": w[:1].numpy(), "w@1": w[1:].numpy()})
     mpath = os.path.join(path, ckpt_lib.MANIFEST)
     with open(mpath) as f:
         manifest = json.load(f)
@@ -234,9 +237,15 @@ def test_leaf_saved_in_shards_is_refused(tmp_path):
         dict(whole, key="w@1", index=[[1, 2], [0, 3]])]
     with open(mpath, "w") as f:
         json.dump(manifest, f)
+    assert torch.equal(ckpt_lib.restore(path, {"w": torch.zeros(2, 3)})[0]
+                       ["w"], w)
+    assert np.array_equal(ckpt_lib.load_flat(path)[0]["w"], w.numpy())
+    manifest["tree"]["w"]["shards"].pop()
+    with open(mpath, "w") as f:
+        json.dump(manifest, f)
     for read in (lambda: ckpt_lib.load_flat(path),
                  lambda: ckpt_lib.restore(path, {"w": torch.zeros(2, 3)})):
-        with pytest.raises(ValueError, match="2 shard"):
+        with pytest.raises(ValueError, match="cover 3/6"):
             read()
 
 

@@ -304,6 +304,8 @@ def test_cli_mesh_errors():
     with pytest.raises(ValueError, match="devices visible"):
         mesh_lib.rank_devices(torch.cuda.device_count() + 1, "cuda")
     with pytest.raises(SystemExit):
-        train.main(["--mode", "lm", "--mesh-data", "2", "--device", "cpu"])
+        train.main(["--mode", "lm", "--arch", "xlstm-125m", "--reduced",
+                    "--mesh-data", "2", "--mesh-model", "2", "--device",
+                    "cpu"])
     with pytest.raises(SystemExit):
         train.main(["--mesh-model", "2", "--device", "cpu"])

@@ -78,10 +78,12 @@ def test_lm_modes_train_on_cpu(argv, label, keys, capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--mode", "lm", "--mesh-model", "2"], "not ported yet: --mesh-model"),
-    (["--mode", "lm-rl", "--num-processes", "2"],
+    (["--mode", "lm", "--arch", "xlstm-125m", "--reduced", "--mesh-model",
+      "2"], "not ported yet: --mesh-model"),
+    (["--num-processes", "2", "--coordinator", "127.0.0.1:1"],
      "not ported yet: --num-processes"),
-    (["--mode", "lm", "--mesh-data=2"], "not ported yet: --mesh-data"),
+    (["--mesh-data=2", "--coordinator", "127.0.0.1:1"],
+     "not ported yet: --mesh-data"),
     (["--no-such-flag"], "unrecognized"),
 ])
 def test_unported_options_exit_with_a_clear_error(argv, message, capsys):
