@@ -173,6 +173,25 @@ class ImplContext:
 
 
 @dataclasses.dataclass(frozen=True)
+class InputShape:
+    """A named (batch, sequence) shape of one program kind, as the
+    reference's: ``launch/specs.py`` builds a train, prefill or decode
+    program for it."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """IMPALA learner/optimizer hyperparameters (defaults: IMPALA Table G.1)."""
     optimizer: str = "rmsprop"

@@ -12,12 +12,15 @@ of when to synchronise with the device.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from repro_torch.core import losses
 from repro_torch.distributed import sharding
 from repro_torch.models import model as model_lib
-from repro_torch.models.common import use_rules
+from repro_torch.models.common import collective, count_collective, use_rules
+from repro_torch.optim.optimizers import zero_view
 
 
 def _grads(loss, plist):
@@ -168,23 +171,54 @@ def make_recurrent_train_step(opt, train_cfg, *, vtrace_impl="kernel",
     return train_step
 
 
-def _lm_update(params, opt, opt_state, step, total, mesh):
+def _lm_update(params, opt, opt_state, step, total, mesh, zero=None):
     """Gradients of ``total`` and the optimizer step, under ``mesh`` (a
-    ``Mesh2D`` or None): the gradients' mean over the data group, and
-    global-norm clipping whose norm sums the split leaves' squares over
-    the model group (``sharding.model_global_norm``). At mesh (1, 1) this
-    is the unmeshed update, bit for bit."""
+    ``Mesh2D`` or None). Over the data group: the mean of each gradient
+    (an FSDP leaf's is already summed there by its gather's backward, and
+    is divided by the data size), or, for a leaf with a ``zero`` slice
+    (ZeRO-2, ``models/model.py::zero_slices``), the rank's slice of the
+    mean (a reduce-scatter). Global-norm clipping then counts each leaf
+    once, its squares summed over the groups it is split over
+    (``sharding.model_global_norm``). At mesh (1, 1) this is the unmeshed
+    update, bit for bit."""
+    names = [n for n, _ in params.named_parameters()]
     plist = list(params.parameters())
     grads = _grads(total, plist)
+    zero = zero or [None] * len(plist)
+    fsdp_dims = model_lib.data_dims(params)
+    fsdp = [fsdp_dims[n] is not None for n in names]
     extra = {}
     if mesh is not None and mesh.data > 1:
-        sharding.replicate(grads, mesh.data_view())
-    if mesh is not None and mesh.model > 1:
-        dims = [model_lib.split_dims(params)[n]
-                for n, _ in params.named_parameters()]
-        extra["norm_fn"] = lambda g: sharding.model_global_norm(
-            g, [d is not None for d in dims], mesh)
+        _reduce_over_data(grads, fsdp, zero, mesh)
+    data_split = [f or z is not None for f, z in zip(fsdp, zero)]
+    if mesh is not None and (mesh.model > 1 or any(data_split)):
+        dims, one = model_lib.split_dims(params), model_lib.owned(params)
+        flags = [(dims[n] is not None or one[n], d)
+                 for n, d in zip(names, data_split)]
+        extra["norm_fn"] = lambda g: sharding.model_global_norm(g, flags,
+                                                                mesh)
     return opt.step(grads, opt_state, plist, step, **extra)
+
+
+def _reduce_over_data(grads, fsdp, zero, mesh):
+    """The data group's reduction of the gradients, in place in the list:
+    one flat all-reduce (the mean) of the leaves held whole over it, a
+    division of the FSDP leaves', and a reduce-scatter to each ZeRO
+    slice."""
+    whole = [g for g, f, z in zip(grads, fsdp, zero) if not f and z is None]
+    if whole:
+        t0 = time.perf_counter()
+        sharding.replicate(whole, mesh.data_view())
+        count_collective("data", "all_reduce",
+                         sum(g.numel() * g.element_size() for g in whole),
+                         time.perf_counter() - t0)
+    for i, (f, z) in enumerate(zip(fsdp, zero)):
+        if f:
+            grads[i].div_(mesh.data)
+        elif z is not None:
+            full = collective(grads[i].clone(), "data", "reduce_scatter",
+                              mesh=mesh).div_(mesh.data)
+            grads[i] = zero_view(full, z).contiguous()
 
 
 def _lm_metrics(metrics, mesh):
@@ -196,7 +230,8 @@ def _lm_metrics(metrics, mesh):
 
 
 def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
-                       vtrace_impl="kernel", mesh=None, rules=None):
+                       vtrace_impl="kernel", mesh=None, rules=None,
+                       zero=None):
     """IMPALA learner step for LLM policies.
 
     ``params`` is the decoder's parameter tree (``models.model.init``),
@@ -224,6 +259,12 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
     then this rank's data block; the step runs the model under
     ``use_rules``, all-reduces the gradients over the data group and
     clips by the global norm of the whole tree (``_lm_update``).
+
+    zero: per parameter, this data rank's ``optim.ZeroSlice`` of its
+    optimizer state or None (``models/model.py::zero_slices``; ``opt``
+    then ``optim.zero1``'s): each gradient is reduce-scattered to its
+    slice (ZeRO-2), the reference's ``grad_constraint`` of
+    ``launch/specs.py::build_train``.
     """
     def loss_fn(params, batch):
         tokens = batch["tokens"]          # (B, S+1); model sees first S
@@ -255,7 +296,8 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
     def train_step(params, opt_state, step, batch):
         with use_rules(mesh, rules):
             total, loss_out = loss_fn(params, batch)
-            opt_state = _lm_update(params, opt, opt_state, step, total, mesh)
+            opt_state = _lm_update(params, opt, opt_state, step, total, mesh,
+                                   zero)
         metrics = {
             "loss": loss_out.total.detach(),
             "pg_loss": loss_out.pg_loss.detach(),
@@ -269,13 +311,14 @@ def make_lm_train_step(cfg, opt, train_cfg, *, loss_chunk=512,
 
 
 def make_lm_pretrain_step(cfg, opt, *, loss_chunk=512, mesh=None,
-                          rules=None):
+                          rules=None, zero=None):
     """Plain next-token-prediction step (the LM pretraining driver; also
     the non-RL baseline). batch: {"tokens": (B, S+1) int} and, for a VLM,
     "vision" (B, Sv, d) as in ``make_lm_train_step``. Impls come from
     the config as in ``make_lm_train_step``; the gradient includes the
     router's auxiliary terms as there, the reported ``loss`` is the
-    cross-entropy alone. mesh and rules as in ``make_lm_train_step``."""
+    cross-entropy alone. mesh, rules and zero as in
+    ``make_lm_train_step``."""
     def train_step(params, opt_state, step, batch):
         tokens = batch["tokens"]
         with use_rules(mesh, rules):
@@ -287,7 +330,7 @@ def make_lm_pretrain_step(cfg, opt, *, loss_chunk=512, mesh=None,
                 final_softcap=cfg.final_logit_softcap,
                 vocab_start=model_lib.vocab_start(cfg))
             opt_state = _lm_update(params, opt, opt_state, step,
-                                   loss + _router_loss(cfg, aux), mesh)
+                                   loss + _router_loss(cfg, aux), mesh, zero)
         return params, opt_state, _lm_metrics({"loss": loss.detach()},
                                                mesh)
 

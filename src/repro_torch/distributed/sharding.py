@@ -32,9 +32,14 @@ one entry per dimension (None, or the mesh axis it is split over; the
 reference's ``PartitionSpec``), dropping a mapping whose dimension the
 axis size does not divide and, with ``fallback_model``, splitting the
 largest divisible dimension of a leaf that would otherwise keep nothing on
-"model". All the reference's tables are here as data; only
-``MEGATRON_RULES`` has compute behind it (``rules_named``). The
-collectives of the model axis live beside the layers
+"model". The LM layers compute under every table of the reference but
+the context-parallel one (``rules_named``): ``MEGATRON_RULES``,
+``FSDP_RULES`` (every ``embed`` axis also split over the data axes),
+``SEQPAR_RULES`` (the residual stream split over "model" on its sequence
+dimension), ``EXPERT_RULES`` (MoE experts over "model") and their
+combinations. ``zero1_shardings`` decides the optimizer state's slices
+(ZeRO-1) of ``launch/specs.py::build_train``. The collectives of the
+model axis, and of the data axis of a split leaf, live beside the layers
 (``models/common.py``).
 """
 
@@ -90,16 +95,27 @@ RULE_SETS = {
 }
 
 
+# the tables the LM layers compute under (``rules_named``)
+LM_RULES = ("megatron", "fsdp", "seqpar", "fsdp_seqpar", "expert",
+            "expert_seqpar")
+
+
 def rules_named(name: str) -> Dict[str, object]:
-    """The rules table the LM layers compute under: ``megatron`` only; the
-    others are data for ``spec_for`` until their layers exist."""
+    """The rules table ``name`` for the LM layers. The context-parallel
+    ``cp_fsdp_seqpar`` is refused: it keeps the queries split over the
+    sequence through attention, which needs attention over queries
+    offset from their keys (ROADMAP item 27); ``rl_agent`` is the
+    agent's data-parallel table (``--mesh-data``), not an LM one."""
     if name not in RULE_SETS:
         raise KeyError(f"unknown rules {name!r}; known: {sorted(RULE_SETS)}")
-    if name != "megatron":
+    if name not in LM_RULES:
+        why = ("context-parallel attention (queries split over the "
+               "sequence, offset from their keys), ROADMAP item 27"
+               if name == "cp_fsdp_seqpar" else
+               "an agent table; the LM layers take " + ", ".join(LM_RULES))
         raise NotImplementedError(
-            f"not ported yet: the {name!r} rules table (only 'megatron' has "
-            "model-parallel layers in this package)")
-    return MEGATRON_RULES
+            f"not ported yet: the {name!r} rules table ({why})")
+    return RULE_SETS[name]
 
 
 def data_axes(mesh) -> Tuple[str, ...]:
@@ -169,12 +185,45 @@ def param_shardings(axes: Dict[str, Sequence[str]], mesh, rules: Dict,
             for k, ax in axes.items()}
 
 
-def model_dim(spec: Sequence) -> Optional[int]:
-    """The dimension a partition spec splits over 'model', or None."""
+def axis_dim(spec: Sequence, axis: str) -> Optional[int]:
+    """The dimension a partition spec splits over mesh axis ``axis``."""
     for i, part in enumerate(spec):
-        if part == "model" or (isinstance(part, tuple) and "model" in part):
+        if part == axis or (isinstance(part, tuple) and axis in part):
             return i
     return None
+
+
+def zero1_shardings(axes: Dict[str, Sequence[str]], mesh, rules: Dict,
+                    shapes: Dict[str, Sequence[int]]) -> Dict[str, tuple]:
+    """Leaf name -> the partition spec of its optimizer state (ZeRO-1),
+    the reference's decision: the parameter's spec, plus the data axes on
+    the first still-replicated dimension they divide when the spec uses
+    none of them; the parameter's spec where none divides."""
+    daxes = data_axes(mesh)
+    dsize = 1
+    for a in daxes:
+        dsize *= mesh.shape[a]
+    spec_daxes = daxes if len(daxes) > 1 else (daxes[0] if daxes else None)
+    out = {}
+    for name, ax in axes.items():
+        shape = shapes[name]
+        base = spec_for(ax, mesh, rules, shape,
+                        fallback_model=len(shape) > 1)
+        parts: List[Any] = list(base) + [None] * (len(shape) - len(base))
+        used = set()
+        for p in parts:
+            used.update(a for a in (p if isinstance(p, tuple) else (p,))
+                        if a is not None)
+        if spec_daxes is not None and not used.intersection(daxes):
+            for i, p in enumerate(parts):
+                if p is None and shape[i] % dsize == 0 \
+                        and shape[i] >= dsize:
+                    parts[i] = spec_daxes
+                    break
+        while parts and parts[-1] is None:
+            parts.pop()
+        out[name] = tuple(parts)
+    return out
 
 
 def batch_axes_spec(mesh, rules: Dict, ndim: int, shape,
@@ -304,15 +353,25 @@ def gather_to_main(obj, mesh) -> Optional[List[Any]]:
 
 
 def model_global_norm(tensors: Sequence[torch.Tensor],
-                      sharded: Sequence[bool], mesh) -> torch.Tensor:
-    """The global norm of a model-parallel rank's gradients: the squares
-    of the leaves it holds a slice of (``sharded``) summed over the model
-    group, those of its replicated leaves counted once, as the norm of
-    the whole tree."""
+                      sharded: Sequence[Tuple[bool, bool]],
+                      mesh) -> torch.Tensor:
+    """The global norm of a rank's gradients on a ("data", "model") mesh,
+    as the norm of the whole tree: each leaf's squares are summed over
+    the groups it is split over and counted once. ``sharded``: per leaf,
+    (split over the model group, split over the data group: an FSDP leaf
+    or a ZeRO slice)."""
     zero = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-    parts = [zero, zero]
-    for t, s in zip(tensors, sharded):
-        parts[bool(s)] = parts[bool(s)] + torch.sum(torch.square(t.float()))
-    split = parts[1].clone()
-    dist.all_reduce(split, group=mesh.model_group)
-    return torch.sqrt(split + parts[0])
+    # by (model, data): whole, model only, data only, both
+    parts = [zero, zero, zero, zero]
+    for t, (m, d) in zip(tensors, sharded):
+        i = int(m) + 2 * int(d)
+        parts[i] = parts[i] + torch.sum(torch.square(t.float()))
+    whole, split = parts[0] + parts[2], parts[1] + parts[3]
+    if mesh.data > 1 and any(d for _, d in sharded):
+        over_data = torch.stack([parts[2], parts[3]])
+        dist.all_reduce(over_data, group=mesh.data_group)
+        whole, split = parts[0] + over_data[0], parts[1] + over_data[1]
+    if mesh.model > 1:
+        split = split.clone()
+        dist.all_reduce(split, group=mesh.model_group)
+    return torch.sqrt(split + whole)

@@ -15,13 +15,30 @@ then runs that rank's part of the training with no spawn. On the CPU
       --num-processes 2 --process-id 0 &
   PYTHONPATH=src python -m repro_torch.launch.train ... --process-id 1
 
-Only the bootstrap is ported; the reference's ``main`` (which drives the
-dry-run programs of ``launch/specs.py``) waits for those programs.
+``main`` is the reference's entry point for the programs of
+``launch/specs.py``: every process runs one rank of the (data, model)
+mesh that the world size factors into (the model axis the largest of 16,
+8, 4, 2, 1 that divides it), builds its slices of the program for
+``--arch`` / ``--shape`` under ``--rules`` (``auto``: the reference's
+``resolve_rules``), and runs ``--steps`` real steps, e.g. two processes
+of one host on the CPU:
+
+  for i in 0 1; do PYTHONPATH=src python -m repro_torch.launch.multihost \
+      --mode serve --arch xlstm-125m --shape decode_32k --steps 10 \
+      --device cpu --coordinator 127.0.0.1:29512 --num-processes 2 \
+      --process-id $i & done; wait
+
+Ranks that share a CUDA device (more processes than the host's GPUs)
+talk through gloo, which takes CUDA tensors; NCCL refuses them.
+``--mode dryrun`` (the reference compiles the program and prints XLA's
+memory analysis) is not ported: ROADMAP item 22.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import time
 
 import torch
 
@@ -68,3 +85,101 @@ def bootstrap(coordinator: str, num_processes: int, process_id: int, *,
               f"data {mesh.data_index}, model {mesh.model_index} on "
               f"{device}")
         yield mesh
+
+
+def factor_mesh(n: int):
+    """(data, model) of ``n`` ranks, as the reference factors its device
+    count: the model axis is the largest of 16, 8, 4, 2, 1 dividing n."""
+    model = next(m for m in (16, 8, 4, 2, 1) if n % m == 0)
+    return n // model, model
+
+
+def _parser():
+    p = argparse.ArgumentParser(
+        description="Run real steps of a launch/specs.py program on the "
+                    "(data, model) mesh of every process started")
+    p.add_argument("--coordinator", default=None,
+                   help="HOST:PORT of process 0 (omit for one process)")
+    p.add_argument("--num-processes", type=int, default=1)
+    p.add_argument("--process-id", type=int, default=0)
+    p.add_argument("--mode", choices=["train", "serve", "dryrun"],
+                   default="dryrun")
+    p.add_argument("--arch", default="qwen3-4b")
+    p.add_argument("--shape", default="train_4k")
+    p.add_argument("--rules", default="auto")
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--attn-impl", default=None)
+    p.add_argument("--ssd-impl", default=None)
+    p.add_argument("--vtrace-impl", default="scan",
+                   choices=["scan", "kernel"])
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run(mesh, args, pid):
+    from repro_torch.configs.base import INPUT_SHAPES, ImplContext
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.dryrun import resolve_rules
+    from repro_torch.launch.specs import build_program
+
+    rules_name = resolve_rules(args.rules, args.shape, args.arch)
+    kw = {"vtrace_impl": args.vtrace_impl} \
+        if INPUT_SHAPES[args.shape].kind == "train" else {}
+    t0 = time.perf_counter()
+    fn, inputs, _, _ = build_program(
+        args.arch, args.shape, mesh, sharding.rules_named(rules_name),
+        impls=ImplContext(attn=args.attn_impl, ssd=args.ssd_impl), **kw)
+    print(f"[host {pid}] built {args.arch}/{args.shape} ({rules_name}) "
+          f"in {time.perf_counter() - t0:.1f}s")
+    if args.mode == "train":
+        params, opt_state, _, batch = inputs
+        for step in range(args.steps):
+            params, opt_state, metrics = fn(params, opt_state, step, batch)
+        loss = float(metrics["loss"])
+        print(f"[host {pid}] {args.steps} train steps OK loss={loss:.4f}")
+        return loss
+    if len(inputs) == 4:                    # decode
+        params, tokens, cache, _ = inputs
+        for step in range(args.steps):
+            logits, _, cache = fn(params, tokens, cache, step + 1)
+    else:                                   # prefill
+        logits, _ = fn(*inputs)
+    _sync(mesh.device)
+    print(f"[host {pid}] serve steps OK")
+    return logits
+
+
+def main(argv=None):
+    """Returns process 0's last loss (train) or logits (serve)."""
+    args = _parser().parse_args(argv)
+    if args.mode == "dryrun":
+        raise NotImplementedError(
+            "not ported yet: --mode dryrun (compiling the program and "
+            "reading its memory and cost analyses), ROADMAP item 22")
+    from repro_torch import resolve_device
+    device = resolve_device(args.device)    # no GPU: raises here
+    data, model = factor_mesh(args.num_processes)
+    backend = "gloo" if device.type == "cuda" and \
+        args.num_processes > torch.cuda.device_count() else None
+    if args.coordinator:
+        ctx = bootstrap(args.coordinator, args.num_processes,
+                        args.process_id, data=data, model=model,
+                        device=device, backend=backend)
+    elif args.num_processes > 1:
+        raise SystemExit("--num-processes > 1 requires --coordinator")
+    else:
+        ctx = mesh_lib.make_mesh2d(1, 1, device,
+                                   port=mesh_lib.free_port())
+    with ctx as mesh:
+        print(f"[host {args.process_id}] mesh {mesh.shape}")
+        return _run(mesh, args, args.process_id)
+
+
+if __name__ == "__main__":
+    main()

@@ -463,7 +463,7 @@ def main(argv=None) -> Runtime:
         cfg = _lm_config(args)
         try:
             model_lib.check_model_parallel(cfg, model)
-        except NotImplementedError as exc:
+        except ValueError as exc:
             p.error(str(exc))
         device = resolve_device(args.device)    # no GPU: raises here
         if args.coordinator:

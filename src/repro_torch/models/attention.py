@@ -30,8 +30,9 @@ head counts both divide by M runs on this rank's H/M query heads and K/M
 kv heads (``wq``/``wk``/``wv`` split on their head axis, ``wo`` on its
 first), the kernels on those heads unchanged, and the output projection's
 partial sums all-reduced; its decode cache holds the local kv heads only.
-Otherwise it runs whole on every rank. ``xattn`` does not take a model
-axis yet.
+Otherwise it runs whole on every rank. ``xattn`` splits as ``attn`` does:
+its k and v are projected from the replicated ``vision`` source onto the
+rank's kv heads, and its static vision cache holds those heads.
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import (Params, apply_rope, copy_to_model,
-                                       model_mesh, model_split, operand,
-                                       param, reduce_from_model, softcap)
+                                       model_split, operand, param,
+                                       reduce_from_model, softcap)
 
 # the self-attention kinds: causal, rotary, and the only kinds that run
 # the attention kernels (``xattn`` is the fourth kind)
@@ -87,10 +88,7 @@ def head_split(cfg) -> int:
 def _weights(params, cfg, kind):
     """The layer's leaves as this rank computes with them (all of them
     outside a model-parallel context), and whether its heads are split."""
-    if kind == "xattn" and model_mesh() is not None:
-        raise NotImplementedError(
-            "not ported yet: xattn (the VLM's cross-attention) under a "
-            "model axis larger than 1")
+    del kind
     split = head_split(cfg) > 1
     w = {n: operand(params, n, 1 if split else None)
          for n in ("wq", "wk", "wv")}
@@ -113,7 +111,9 @@ def _project_qkv(params, cfg, x, kv_src, split=False):
     """Returns q (B,S,H,hd), k, v (B,Skv,K,hd) in x's type (H and K this
     rank's heads when ``split``). ``params``: ``_weights``'s."""
     if split:
-        x = kv_src = copy_to_model(x)
+        same = kv_src is x
+        x = copy_to_model(x)
+        kv_src = x if same else copy_to_model(kv_src)
     xf, sf = x.float(), kv_src.float()
     q = torch.einsum("bsd,dhe->bshe", xf, params["wq"]).to(x.dtype)
     k = torch.einsum("bsd,dke->bske", sf, params["wk"]).to(x.dtype)
@@ -349,13 +349,13 @@ def attn_decode(params, x, cache, *, cfg, kind, pos, impl=None):
     group = cfg.num_heads // cfg.num_kv_heads
     params, split = _weights(params, cfg, kind)
     if kind == "xattn":
-        q, _, _ = _project_qkv(params, cfg, x, x)
+        q, _, _ = _project_qkv(params, cfg, x, x, split)
         k, v = cache["k"], cache["v"]
         kv_pos = torch.arange(k.shape[1], device=x.device)
         o = _attend_dense(q, _expand_kv(k, group), _expand_kv(v, group),
                           None, kv_pos, _scale(cfg), 0,
                           cfg.attn_logit_softcap, False)
-        return _out_proj(params, cfg, o), cache
+        return _out_proj(params, cfg, o, split), cache
     q, k_new, v_new = _project_qkv(params, cfg, x, x, split)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     vec = pos.dim() == 1                    # per-row positions

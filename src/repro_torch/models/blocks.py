@@ -13,6 +13,14 @@ vision k/v for ``xattn``), {"conv", "ssm"} for Mamba2, {"C", "m", "n"}
 for mLSTM and {"c", "h", "m", "n"} for sLSTM, the recurrent states in
 float32. MoE aux losses are returned as a summed (load_balance, z_loss,
 dropped) triple, as in the reference.
+
+Sequence parallel (``seq_split``: the rules map ``act_seq`` to "model"
+and the model axis divides S): the residual ``x`` is this rank's
+(B, S/M, d) shard. Each sublayer normalises the shard (its scale's
+gradient summed over the model group), gathers the sequence where the
+reference puts ``gather_seq`` (after the pre-norm), runs the mixer or
+FFN on the whole sequence as under Megatron, and keeps the rank's shard
+of the output (``scatter_seq``) for the residual add.
 """
 
 from __future__ import annotations
@@ -20,8 +28,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention, mamba, mlp, moe, xlstm
-from repro_torch.models.common import (Params, make_norm, model_mesh,
-                                       remat, remat_active)
+from repro_torch.models.common import (Params, gather_seq, make_norm,
+                                       remat, remat_active, scatter_seq,
+                                       seq_local)
 
 ATTN_KINDS = attention.CAUSAL_KINDS + ("xattn",)
 # the recurrent mixers' (init, apply, decode, cache_init(cfg, batch, dtype,
@@ -35,13 +44,6 @@ _RECURRENT = {
     "slstm": (xlstm.slstm_init, xlstm.slstm_apply, xlstm.slstm_decode,
               lambda cfg, batch, dtype, device: xlstm.slstm_state_init(
                   cfg, batch, device=device))}
-
-
-def _check_mixer(kind):
-    if kind in ("mlstm", "slstm") and model_mesh() is not None:
-        raise NotImplementedError(
-            f"not ported yet: the {kind} mixer under a model axis larger "
-            "than 1")
 
 
 def _mixer_init(cfg, kind, **kw):
@@ -88,10 +90,21 @@ def _add_aux(a, b):
     return tuple(x + y for x, y in zip(a, b))
 
 
-def _apply_ffn(layer, x, cfg, ffn, norm_fn):
+def _pre_norm(norm_fn, node, x, seq_split):
+    """The pre-norm of a sublayer's input; under ``seq_split`` over the
+    rank's sequence shard, then gathered (the reference's
+    ``gather_seq``)."""
+    if not seq_split:
+        return norm_fn(node, x)
+    with seq_local():
+        h = norm_fn(node, x)
+    return gather_seq(h)
+
+
+def _apply_ffn(layer, x, cfg, ffn, norm_fn, seq_split=False):
     """Returns (x + ffn(x), aux); aux is None for a dense FFN."""
     aux = None
-    h = norm_fn(layer["ffn_pre_norm"], x)
+    h = _pre_norm(norm_fn, layer["ffn_pre_norm"], x, seq_split)
     if ffn == "moe":
         h, moe_aux = moe.moe_apply(layer["ffn"], h, cfg)
         aux = tuple(moe_aux)
@@ -99,16 +112,20 @@ def _apply_ffn(layer, x, cfg, ffn, norm_fn):
         h = mlp.mlp_apply(layer["ffn"], h, ffn)
     if cfg.sandwich_norm:
         h = norm_fn(layer["ffn_post_norm"], h)
+    if seq_split:
+        h = scatter_seq(h)
     return x + h, aux
 
 
 def block_apply(params, x, *, cfg, positions, pattern=None, vision=None,
-                impl=None, build_cache=False, seq_len=None, dtype=None):
+                impl=None, build_cache=False, seq_len=None, dtype=None,
+                seq_split=False):
     """Full-sequence super-block. Returns (x, aux, cache|None): aux the
     layers' summed MoE losses (None without an MoE layer), and with
     ``build_cache`` (prefill) the cache holds this block's decode caches.
     ``vision`` (B, Sv, d) is the source of the ``xattn`` layers' k and v.
     ``impl`` is the attention impl; Mamba2 reads ``cfg.ssd_impl``.
+    ``seq_split``: ``x`` is this rank's sequence shard (module docstring).
 
     Nested remat, as the reference: with ``cfg.remat`` and autograd
     recording, each LAYER of a multi-layer super-block (Zamba2's six
@@ -122,9 +139,8 @@ def block_apply(params, x, *, cfg, positions, pattern=None, vision=None,
 
     def layer_fn(layer, x, mixer, ffn):
         aux = None
-        h = norm_fn(layer["pre_norm"], x)
+        h = _pre_norm(norm_fn, layer["pre_norm"], x, seq_split)
         lcache = None
-        _check_mixer(mixer)
         if mixer in _RECURRENT:
             h, lcache = _RECURRENT[mixer][1](layer["mixer"], h, cfg,
                                              return_state=build_cache)
@@ -137,9 +153,11 @@ def block_apply(params, x, *, cfg, positions, pattern=None, vision=None,
                                                       seq_len, dtype)
         if cfg.sandwich_norm:
             h = norm_fn(layer["post_norm"], h)
+        if seq_split:
+            h = scatter_seq(h)
         x = x + h
         if ffn != "none":
-            x, aux = _apply_ffn(layer, x, cfg, ffn, norm_fn)
+            x, aux = _apply_ffn(layer, x, cfg, ffn, norm_fn, seq_split)
         return x, aux, lcache
 
     nested = len(pattern) > 1 and remat_active(cfg, build_cache)
@@ -167,7 +185,6 @@ def block_decode(params, x, cache, *, cfg, pos, pattern=None, impl=None):
     for idx, (mixer, ffn) in enumerate(pattern):
         layer = params[f"l{idx}"]
         h = norm_fn(layer["pre_norm"], x)
-        _check_mixer(mixer)
         if mixer in _RECURRENT:
             h, _ = _RECURRENT[mixer][2](layer["mixer"], h, cache[f"l{idx}"],
                                         cfg)

@@ -26,6 +26,21 @@ Megatron does, inside a ``use_rules(mesh, rules)`` context:
                        across steps and calls, until the leaf changes in
                        place or is freed
 
+Under the other rules tables three more boundaries come in, each an
+``autograd.Function`` whose backward is its forward's transpose:
+
+  ``gather_from_data``  FSDP: a leaf split over the data group gathered at
+                       use (all-gather), its gradient reduce-scattered
+  ``gather_seq``       sequence parallel: the residual's sequence shards
+                       gathered after the pre-norm (all-gather; with the
+                       layer's ``copy_to_model`` its backward is the
+                       reduce-scatter)
+  ``scatter_seq``      the rank's sequence shard of a sublayer's output
+                       (with the layer's ``reduce_from_model``, a
+                       reduce-scatter; backward an all-gather)
+
+``collective_stats`` counts each by group and kind.
+
 ``operand(node, name, want, local)`` hands a layer a leaf in the layout
 its arithmetic needs: split on ``want`` or whole, gathered or sliced from
 whatever the rules left it as, and behind ``copy_to_model`` where its use
@@ -65,9 +80,22 @@ class Params(nn.Module):
 
     @property
     def shard_dims(self) -> dict:
-        """Leaf name -> the dimension this rank holds a slice of (leaves
-        held whole are absent)."""
+        """Leaf name -> the dimension this rank holds a model slice of
+        (leaves held whole are absent)."""
         return self.__dict__.get("_shard_dims", {})
+
+    @property
+    def owners(self) -> dict:
+        """Leaf name -> (the model index holding it whole, its shape) for
+        a leaf split over "model" on the reference's stacked layers axis
+        (held empty on the other model ranks)."""
+        return self.__dict__.get("_owners", {})
+
+    @property
+    def data_dims(self) -> dict:
+        """Leaf name -> the dimension this rank holds a data slice of
+        (FSDP; absent elsewhere)."""
+        return self.__dict__.get("_data_dims", {})
 
 
 def param(shape, *, generator, device=None, scale=None, init="normal"):
@@ -117,6 +145,17 @@ def rmsnorm(params, x, eps=1e-6):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + operand(params, "scale").float())).to(dt)
+
+
+def split_rmsnorm(scale, x, dim, eps):
+    """``rmsnorm`` over the whole ``dim`` channels of which ``x`` holds
+    this rank's share (a model-split layer's output): the sum of squares
+    summed over the model group; ``scale`` the rank's slice."""
+    dt = x.dtype
+    xf = x.float()
+    var = sum_over_model(torch.sum(torch.square(xf), dim=-1, keepdim=True)
+                         ) / dim
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
 
 
 def layernorm_init(dim, *, device=None):
@@ -260,29 +299,53 @@ def data_mean(x):
     return _DataMean.apply(x)
 
 
-_COLLECTIVES = {"calls": 0, "bytes": 0, "seconds": 0.0}
+_COLLECTIVES: dict = {"calls": 0, "bytes": 0, "seconds": 0.0, "by": {}}
 
 
 def collective_stats() -> dict:
-    """The model-group all-reduces since ``reset_collective_stats``: calls,
-    bytes reduced, and host seconds inside them (each waits for the work
-    queued before it; gloo stages a CUDA tensor through the host)."""
-    return dict(_COLLECTIVES)
+    """The collectives of the layers since ``reset_collective_stats``:
+    calls, bytes moved (a rank's tensor: the whole one of an all-reduce
+    or an all-gather's result, the input of a reduce-scatter) and host
+    seconds inside them (each waits for the work queued before it; gloo
+    stages a CUDA tensor through the host), in total and under "by",
+    keyed ``"<group>/<kind>"`` (group ``model`` or ``data``; kind
+    ``all_reduce``, ``all_gather`` or ``reduce_scatter``)."""
+    out = dict(_COLLECTIVES)
+    out["by"] = {k: dict(v) for k, v in _COLLECTIVES["by"].items()}
+    return out
 
 
 def reset_collective_stats() -> None:
-    _COLLECTIVES.update(calls=0, bytes=0, seconds=0.0)
+    _COLLECTIVES.update(calls=0, bytes=0, seconds=0.0, by={})
+
+
+def count_collective(group, kind, nbytes, seconds) -> None:
+    """Add one collective's bytes and host seconds to the counts."""
+    for entry in (_COLLECTIVES, _COLLECTIVES["by"].setdefault(
+            f"{group}/{kind}", {"calls": 0, "bytes": 0, "seconds": 0.0})):
+        entry["seconds"] += seconds
+        entry["calls"] += 1
+        entry["bytes"] += nbytes
+
+
+def collective(x, group, kind, op=dist.ReduceOp.SUM, mesh=None):
+    """``x`` all-reduced in place over ``mesh``'s (default: the active
+    context's) ``group`` ("model" or "data"), counted as ``kind``. Every
+    collective of the layers and the learner is an all-reduce: an
+    all-gather is one over a zero-padded buffer (exact), a reduce-scatter
+    one followed by the rank's slice; gloo over CUDA tensors, which lets
+    ranks share one card, takes only these."""
+    mesh = _RULES[0] if mesh is None else mesh
+    x = x.contiguous()
+    t0 = time.perf_counter()
+    dist.all_reduce(x, op=op, group=getattr(mesh, f"{group}_group"))
+    count_collective(group, kind, x.numel() * x.element_size(),
+                     time.perf_counter() - t0)
+    return x
 
 
 def _all_reduce(x, op=dist.ReduceOp.SUM):
-    mesh = model_mesh()
-    x = x.contiguous()
-    t0 = time.perf_counter()
-    dist.all_reduce(x, op=op, group=mesh.model_group)
-    _COLLECTIVES["seconds"] += time.perf_counter() - t0
-    _COLLECTIVES["calls"] += 1
-    _COLLECTIVES["bytes"] += x.numel() * x.element_size()
-    return x
+    return collective(x, "model", "all_reduce", op)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -329,6 +392,19 @@ def max_over_model(x):
     return _all_reduce(x.detach().clone(), dist.ReduceOp.MAX)
 
 
+def rule(name):
+    """The active rules table's entry for logical axis ``name`` (None
+    outside a context)."""
+    return None if _RULES is None else _RULES[1].get(name)
+
+
+def data_mesh():
+    """The active mesh when its data axis is larger than 1, else None."""
+    if _RULES is None or _RULES[0].data == 1:
+        return None
+    return _RULES[0]
+
+
 def _pad_to_full(x, dim, parts, index):
     shape = list(x.shape)
     n = shape[dim]
@@ -345,8 +421,143 @@ def gather_model_slices(x, dim):
     mesh = model_mesh()
     if mesh is None:
         return x
-    return _all_reduce(_pad_to_full(x.detach(), dim, mesh.model,
-                                    mesh.model_index))
+    return collective(_pad_to_full(x.detach(), dim, mesh.model,
+                                    mesh.model_index), "model", "all_gather")
+
+
+def _own(x, dim, parts, index):
+    n = x.shape[dim] // parts
+    return x.narrow(dim, index * n, n).contiguous()
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return gather_model_slices(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = model_mesh()
+        return _own(g, ctx.dim, mesh.model, mesh.model_index), None
+
+
+class _ScatterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        mesh = model_mesh()
+        return _own(x, dim, mesh.model, mesh.model_index)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_model_slices(g, ctx.dim), None
+
+
+def gather_model(x, dim):
+    """An activation split along ``dim`` over the model group made whole
+    on every rank (all-gather); backward, the rank's slice of the
+    gradient. Where the whole activation then enters rank-local work,
+    that work's ``copy_to_model`` sums the gradient's parts first, and
+    the two together are the all-gather's transpose, a reduce-scatter
+    (where it enters replicated work the gradient is already whole)."""
+    return x if model_mesh() is None else _GatherModel.apply(x, dim)
+
+
+def scatter_model(x, dim):
+    """The rank's slice along ``dim`` of an activation whole on every
+    rank; backward, the slices' gradients gathered (all-gather). After a
+    row-parallel product's ``reduce_from_model`` the two together are a
+    reduce-scatter of its partial sums."""
+    return x if model_mesh() is None else _ScatterModel.apply(x, dim)
+
+
+# sequence parallel (``act_seq`` -> "model"): the residual stream lies
+# split over the model group on its sequence dimension between sublayers
+_SEQ_LOCAL = False
+
+
+def seq_parallel(seq_len: int) -> bool:
+    """Whether the active rules split a residual stream of ``seq_len``
+    tokens over the model axis (the reference's ``act_seq`` mapping; a
+    length the axis does not divide, such as a decode token, stays
+    whole, as ``spec_for`` drops it)."""
+    mesh = model_mesh()
+    return (mesh is not None and rule("act_seq") == "model"
+            and seq_len % mesh.model == 0)
+
+
+def gather_seq(x):
+    """A sequence-split residual (B, S/M, ...) made whole, (B, S, ...):
+    ``gather_model`` on dimension 1 (the reference's ``gather_seq``)."""
+    return gather_model(x, 1)
+
+
+def scatter_seq(x):
+    """The rank's sequence shard of a whole (B, S, ...) activation:
+    ``scatter_model`` on dimension 1."""
+    return scatter_model(x, 1)
+
+
+@contextlib.contextmanager
+def seq_local():
+    """Inside: every whole leaf that ``operand`` hands out is used in
+    rank-local work (a norm over the rank's sequence shard), so its
+    gradient is summed over the model group."""
+    global _SEQ_LOCAL
+    prev, _SEQ_LOCAL = _SEQ_LOCAL, True
+    try:
+        yield
+    finally:
+        _SEQ_LOCAL = prev
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        mesh = _RULES[0]
+        ctx.dim = dim
+        return collective(_pad_to_full(x.detach(), dim, mesh.data,
+                                        mesh.data_index), "data",
+                           "all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = _RULES[0]
+        full = collective(g.clone(), "data", "reduce_scatter")
+        return _own(full, ctx.dim, mesh.data, mesh.data_index), None
+
+
+class _GatherOwned(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, owner, shape):
+        mesh = model_mesh()
+        ctx.mine = owner == mesh.model_index
+        buf = x.detach().clone() if ctx.mine else torch.zeros(
+            shape, dtype=x.dtype, device=x.device)
+        return collective(buf, "model", "all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else g.narrow(0, 0, 0)), None, None
+
+
+def gather_owned(x, owner, shape):
+    """A leaf that one model rank (``owner``) holds whole and the others
+    hold empty (the reference splits its stacked ``layers`` axis over
+    "model": each group's leaf lies on one rank), made whole on every
+    rank; backward, the owner keeps the gradient, which must be the same
+    on every rank (a replicated use, or one behind ``copy_to_model``)."""
+    return _GatherOwned.apply(x, owner, tuple(shape))
+
+
+def gather_from_data(x, dim):
+    """A leaf split along ``dim`` over the data group (FSDP: the rules
+    map its ``embed`` axis to the data axes) made whole at its use
+    (all-gather); backward, the data ranks' gradients summed and the
+    rank's slice kept (reduce-scatter), so the learner divides it by the
+    data size instead of all-reducing it."""
+    return x if data_mesh() is None else _GatherFromData.apply(x, dim)
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -387,11 +598,15 @@ def local_slice(x, dim):
 
 def full_size(node, name, dim) -> int:
     """The whole leaf's size along ``dim`` (the slice's times the model
-    axis where this rank holds a slice along it)."""
+    or data axis where this rank holds a slice along it)."""
+    if name in getattr(node, "owners", {}):
+        return node.owners[name][1][dim]
     size = node[name].shape[dim]
     mesh = model_mesh()
     if mesh is not None and node.shard_dims.get(name) == dim:
         size *= mesh.model
+    if data_mesh() is not None and node.data_dims.get(name) == dim:
+        size *= data_mesh().data
     return size
 
 
@@ -403,8 +618,15 @@ def operand(node, name, want=None, local=False):
     of. A leaf used split is always rank-local. Outside a model-parallel
     context: the leaf itself."""
     x = node[name]
+    split = getattr(node, "data_dims", {}).get(name)
+    if split is not None and data_mesh() is not None:
+        x = gather_from_data(x, split)
     if model_mesh() is None:
         return x
+    owner = getattr(node, "owners", {}).get(name)
+    if owner is not None:
+        x = gather_owned(x, *owner)
+    local = local or _SEQ_LOCAL
     have = getattr(node, "shard_dims", {}).get(name)
     if have == want:
         return copy_to_model(x) if want is None and local else x
@@ -415,21 +637,40 @@ def operand(node, name, want=None, local=False):
     return local_slice(copy_to_model(x), want)
 
 
-def shard_params(params, dims, mesh):
-    """Cut the whole tree ``params`` down to ``mesh``'s model slice, in
-    place: each leaf named in ``dims`` (state-dict name -> dimension, as
-    ``models/model.py::param_specs`` decides it) keeps its contiguous slice
-    ``model_index`` of ``mesh.model`` along that dimension; every node
-    records its leaves' dimensions in ``shard_dims``. Returns ``params``."""
+def shard_params(params, dims, mesh, data_dims=None, owners=None):
+    """Cut the whole tree ``params`` down to ``mesh``'s slice, in place:
+    each leaf named in ``dims`` (state-dict name -> dimension, as
+    ``models/model.py::param_specs`` decides it) keeps its contiguous
+    slice ``model_index`` of ``mesh.model`` along that dimension, and
+    each named in ``data_dims`` its slice ``data_index`` of ``mesh.data``
+    along that one (FSDP: a leaf may be split on both). A leaf named in
+    ``owners`` (name -> model index) stays whole on that model rank and
+    becomes empty on the others. Every node records its leaves' layout in
+    ``shard_dims``, ``data_dims`` and ``owners``. Returns ``params``."""
+    data_dims, owners = data_dims or {}, owners or {}
     for path, node in params.named_modules():
-        node.__dict__["_shard_dims"] = {}
+        for record in ("_shard_dims", "_data_dims", "_owners"):
+            node.__dict__[record] = {}
         for name, leaf in list(node._parameters.items()):
             full = f"{path}.{name}" if path else name
-            dim = dims.get(full)
-            if dim is None or mesh.model == 1:
-                continue
-            n = leaf.shape[dim] // mesh.model
-            part = leaf.detach().narrow(dim, mesh.model_index * n, n)
-            node._parameters[name] = nn.Parameter(part.clone())
-            node.__dict__["_shard_dims"][name] = dim
+            part, cut = leaf.detach(), False
+            owner = owners.get(full)
+            if owner is not None and mesh.model > 1:
+                node.__dict__["_owners"][name] = (owner, tuple(leaf.shape))
+                if owner != mesh.model_index:
+                    node._parameters[name] = nn.Parameter(
+                        part.narrow(0, 0, 0).clone())
+                    continue
+            for dim, parts, index, record in (
+                    (dims.get(full), mesh.model, mesh.model_index,
+                     "_shard_dims"),
+                    (data_dims.get(full), mesh.data, mesh.data_index,
+                     "_data_dims")):
+                if dim is None or parts == 1:
+                    continue
+                n = part.shape[dim] // parts
+                part, cut = part.narrow(dim, index * n, n), True
+                node.__dict__[record][name] = dim
+            if cut:
+                node._parameters[name] = nn.Parameter(part.clone())
     return params

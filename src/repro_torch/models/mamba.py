@@ -45,7 +45,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (Params, copy_to_model, local_slice,
                                        model_split, operand, param,
                                        reduce_from_model, rmsnorm,
-                                       sum_over_model)
+                                       split_rmsnorm)
 
 # the reference's logical axes of each leaf (its ``mamba_init``)
 AXES = {"in_proj_z": ("embed", "mlp"), "in_proj_x": ("embed", "mlp"),
@@ -175,11 +175,7 @@ def _out(params, y, z, x_dtype, cfg, split=False):
     if not split:
         y = rmsnorm({"scale": params["norm"]}, g, cfg.norm_eps)
         return (y.float() @ params["out_proj"]).to(x_dtype)
-    gf = g.float()
-    var = sum_over_model(torch.sum(torch.square(gf), dim=-1, keepdim=True)
-                         ) / _dims(cfg)[0]
-    y = (gf * torch.rsqrt(var + cfg.norm_eps)
-         * (1.0 + params["norm"].float())).to(x_dtype)
+    y = split_rmsnorm(params["norm"], g, _dims(cfg)[0], cfg.norm_eps)
     return reduce_from_model(y.float() @ params["out_proj"]).to(x_dtype)
 
 

@@ -34,7 +34,15 @@ model group is the embedding; the tied or untied head then gives each
 rank its vocabulary slice of the logits, which the losses reduce over the
 group (``core/losses.py``) and ``logits_from_hidden`` gathers. Where the
 rules drop ``vocab`` (an odd vocabulary), every rank computes the whole
-logits. The xLSTM mixers do not take a model axis yet.
+logits. Every mixer takes the model axis.
+
+Under the other rules tables: FSDP leaves (``embed`` over the data axes)
+are held split on two dimensions and gathered over the data group at use
+(``common.operand``), and with sequence parallel (``act_seq`` over
+"model") the residual stream leaves the embedding as this rank's
+sequence shard, stays so between sublayers (``blocks.py``), and is
+gathered again before the final norm, so the head and the losses see
+the whole sequence.
 """
 
 from __future__ import annotations
@@ -45,10 +53,11 @@ from torch import nn
 from repro_torch.distributed import sharding
 from repro_torch.models import attention, blocks, mamba, mlp, moe, xlstm
 from repro_torch.models.common import (Params, copy_to_model, dtype_of,
-                                       gather_model_slices, make_norm,
-                                       model_mesh, model_split, operand,
-                                       param, reduce_from_model, remat,
-                                       remat_active, shard_params,
+                                       gather_model_slices, gather_seq,
+                                       make_norm, model_mesh, model_split,
+                                       operand, param, reduce_from_model,
+                                       remat, remat_active, scatter_seq,
+                                       seq_parallel, shard_params,
                                        sinusoidal_pos_emb, softcap, tree_map)
 
 SHARED_PATTERN = (("attn", "swiglu"),)  # zamba-style shared global block
@@ -120,71 +129,142 @@ def logical_axes(params, cfg):
     return out
 
 
+def stacked_axes(params, cfg, shapes):
+    """(state-dict name -> logical axes, -> shape) of the reference's
+    leaves: a block leaf's with its stacked ``layers`` axis first,
+    ``num_groups`` long. ``shapes``: the port's whole leaf shapes."""
+    axes, out = logical_axes(params, cfg), {}
+    for name, shape in shapes.items():
+        out[name] = tuple(shape)
+        if name.startswith("blocks."):
+            axes[name] = ("layers",) + tuple(axes[name])
+            out[name] = (cfg.num_groups,) + out[name]
+    return axes, out
+
+
 def param_specs(params, cfg, mesh, rules):
     """State-dict name -> (the reference's partition spec of its leaf,
     the dimension of the port's leaf a rank holds a slice of, or None) for
     a WHOLE tree. A block leaf's spec is that of the reference's stacked
     leaf (``layers`` first, ``num_groups`` long), as its checkpoints
-    record it; a split of the ``layers`` axis itself is not taken."""
-    axes, shapes = logical_axes(params, cfg), {}
-    for name, leaf in params.named_parameters():
-        shapes[name] = tuple(leaf.shape)
-        if name.startswith("blocks."):
-            axes[name] = ("layers",) + tuple(axes[name])
-            shapes[name] = (cfg.num_groups,) + shapes[name]
-    out = {}
-    for name, spec in sharding.param_shardings(axes, mesh, rules,
-                                               shapes).items():
-        dim = sharding.model_dim(spec)
-        if name.startswith("blocks.") and dim is not None:
-            if dim == 0:
-                raise NotImplementedError(
-                    f"not ported yet: {name} split over its stacked "
-                    "layers axis")
-            dim -= 1
-        out[name] = (spec, dim)
-    return out
+    record it; a split of that ``layers`` axis is ``LAYERS`` (FSDP's
+    norm scales: ``embed`` takes the data axes, and ``fallback_model``
+    the stacked axis), and ``shard_model`` gives each group's leaf to one
+    model rank whole."""
+    axes, shapes = stacked_axes(
+        params, cfg, {n: p.shape for n, p in params.named_parameters()})
+    return {name: (spec, _port_dim(name, spec, "model"))
+            for name, spec in sharding.param_shardings(
+                axes, mesh, rules, shapes).items()}
 
 
 def check_model_parallel(cfg, model: int) -> None:
-    """Refuse what has no model-parallel layers yet: the xLSTM mixers and
-    the VLM's cross-attention under a model axis larger than 1."""
-    if model <= 1:
-        return
-    kinds = {m for m, _ in cfg.block_pattern}
-    if kinds & {"mlstm", "slstm"}:
-        raise NotImplementedError(
-            f"not ported yet: --mesh-model {model} for {cfg.name} (the "
-            "xLSTM mixers take no model axis)")
-    if "xattn" in kinds:
-        raise NotImplementedError(
-            f"not ported yet: --mesh-model {model} for {cfg.name} (the "
-            "VLM's cross-attention takes no model axis)")
+    """Refuse a model axis the layers cannot take: every mixer and FFN of
+    the registry takes one of any size (a head count it does not divide
+    runs whole on every rank), so only a size below 1 is refused."""
+    if model < 1:
+        raise ValueError(f"--mesh-model {model} for {cfg.name}: the model "
+                         "axis must be at least 1")
+
+
+# a block leaf split over its stacked ``layers`` axis: each group's leaf
+# lies whole on one rank of the axis
+LAYERS = "layers"
+
+
+def _port_dim(name, spec, axis):
+    """The dimension of the port's leaf ``name`` that ``spec`` (the
+    reference's, a block leaf's with its stacked ``layers`` axis first)
+    splits over ``axis``, ``LAYERS`` for that stacked axis, or None."""
+    dim = sharding.axis_dim(spec, axis)
+    if dim is None or not name.startswith("blocks."):
+        return dim
+    return LAYERS if dim == 0 else dim - 1
 
 
 def shard_model(params, cfg, mesh, rules):
     """Cut the whole tree ``params`` (every rank builds the same one from
-    the same seed) down to ``mesh``'s model slice, in place, and record
-    each leaf's spec and whole shape on it (``params.model_layout``, which
-    the sharded checkpoint reads). Returns ``params``."""
+    the same seed) down to ``mesh``'s slice, in place: each leaf's model
+    slice and, where the rules split it over the data axes (FSDP), its
+    data slice too. Records each leaf's spec, model dimension and whole
+    shape on it (``params.model_layout``: the sharded checkpoint reads
+    it; the spec names the data dimension as well). Returns ``params``."""
     check_model_parallel(cfg, mesh.model)
     specs = param_specs(params, cfg, mesh, rules)
     shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    data = {n: _port_dim(n, spec, "data") for n, (spec, _) in specs.items()}
+    if LAYERS in data.values():
+        raise NotImplementedError(
+            "not ported yet: a stacked layers axis split over the data "
+            "axes (no rules table maps 'layers')")
+    per = cfg.num_groups // mesh.model
     shard_params(params, {n: d for n, (_, d) in specs.items()
-                          if d is not None}, mesh)
+                          if d not in (None, LAYERS)}, mesh,
+                 {n: d for n, d in data.items() if d is not None},
+                 {n: int(n.split(".")[1]) // per
+                  for n, (_, d) in specs.items() if d == LAYERS})
     params.__dict__["model_layout"] = {
         n: (spec, dim, shapes[n]) for n, (spec, dim) in specs.items()}
     return params
 
 
+def zero_slices(params, cfg, mesh, rules):
+    """Per parameter (``named_parameters`` order), this data rank's
+    ``optim.ZeroSlice`` of its optimizer state, the reference's
+    ``zero1_shardings`` decision on the stacked leaf, or None (an FSDP
+    leaf, already split over the data axes; no divisible dimension; a
+    data axis of 1). A block leaf whose state the reference splits on its
+    ``layers`` axis keeps its whole state on the data rank that holds its
+    group and none elsewhere. ``params``: this rank's tree, cut by
+    ``shard_model`` (its ``model_layout`` gives the whole shapes)."""
+    from repro_torch.optim.optimizers import ZeroSlice
+    layout = params.model_layout
+    axes, shapes = stacked_axes(params, cfg,
+                                {n: v[2] for n, v in layout.items()})
+    state = sharding.zero1_shardings(axes, mesh, rules, shapes)
+    out = []
+    for name, leaf in params.named_parameters():
+        dim = sharding.axis_dim(state[name], "data")
+        if mesh.data == 1 or dim is None \
+                or sharding.axis_dim(layout[name][0], "data") is not None:
+            out.append(None)
+            continue
+        if name.startswith("blocks."):
+            if dim == 0:
+                mine = int(name.split(".")[1]) \
+                    // (cfg.num_groups // mesh.data) == mesh.data_index
+                out.append(ZeroSlice(0, 0, leaf.shape[0] if mine else 0))
+                continue
+            dim -= 1
+        n = leaf.shape[dim] // mesh.data
+        out.append(ZeroSlice(dim, mesh.data_index * n, n))
+    return out
+
+
 def split_dims(params):
     """State-dict name -> the dimension of the leaf this rank holds a
-    slice of (None: whole), from the tree's nodes."""
+    model slice of (None: whole), from the tree's nodes."""
+    return _held_dims(params, "shard_dims")
+
+
+def data_dims(params):
+    """State-dict name -> the dimension of the leaf this rank holds a
+    data slice of (FSDP; None: whole over the data group)."""
+    return _held_dims(params, "data_dims")
+
+
+def owned(params):
+    """State-dict name -> whether the leaf lies whole on one model rank
+    and empty on the others (a ``LAYERS`` split)."""
+    return {n: v is not None for n, v in _held_dims(params, "owners").items()}
+
+
+def _held_dims(params, attr):
     out = {}
     for path, node in params.named_modules():
         for name in node._parameters:
             full = f"{path}.{name}" if path else name
-            out[full] = node.shard_dims.get(name)
+            out[full] = getattr(node, attr).get(name)
     return out
 
 
@@ -264,8 +344,12 @@ def forward(params, tokens, *, cfg, vision=None, impl=None,
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     x = _embed(params, cfg, tokens, positions)
+    split = seq_parallel(s)
+    if split:
+        x = scatter_seq(x)
     kw = dict(cfg=cfg, positions=positions, impl=impl,
-              build_cache=build_cache, seq_len=cache_seq_len, dtype=x.dtype)
+              build_cache=build_cache, seq_len=cache_seq_len, dtype=x.dtype,
+              seq_split=split)
 
     def body(block_params, x):
         x, aux, cache = blocks.block_apply(block_params, x, vision=vision,
@@ -286,6 +370,8 @@ def forward(params, tokens, *, cfg, vision=None, impl=None,
             x, baux, cache = body(block_params, x)
             caches.append(cache)
         aux = blocks._add_aux(aux, baux)
+    if split:
+        x = gather_seq(x)
     _, norm_fn = make_norm(cfg)
     x = norm_fn(params["final_norm"], x)
     if aux is None:

@@ -34,6 +34,15 @@ The router runs whole on every rank, so every rank routes, drops and
 combines alike; each rank combines its partial expert outputs in float32
 and the sum over the model group is the layer's output.
 
+Under the expert rules (``expert`` -> "model", ``mlp`` whole) with M
+dividing E, each rank holds E/M whole experts (``wi``/``wg``/``wo`` on
+their expert axis) and the router's columns of its experts. Its router
+logits are gathered over the model group before the softmax, so every
+rank routes, drops and counts capacity as the reference does, index for
+index; each rank dispatches the tokens it holds to its experts, and the
+combine over its experts' token-slots (the others' weigh zero) is summed
+over the model group.
+
 Under a data axis (each rank routes its block of the batch), the
 load-balance loss's two per-expert means are taken over the whole batch
 (``common.data_mean``), as the reference computes them over its global
@@ -51,8 +60,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (Params, copy_to_model, data_mean,
-                                       full_size, model_split, operand,
-                                       param, reduce_from_model)
+                                       full_size, gather_model, local_slice,
+                                       model_mesh, model_split, operand,
+                                       param, reduce_from_model, rule)
 
 MOE_GROUP_SIZE = 512
 
@@ -115,13 +125,17 @@ def moe_apply(params, x, cfg):
                          "of it, as in the reference")
     ng = n // gs
     xt = x.reshape(ng, gs, d)
-    split = model_split(full_size(params, "wi", 2)) > 1
-    w = {"router": operand(params, "router"),
-         "wi": operand(params, "wi", 2 if split else None),
-         "wg": operand(params, "wg", 2 if split else None),
-         "wo": operand(params, "wo", 1 if split else None)}
-
-    logits = xt.float() @ w["router"]                          # (g, n, e)
+    experts = rule("expert") == "model" and model_split(e) > 1
+    split = experts or model_split(full_size(params, "wi", 2)) > 1
+    if experts:
+        w = {name: operand(params, name, 0) for name in ("wi", "wg", "wo")}
+        local = copy_to_model(xt).float() @ operand(params, "router", 1)
+        logits = gather_model(local, -1)                       # (g, n, e)
+    else:
+        w = {"wi": operand(params, "wi", 2 if split else None),
+             "wg": operand(params, "wg", 2 if split else None),
+             "wo": operand(params, "wo", 1 if split else None)}
+        logits = xt.float() @ operand(params, "router")        # (g, n, e)
     probs = torch.softmax(logits, dim=-1)
     topk_prob, topk_idx = route(probs, k)                      # (g, n, k)
     topk_prob = topk_prob / torch.clamp(
@@ -154,11 +168,15 @@ def moe_apply(params, x, cfg):
                        xt.float()).to(dt)
     if split:
         xin = copy_to_model(xin)
+    if experts:
+        # this rank's experts, their outputs whole: rounded as unsplit
+        xin = local_slice(xin, 1)
+        first = model_mesh().model_index * (e // model_mesh().model)
     h = torch.einsum("gecd,edf->gecf", xin.float(), w["wi"]).to(dt)
     g_ = torch.einsum("gecd,edf->gecf", xin.float(), w["wg"])
     h = h * F.silu(g_).to(dt)
     eo = torch.einsum("gecf,efd->gecd", h.float(), w["wo"])
-    if not split:
+    if experts or not split:
         eo = eo.to(dt)
     # combine: each token-slot's own routing weight (rounded to the
     # activation's type, as the reference's combine tensor) times the
@@ -171,8 +189,14 @@ def moe_apply(params, x, cfg):
     weight = (topk_prob.to(dt) * keep.to(dt)).float()          # (g, n, k)
     if split:
         weight = copy_to_model(weight)
+    if experts:
+        with torch.no_grad():
+            cell = cell - first * cap
+            mine = (cell >= 0) & (cell < eo.shape[1] * cap)
+            cell = cell.clamp(0, eo.shape[1] * cap - 1)
+        weight = weight * mine
     picked = torch.gather(
-        eo.reshape(ng, e * cap, d), 1,
+        eo.reshape(ng, -1, d), 1,
         cell.reshape(ng, gs * k, 1).expand(ng, gs * k, d))
     out = torch.sum(weight[..., None]
                     * picked.reshape(ng, gs, k, d).float(), dim=2)

@@ -24,6 +24,24 @@ State conventions (float32; keys in the order of the reference's pytrees):
   sLSTM: c, h, m, n (B,H,dh)
 The decode functions write the new state into the dict they are given,
 in place, and return it, as ``mamba.mamba_decode`` does with its cache.
+
+Under a model axis of M that divides the heads (``head_split``; the
+reference's rules split ``heads`` and, by its ``fallback_model``, the
+rows of ``wo_gate`` and ``wo``), a rank runs the recurrence of its H/M
+heads and keeps their float32 state, and its d/M channels are exactly
+those heads' dh blocks:
+
+  mLSTM  q, k, v and the gates from the rank's columns of ``wq`` / ``wk``
+         / ``wv`` / ``wi`` / ``wf``; the output gate ``x @ wo_gate`` from
+         its rows, a partial sum reduced over the model group before the
+         silu; the norm over the whole d, its sum of squares summed over
+         the group; ``wo`` row-parallel, its partial sums reduced.
+  sLSTM  the gates from its heads of ``wx`` / ``wr`` / ``b``; the norm as
+         mLSTM's, then the normalised channels gathered for ``up``, which
+         runs column-parallel on the rank's columns of u1 and of u2 (so
+         ``u1 * silu(u2)`` is local); ``down`` row-parallel.
+
+Otherwise the mixer runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -31,12 +49,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, param, rmsnorm
+from repro_torch.models.common import (Params, copy_to_model, gather_model,
+                                       local_slice, model_split, operand,
+                                       param, reduce_from_model, rmsnorm,
+                                       split_rmsnorm, sum_over_model)
 
 
 # the reference's logical axes of each leaf (its ``mlstm_init`` and
-# ``slstm_init``): the spec tables of ``--mesh-model``, whose layers these
-# mixers do not take yet
+# ``slstm_init``): the spec tables of ``--mesh-model``
 MLSTM_AXES = {"wq": ("embed", "heads", "head_dim"),
               "wk": ("embed", "heads", "head_dim"),
               "wv": ("embed", "heads", "head_dim"),
@@ -51,6 +71,21 @@ SLSTM_AXES = {"wx": ("embed", "gates", "heads", "head_dim"),
 def _dims(cfg):
     h = cfg.num_heads
     return h, cfg.d_model // h
+
+
+def head_split(cfg) -> int:
+    """How many parts the active model axis splits the heads into: M where
+    it divides them and the d channels are exactly the heads' dh blocks,
+    else 1 (the mixer runs whole)."""
+    h, dh = _dims(cfg)
+    parts = model_split(h)
+    return parts if h * dh == cfg.d_model else 1
+
+
+def _local_dims(cfg):
+    """This rank's heads and the head width."""
+    h, dh = _dims(cfg)
+    return h // head_split(cfg), dh
 
 
 def _f32(x, w, spec):
@@ -84,32 +119,51 @@ def mlstm_init(cfg, *, generator, device=None):
         wo=param((d, d), **kw))
 
 
-def _mlstm_qkvif(params, x):
+def _mlstm_weights(params, cfg):
+    """The layer's leaves as this rank computes with them, and whether
+    its heads are split (module docstring)."""
+    if head_split(cfg) == 1:
+        return {n: operand(params, n) for n in MLSTM_AXES}, False
+    w = {n: operand(params, n, 1) for n in ("wq", "wk", "wv", "wi", "wf")}
+    w.update({n: operand(params, n, 0)
+              for n in ("bf", "wo_gate", "norm", "wo")})
+    return w, True
+
+
+def _mlstm_qkvif(w, x):
     """q, k, v (B,S,H,dh) and the input / forget pre-activations (B,S,H),
-    all float32."""
-    q = _f32(x, params["wq"], "bsd,dhe->bshe")
-    k = _f32(x, params["wk"], "bsd,dhe->bshe")
-    v = _f32(x, params["wv"], "bsd,dhe->bshe")
-    i_pre = _f32(x, params["wi"], "bsd,dh->bsh")
-    f_pre = _f32(x, params["wf"], "bsd,dh->bsh") + params["bf"]
+    all float32 (H this rank's heads under a split)."""
+    q = _f32(x, w["wq"], "bsd,dhe->bshe")
+    k = _f32(x, w["wk"], "bsd,dhe->bshe")
+    v = _f32(x, w["wv"], "bsd,dhe->bshe")
+    i_pre = _f32(x, w["wi"], "bsd,dh->bsh")
+    f_pre = _f32(x, w["wf"], "bsd,dh->bsh") + w["bf"]
     return q, k, v, i_pre, f_pre
 
 
 def mlstm_state_init(cfg, batch, device=None):
-    h, dh = _dims(cfg)
+    h, dh = _local_dims(cfg)
     z = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, h, dh, dh), **z),
             "m": torch.zeros((batch, h), **z),
             "n": torch.zeros((batch, h, dh), **z)}
 
 
-def _mlstm_out(params, x, y, cfg):
+def _mlstm_out(w, x, xc, y, cfg, split):
     """The output gate, norm and projection of the (B,S,d) float32 cell
-    output ``y``."""
+    output ``y`` (this rank's d/M channels under ``split``; ``xc`` the
+    input behind ``copy_to_model``)."""
     y = y.to(x.dtype)
-    gate = F.silu(_f32(x, params["wo_gate"], "bsd,de->bse"))
-    y = rmsnorm({"scale": params["norm"]}, y, cfg.norm_eps) * gate.to(x.dtype)
-    return _f32(y, params["wo"], "bse,ed->bsd").to(x.dtype)
+    if not split:
+        gate = F.silu(_f32(x, w["wo_gate"], "bsd,de->bse"))
+        y = rmsnorm({"scale": w["norm"]}, y, cfg.norm_eps) \
+            * gate.to(x.dtype)
+        return _f32(y, w["wo"], "bse,ed->bsd").to(x.dtype)
+    partial = _f32(local_slice(xc, -1), w["wo_gate"], "bsd,de->bse")
+    gate = local_slice(F.silu(sum_over_model(partial)), -1)
+    y = split_rmsnorm(w["norm"], y, cfg.d_model, cfg.norm_eps) \
+        * gate.to(x.dtype)
+    return reduce_from_model(_f32(y, w["wo"], "bse,ed->bsd")).to(x.dtype)
 
 
 def _mlstm_chunk(carry, q_i, k_i, v_i, i_i, lf_i, scale):
@@ -157,12 +211,14 @@ def mlstm_apply(params, x, cfg, state=None, return_state=False):
     or a multiple of it. state: optional {C, n, m} to continue from.
     Returns (y (B,S,d), state | None)."""
     b, s, d = x.shape
-    h, dh = _dims(cfg)
+    _, dh = _dims(cfg)
     L = min(cfg.xlstm_chunk, s)
     if s % L:
         raise ValueError(f"mLSTM sequence length {s} is neither at most the "
                          f"chunk {cfg.xlstm_chunk} nor a multiple of it")
-    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, x)
+    w, split = _mlstm_weights(params, cfg)
+    xc = copy_to_model(x) if split else x
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(w, xc)
     lf = F.logsigmoid(f_pre)                                    # (B,S,H)
     st = state if state is not None else mlstm_state_init(cfg, b, x.device)
     carry = (st["C"], st["n"], st["m"])
@@ -172,8 +228,8 @@ def mlstm_apply(params, x, cfg, state=None, return_state=False):
             carry, q[:, c:c + L], k[:, c:c + L], v[:, c:c + L],
             i_pre[:, c:c + L], lf[:, c:c + L], dh ** -0.5)
         ys.append(hout)
-    y = torch.cat(ys, dim=1).reshape(b, s, d)
-    out = _mlstm_out(params, x, y, cfg)
+    y = torch.cat(ys, dim=1).reshape(b, s, -1)
+    out = _mlstm_out(w, x, xc, y, cfg, split)
     if return_state:
         C, n, m = carry
         return out, {"C": C, "m": m, "n": n}
@@ -186,7 +242,9 @@ def mlstm_decode(params, x, state, cfg):
     b = x.shape[0]
     _, dh = _dims(cfg)
     scale = dh ** -0.5
-    q, k, v, i_pre, f_pre = _mlstm_qkvif(params, x)
+    w, split = _mlstm_weights(params, cfg)
+    xc = copy_to_model(x) if split else x
+    q, k, v, i_pre, f_pre = _mlstm_qkvif(w, xc)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                         # (B,H,dh)
     i_t, lf = i_pre[:, 0], F.logsigmoid(f_pre[:, 0])            # (B,H)
 
@@ -199,7 +257,7 @@ def mlstm_decode(params, x, state, cfg):
     num = torch.einsum("bhe,bhef->bhf", q * scale, C)
     den = torch.abs(torch.einsum("bhe,bhe->bh", q * scale, n))
     hout = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-    out = _mlstm_out(params, x, hout.reshape(b, 1, -1), cfg)
+    out = _mlstm_out(w, x, xc, hout.reshape(b, 1, -1), cfg, split)
     return out, _write(state, {"C": C, "m": m_new, "n": n})
 
 
@@ -237,16 +295,32 @@ def slstm_init(cfg, *, generator, device=None):
 
 
 def slstm_state_init(cfg, batch, device=None):
-    h, dh = _dims(cfg)
+    h, dh = _local_dims(cfg)
     return {k: torch.zeros((batch, h, dh), dtype=torch.float32,
                            device=device) for k in ("c", "h", "m", "n")}
 
 
-def _slstm_step(params, xt, st):
+def _slstm_weights(params, cfg):
+    """The layer's leaves as this rank computes with them, and whether
+    its heads are split: under a split, ``up`` is this rank's columns of
+    u1 followed by its columns of u2 (module docstring)."""
+    if head_split(cfg) == 1:
+        return {n: operand(params, n) for n in SLSTM_AXES}, False
+    w = {"wx": operand(params, "wx", 2), "wr": operand(params, "wr", 1),
+         "b": operand(params, "b", 1), "norm": operand(params, "norm", 0),
+         "down": operand(params, "down", 0)}
+    d = cfg.d_model
+    up = operand(params, "up", local=True)
+    w["up"] = torch.cat([local_slice(up.narrow(1, 0, d), 1),
+                         local_slice(up.narrow(1, d, d), 1)], dim=1)
+    return w, True
+
+
+def _slstm_step(w, xt, st):
     """xt: (B,4,H,dh) the gates' projected input; st: the state dict.
     Returns the new state (a new dict)."""
-    rec = torch.einsum("bhe,ghef->bghf", st["h"], params["wr"])
-    g = xt + rec + params["b"]                                  # (B,4,H,dh)
+    rec = torch.einsum("bhe,ghef->bghf", st["h"], w["wr"])
+    g = xt + rec + w["b"]                                       # (B,4,H,dh)
     z_pre, i_pre, f_pre, o_pre = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
@@ -260,13 +334,26 @@ def _slstm_step(params, xt, st):
     return {"c": c, "h": hout, "m": m_new, "n": n}
 
 
-def _slstm_out(params, x, hs, cfg):
+def _slstm_out(w, x, hs, cfg, split):
     """The norm, gated up-projection and down-projection of the (B,S,d)
-    float32 hidden states ``hs``."""
-    y = rmsnorm({"scale": params["norm"]}, hs.to(x.dtype), cfg.norm_eps)
-    u1, u2 = torch.chunk(_f32(y, params["up"], "bsd,de->bse"), 2, dim=-1)
+    float32 hidden states ``hs`` (this rank's channels under ``split``:
+    normalised over the whole d, then gathered for ``up``)."""
+    if not split:
+        y = rmsnorm({"scale": w["norm"]}, hs.to(x.dtype), cfg.norm_eps)
+    else:
+        y = split_rmsnorm(w["norm"], hs.to(x.dtype), cfg.d_model,
+                          cfg.norm_eps)
+        y = copy_to_model(gather_model(y, -1))
+    u1, u2 = torch.chunk(_f32(y, w["up"], "bsd,de->bse"), 2, dim=-1)
     y = (u1 * F.silu(u2)).to(x.dtype)
-    return _f32(y, params["down"], "bse,ed->bsd").to(x.dtype)
+    out = _f32(y, w["down"], "bse,ed->bsd")
+    return (reduce_from_model(out) if split else out).to(x.dtype)
+
+
+def _slstm_gates(w, x, split):
+    """The gates' projected input (B,S,4,H,dh), float32."""
+    xc = copy_to_model(x) if split else x
+    return _f32(xc, w["wx"], "bsd,dghe->bsghe")
 
 
 def slstm_apply(params, x, cfg, state=None, return_state=False):
@@ -274,20 +361,22 @@ def slstm_apply(params, x, cfg, state=None, return_state=False):
     Returns (y (B,S,d), state | None)."""
     b, s, d = x.shape
     st = state if state is not None else slstm_state_init(cfg, b, x.device)
-    xg = _f32(x, params["wx"], "bsd,dghe->bsghe")               # (B,S,4,H,dh)
+    w, split = _slstm_weights(params, cfg)
+    xg = _slstm_gates(w, x, split)                              # (B,S,4,H,dh)
     hs = []
     for t in range(s):
-        st = _slstm_step(params, xg[:, t], st)
+        st = _slstm_step(w, xg[:, t], st)
         hs.append(st["h"])
-    out = _slstm_out(params, x, torch.stack(hs, dim=1).reshape(b, s, d), cfg)
+    out = _slstm_out(w, x, torch.stack(hs, dim=1).reshape(b, s, -1), cfg,
+                     split)
     return out, (st if return_state else None)
 
 
 def slstm_decode(params, x, state, cfg):
     """Single-token sLSTM step. x: (B,1,d). The new state is written into
     ``state`` in place. Returns (y (B,1,d), state)."""
-    b, _, d = x.shape
-    xg = _f32(x, params["wx"], "bsd,dghe->bsghe")[:, 0]
-    st = _slstm_step(params, xg, state)
-    out = _slstm_out(params, x, st["h"].reshape(b, 1, d), cfg)
+    b = x.shape[0]
+    w, split = _slstm_weights(params, cfg)
+    st = _slstm_step(w, _slstm_gates(w, x, split)[:, 0], state)
+    out = _slstm_out(w, x, st["h"].reshape(b, 1, -1), cfg, split)
     return out, _write(state, st)

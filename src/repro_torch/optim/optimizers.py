@@ -20,11 +20,18 @@ between 64.4 GB and 96.5 GB.)
 paper-faithful learner optimizer. It is TensorFlow-flavoured, with eps
 INSIDE the root (``g * rsqrt(ms + eps)``); ``torch.optim.RMSprop`` puts it
 outside and does not match. Gradient clipping is global-norm (IMPALA: 40).
+
+``zero1(opt, slices, mesh)`` keeps ``opt``'s state for this data rank's
+slice of each leaf only (ZeRO-1, the reference's ``zero1_shardings`` in
+``launch/specs.py::build_train``): the rank updates its slice of the
+parameters from its slice of the gradients (ZeRO-2: the learner
+reduce-scatters them, ``core/learner.py``), then gathers the updated
+slices over the data group.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -147,6 +154,49 @@ def adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0, grad_clip=1.0):
         return u.mul_(-lr_t)
 
     return _optimizer(init, leaf_update, lr, grad_clip)
+
+
+class ZeroSlice(NamedTuple):
+    """This data rank's slice of a leaf it holds: ``length`` elements of
+    dimension ``dim`` from ``start`` (0 elements where another rank keeps
+    the whole leaf's state)."""
+    dim: int
+    start: int
+    length: int
+
+
+def zero_view(x: torch.Tensor, s: Optional[ZeroSlice]) -> torch.Tensor:
+    """``x``'s slice ``s`` (``x`` itself for None), a view."""
+    return x if s is None else x.narrow(s.dim, s.start, s.length)
+
+
+def zero1(opt: Optimizer, slices: Sequence[Optional[ZeroSlice]],
+          mesh) -> Optimizer:
+    """``opt`` with its state kept for each leaf's ``slices`` entry only
+    (None: the whole leaf, e.g. one already split over the data group).
+    ``step`` takes the gradients of those slices, updates the slices of
+    the parameters in place, then gathers each sliced leaf over ``mesh``'s
+    data group (a zero-padded all-reduce, exact)."""
+    from repro_torch.models.common import collective
+
+    def views(params):
+        return [zero_view(p, s) for p, s in zip(params, slices)]
+
+    def init(params):
+        return opt.init(views(params))
+
+    def step_(grads, state, params, step, norm_fn=global_norm):
+        state = opt.step(grads, state, views(params), step, norm_fn=norm_fn)
+        with torch.no_grad():
+            for p, s in zip(params, slices):
+                if s is None:
+                    continue
+                buf = torch.zeros_like(p)
+                zero_view(buf, s).copy_(zero_view(p, s))
+                p.copy_(collective(buf, "data", "all_gather", mesh=mesh))
+        return state
+
+    return Optimizer(init, step_)
 
 
 def make_optimizer(train_cfg):

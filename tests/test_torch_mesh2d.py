@@ -12,7 +12,7 @@ CPU, gloo ranks:
 * ``DecodeSession`` / ``generate`` at (1, 2): teacher-forced logits
   within 1e-5 of the unmeshed ones, and the model ranks' tokens bitwise
   equal.
-* The xLSTM mixers and the VLM's cross-attention refuse a model axis.
+* The xLSTM mixers and the VLM's cross-attention take a model axis.
 
 The (2, 2) parity against the reference's steps is in
 ``test_torch_mesh2d_parity.py``; the sharded checkpoints in
@@ -278,33 +278,39 @@ def test_decode_at_model_2(arch):
 
 
 # ---------------------------------------------------------------------------
-# what takes no model axis yet
+# what the model axis now takes
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "llama-3.2-vision-90b"])
 def test_mesh_model_refuses_xlstm_and_vlm(arch, capsys):
-    with pytest.raises(SystemExit):
-        train.main(["--mode", "lm", "--arch", arch, "--reduced",
-                    "--mesh-model", "2", "--device", "cpu"])
-    assert "not ported yet: --mesh-model 2" in capsys.readouterr().err
+    """Once refused, the xLSTM mixers and the VLM's cross-attention now
+    take a model axis: ``train.main --mesh-model 2`` trains, and
+    ``shard_model`` splits their leaves."""
+    runtime = train.main(["--mode", "lm", "--arch", arch, "--reduced",
+                          "--mesh-model", "2", "--device", "cpu",
+                          "--steps", "1", "--batch", "2", "--seq", "16"])
+    assert np.isfinite(float(runtime.metrics["loss"]))
+    assert "not ported yet" not in capsys.readouterr().err
     cfg = get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model_lib.shard_model(model_lib.init(cfg, seed=0), cfg, _view(2),
-                              RULES)
+    params = model_lib.shard_model(model_lib.init(cfg, seed=0), cfg,
+                                   _view(2), RULES)
+    layer = params["blocks"][0]["l1"]["mixer"]
+    assert layer.shard_dims, arch
     if arch == "llama-3.2-vision-90b":
-        params = model_lib.init(cfg, seed=0)
-        layer = params["blocks"][0]["l1"]["mixer"]
-        x = torch.zeros((1, 4, cfg.d_model))
-        with use_rules(_view(2), RULES), pytest.raises(
-                NotImplementedError, match="xattn"):
-            attention.attn_apply(layer, x, cfg=cfg, kind="xattn",
-                                 positions=torch.arange(4), kv_src=x)
+        with use_rules(_view(2), RULES):
+            assert attention.head_split(cfg) == 2
+        assert layer["wk"].shape[1] == cfg.num_kv_heads // 2
 
 
 def test_rules_other_than_megatron_are_data_only():
+    """Once data only, every LM table now has layers behind it; the
+    context-parallel table (ROADMAP item 27) and the agent's table are
+    still refused."""
     assert sharding.rules_named("megatron") is RULES
     for name in sharding.RULE_SETS:
-        if name != "megatron":
+        if name in sharding.LM_RULES:
+            assert sharding.rules_named(name) is sharding.RULE_SETS[name]
+        else:
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 sharding.rules_named(name)
     assert dataclasses.is_dataclass(_view(2))

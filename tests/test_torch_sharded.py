@@ -303,9 +303,11 @@ def test_cli_mesh_errors():
         train.main(["--mesh-data", "1", "--steps", "1"])
     with pytest.raises(ValueError, match="devices visible"):
         mesh_lib.rank_devices(torch.cuda.device_count() + 1, "cuda")
+    # (the xLSTM under --mesh-model 2, once refused, trains now;
+    # a model axis below 1 is what the LM modes refuse)
     with pytest.raises(SystemExit):
         train.main(["--mode", "lm", "--arch", "xlstm-125m", "--reduced",
-                    "--mesh-data", "2", "--mesh-model", "2", "--device",
+                    "--mesh-data", "2", "--mesh-model", "-1", "--device",
                     "cpu"])
     with pytest.raises(SystemExit):
         train.main(["--mesh-model", "2", "--device", "cpu"])

@@ -77,14 +77,16 @@ def test_lm_modes_train_on_cpu(argv, label, keys, capsys):
     assert all(k in out for k in keys)
 
 
+# (the first case, xlstm-125m under --mesh-model 2, went with its refusal:
+# the xLSTM mixers take a model axis; the ids of the others stay)
 @pytest.mark.parametrize("argv,message", [
-    (["--mode", "lm", "--arch", "xlstm-125m", "--reduced", "--mesh-model",
-      "2"], "not ported yet: --mesh-model"),
-    (["--num-processes", "2", "--coordinator", "127.0.0.1:1"],
-     "not ported yet: --num-processes"),
-    (["--mesh-data=2", "--coordinator", "127.0.0.1:1"],
-     "not ported yet: --mesh-data"),
-    (["--no-such-flag"], "unrecognized"),
+    pytest.param(["--num-processes", "2", "--coordinator", "127.0.0.1:1"],
+                 "not ported yet: --num-processes",
+                 id="argv1-not ported yet: --num-processes"),
+    pytest.param(["--mesh-data=2", "--coordinator", "127.0.0.1:1"],
+                 "not ported yet: --mesh-data",
+                 id="argv2-not ported yet: --mesh-data"),
+    pytest.param(["--no-such-flag"], "unrecognized", id="argv3-unrecognized"),
 ])
 def test_unported_options_exit_with_a_clear_error(argv, message, capsys):
     with pytest.raises(SystemExit):
