@@ -9,7 +9,10 @@ exits nonzero without printing a result:
   1. device   the card (nvidia-smi name and power limit), torch and CUDA
   2. build    nvcc builds every kernel from csrc/, one process per source,
               all started together (ptxas registers and spills of every
-              kernel function, seconds; a spill in V-trace fails)
+              kernel function, seconds; a spill in V-trace fails); 2b
+              each kernel's Python launch geometry (ops.launch_geometry,
+              which python -m repro_torch.analysis audits) equal to its
+              .cu's own at phase 3's shapes and every audited launch
   3. kernel   each kernel against its plain PyTorch version on the card:
               V-trace at the trainer's and the paper's shapes, one
               launch's floor (1, 1) and a long unroll past the L2; flash
@@ -21,7 +24,9 @@ exits nonzero without printing a result:
               heads over 8 KV heads, head_dim 64) and at
               Llama-3.2-Vision-90B's (phase 25: 64 query heads over 8, a
               300-token prompt and a 364-slot cache) and at one model
-              rank's of phase 26 (half the heads); each in bf16 and
+              rank's of phase 26 (half the heads); K2 with its queries
+              offset from the keys (FLASH_OFFSET_SHAPES, SDPA with the
+              positions' mask as the library); each in bf16 and
               float32, with events and graph times,
               bounds and the share of them reached, SDPA's events and
               graph times, the wrapper's host time per call, and the split
@@ -86,7 +91,7 @@ exits nonzero without printing a result:
               and every parameter, within MODEL_TOL
  15. lm_rl    repro_torch.launch.train.main --mode lm-rl at full Qwen3-4B
               width (bf16 activations on float32 weights, AdamW, remat):
-              2 steps of 8 episodes of 64 tokens from the decode session
+              1 step of 8 episodes of 64 tokens from the decode session
               (K2 in each prefill, K3 in every layer of every step), the
               learner through K2 under autograd and K1; ms per step split
               into next_batch (generation) and the learner, fps, peak
@@ -153,7 +158,7 @@ exits nonzero without printing a result:
  23. xserve   repro_torch.launch.serve.main for xLSTM-125M in bf16: 24
               requests of 1..64 tokens (one chunk at most) in 8 slots, no
               kernel launched; then a profile of one decode step
- 24. xlm_rl   --mode lm-rl for xLSTM-125M, B 8, T 64, 4 steps: K1 once a
+ 24. xlm_rl   --mode lm-rl for xLSTM-125M, B 8, T 64, 2 steps: K1 once a
               step at (64, 8), nothing else; ms a step split into
               generation and learner, fps, peak memory; its float32
               kernel-against-plain step (only V-trace differs); then 1
@@ -194,7 +199,7 @@ exits nonzero without printing a result:
  27. slice14  the model axis for the xLSTM mixers and xattn, and the
               other rules tables, ranks sharing cuda:0 through gloo: 27a
               xLSTM-125M --mesh-model 2 through the trainer's builders
-              (lm-rl, K1 4 a rank; lm), each with its float32 step against
+              (lm-rl, K1 once a step; lm), each with its float32 step against
               the single-process one (XLSTM_GRAD_TOL), and Server(mesh=):
               float32 teacher-forced logits against the unmeshed session,
               MP_SERVE_REQUESTS bf16 requests of 1..64 tokens, the
@@ -203,22 +208,36 @@ exits nonzero without printing a result:
               query heads a rank, float32 kernel against plain path (K2
               4), bf16 generate(vision=) (K2 4, K3 4 x 15); 27c the
               launch/specs.py programs at full width in float32
-              (SPEC_RUNS: Granite expert_seqpar train and expert decode,
-              Zamba2-2.7B seqpar train at (1, 2), two Qwen3-32B groups
-              fsdp_seqpar train and fsdp decode at (2, 2), each InputShape
-              cut and its bytes reckoned beforehand): launches a rank
+              (SPEC_RUNS: Granite expert_seqpar train (8 of 24 groups)
+              and expert decode, Zamba2-2.7B seqpar train (3 of 9 groups)
+              at (1, 2), one Qwen3-32B group fsdp_seqpar train and fsdp
+              decode at (2, 2), each InputShape cut and its bytes
+              reckoned beforehand): launches a rank
               against the layer count, step ms, peak memory, collectives
               by group and kind, ZeRO-1 state held, and each rank's
               gradient slices (ZeRO-2's) or logits against the same
               program on one rank; 27d python -m
               repro_torch.launch.multihost --mode serve as two
               --coordinator processes (MH_ARGV)
+ 28. slice15  28a train.main --mode rl-agent --mesh-data 2 as two
+              --coordinator processes sharing cuda:0 through gloo (Catch,
+              MH_RL_ARGV), against the same command's ranks spawned onto
+              the card as 17b spawns its ranks: step lines, final loss
+              and final checkpoint bitwise, K1 once a step in each
+              process; 28b the cp_fsdp_seqpar specs program (CP_SPEC_RUN:
+              Qwen3-4B at every published width, 2 of 36 groups, float32,
+              (1, 2)), each rank's queries at their offset in K2, checked
+              as 27c's runs; 28c python -m repro_torch.launch.dryrun on
+              the card (DRYRUN_ARGV: one step of the program and of its
+              block program, peak memory) and its modelled 16x16 report
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
               phase 17's launches; recurrent_*: phase 18's; granite_*:
               phases 20 and 21's; xlstm_*: phase 24's; vlm_*: phase
               25's; mp_*: phase 26's, one entry a rank;
-              slice14_launches: phase 27's runs, a rank each), then
+              slice14_launches / slice15_launches: phase 27's and 28's
+              runs, a rank each; K2's offset_*: phase 3's offset row),
+              then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
 
@@ -245,10 +264,8 @@ import time
 _T0 = time.perf_counter()
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
-TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+# (the card's peaks, and the bound every kernel row reads, are the port's:
+# repro_torch/launch/mesh.py and launch/roofline.py::bound)
 VTRACE_TOL = 1e-5              # expf rounding compounds through <=200 FMAs
 # (T, B): the learner's and the trainer's, one launch's floor (1, 1), a
 # ragged B, and two at a long unroll: (200, 4096) moves 19.7 MB, which
@@ -352,7 +369,7 @@ LM_SPLIT_REPS = 1              # timed next_batch / learner calls after a run
 SERVE_ARGV = ["--arch", "qwen3-4b", "--attn-impl", "kernel", "--requests",
               "24", "--prompt-len", "512", "--gen-tokens", "64",
               "--max-batch", "8"]
-HOST_STEPS = 10
+HOST_STEPS = 6
 HOST_ARGV = ["--mode", "rl-agent", "--actors", "host", "--env", "gridworld",
              "--agent", "deep", "--batch", "32", "--steps", str(HOST_STEPS)]
 # the resume phase's run: Catch, the minatar agent, the quickstart settings
@@ -396,7 +413,7 @@ GSERVE_ARGV = ["--arch", GRANITE, "--attn-impl", "kernel", "--requests",
                "--max-batch", "8"]
 GLM_RL_ARGV = ["--mode", "lm-rl", "--arch", GRANITE, "--attn-impl",
                "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
-               "64", "--steps", "2"]
+               "64", "--steps", "1"]
 GLM_ARGV = ["--mode", "lm", "--arch", GRANITE, "--attn-impl", "kernel",
             "--batch", "4", "--seq", "512", "--steps", "2"]
 # phases 22-24: xLSTM-125M (no kernel in its mixers). The server takes
@@ -416,7 +433,7 @@ XLSTM_LAYER_RTOL = 1e-4
 XSERVE_ARGV = ["--arch", XLSTM, "--requests", "24", "--prompt-len", "64",
                "--gen-tokens", "64", "--max-batch", "8"]
 XLM_RL_ARGV = ["--mode", "lm-rl", "--arch", XLSTM, "--vtrace-impl",
-               "kernel", "--batch", "8", "--seq", "64", "--steps", "4"]
+               "kernel", "--batch", "8", "--seq", "64", "--steps", "2"]
 XLM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq", "256",
             "--steps", "1"]
 # phase 25: Llama-3.2-Vision-90B, one of its 20 groups at every published
@@ -435,12 +452,12 @@ VLM_LM_ARGV = ["--mode", "lm", "--arch", VLM, "--reduced", "--attn-impl",
 # restores
 ZMP_ARGV = ["--mode", "lm", "--arch", "zamba2-2.7b", "--attn-impl",
             "kernel", "--ssd-impl", "kernel", "--batch", "4", "--seq",
-            "512", "--steps", "2", "--mesh-model", "2"]
+            "512", "--steps", "1", "--mesh-model", "2"]
 GMP_ARGV = ["--mode", "lm-rl", "--arch", GRANITE, "--attn-impl", "kernel",
             "--vtrace-impl", "kernel", "--batch", "8", "--seq", "64",
-            "--steps", "2", "--mesh-model", "2"]
+            "--steps", "1", "--mesh-model", "2"]
 MP_F32_GROUPS = {"zamba2-2.7b": 1, GRANITE: 2}
-MP22_STEPS = 3
+MP22_STEPS = 2
 MP_TOL = 1e-5
 MP_CKPT_ARGV = ["--mode", "lm", "--arch", "qwen3-4b", "--reduced",
                 "--batch", "8", "--seq", "32", "--steps", "6"]
@@ -452,10 +469,10 @@ MP_CKPT_ARGV = ["--mode", "lm", "--arch", "qwen3-4b", "--reduced",
 # "bytes" is the reckoning written before the run); 27d the multihost
 # entry point as two --coordinator processes
 XMP_RL_ARGV = ["--mode", "lm-rl", "--arch", XLSTM, "--vtrace-impl", "kernel",
-               "--batch", "8", "--seq", "32", "--steps", "4",
+               "--batch", "8", "--seq", "32", "--steps", "1",
                "--mesh-model", "2"]
 XMP_LM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq",
-               "64", "--steps", "2", "--mesh-model", "2"]
+               "64", "--steps", "1", "--mesh-model", "2"]
 XMP_F32_GROUPS = 6
 # the xLSTM's float32 step gradients carry more rounding than the other
 # archs' (exp-gated recurrences over 12 layers): at full width on the CPU
@@ -468,39 +485,64 @@ MP_SERVE_LENS, MP_SERVE_STEPS, MP_SERVE_RTOL = (1, 20, 47, 64), 8, 1e-4
 MP_SERVE_REQUESTS, MP_SERVE_TOKENS = 12, 8
 MP_VLM_GEN = 16
 SPEC_RUNS = (
-    dict(phase="spec_granite_train", arch=GRANITE, rules="expert_seqpar",
-         mesh=(1, 2), shape=("granite_train_small", 256, 4, "train"),
-         reduced_from="train_4k (B 256 x S 4096)", steps=1,
-         bytes="2.7 GB of weights, 2.7 of gradients, 2.7 of RMSProp state "
-               "a rank"),
+    dict(phase="spec_granite_train", arch=GRANITE, groups=8,
+         rules="expert_seqpar", mesh=(1, 2),
+         shape=("granite_train_small", 256, 4, "train"),
+         reduced_from="train_4k (B 256 x S 4096), 8 of 24 groups", steps=1,
+         bytes="0.96 GB of weights, 0.96 of gradients, 0.96 of RMSProp "
+               "state a rank"),
     dict(phase="spec_granite_decode", arch=GRANITE, rules="expert",
          mesh=(1, 2), shape=("granite_decode_small", 64, 8, "decode"),
          reduced_from="decode_32k (B 128 x S 32768)", steps=2,
          bytes="2.7 GB of weights a rank, a 25 MB cache"),
-    dict(phase="spec_zamba_train", arch="zamba2-2.7b", rules="seqpar",
-         mesh=(1, 2), shape=("zamba_train_small", 256, 2, "train"),
-         reduced_from="train_4k (B 256 x S 4096)", steps=1,
-         bytes="4.7 GB of weights, 4.7 of gradients, 4.7 of RMSProp state "
+    dict(phase="spec_zamba_train", arch="zamba2-2.7b", groups=3,
+         rules="seqpar", mesh=(1, 2),
+         shape=("zamba_train_small", 256, 2, "train"),
+         reduced_from="train_4k (B 256 x S 4096), 3 of 9 groups", steps=1,
+         bytes="1.8 GB of weights, 1.8 of gradients, 1.8 of RMSProp state "
                "a rank"),
-    dict(phase="spec_qwen32_train", arch="qwen3-32b", groups=2,
+    dict(phase="spec_qwen32_train", arch="qwen3-32b", groups=1,
          rules="fsdp_seqpar", mesh=(2, 2),
          shape=("qwen32_train_small", 256, 2, "train"),
-         reduced_from="train_4k (B 256 x S 4096), 2 of 64 groups", steps=1,
-         bytes="2.6 GB of weights, 2.6 of gradients, 2.6 of RMSProp state "
-               "a rank; 5 GB gathered over the data group a pass"),
-    dict(phase="spec_qwen32_decode", arch="qwen3-32b", groups=2,
+         reduced_from="train_4k (B 256 x S 4096), 1 of 64 groups", steps=1,
+         bytes="2.0 GB of weights, 2.0 of gradients, 2.0 of RMSProp state "
+               "a rank; 4.1 GB gathered over the data group a pass"),
+    dict(phase="spec_qwen32_decode", arch="qwen3-32b", groups=1,
          rules="fsdp", mesh=(2, 2),
          shape=("qwen32_decode_small", 64, 4, "decode"),
-         reduced_from="decode_32k (B 128 x S 32768), 2 of 64 groups",
-         steps=2, bytes="2.6 GB of weights a rank; 5 GB gathered over the "
-                        "data group a step"),
+         reduced_from="decode_32k (B 128 x S 32768), 1 of 64 groups",
+         steps=1, bytes="2.0 GB of weights a rank; 4.1 GB gathered over "
+                        "the data group a step"),
 )
 MH_ARGV = ["--mode", "serve", "--arch", XLSTM, "--shape", "decode_32k",
            "--steps", "10"]
+# phase 3's K2 with its queries offset from the keys, (B, H, K, Sq, Sk,
+# q_offset, hd): a rank's 256 of 512 queries at offset 256, then one rank's
+# of phase 28b's context-parallel program (Qwen3-4B, S 256 over 2 ranks:
+# rank 1's 128 queries at 128)
+FLASH_OFFSET_SHAPES = [(1, 32, 8, 256, 512, 256, 128),
+                       (2, 32, 8, 128, 256, 128, 128)]
+# 28a: --mode rl-agent as two --coordinator processes sharing the card
+# through gloo, against the same command's ranks spawned onto it (phase
+# 8's Catch run, T 20, B 16 a rank)
+MH_RL_STEPS = 4
+MH_RL_ARGV = RESUME_ARGV + ["--steps", str(MH_RL_STEPS), "--mesh-data", "2"]
+MH_RL_SHAPE = (20, 16)
+# 28b: the context-parallel table's specs program at every published
+# width of Qwen3-4B, float32, 2 of its 36 groups
+CP_SPEC_RUN = dict(
+    phase="spec_qwen4_cp_train", arch="qwen3-4b", groups=2,
+    rules="cp_fsdp_seqpar", mesh=(1, 2),
+    shape=("qwen4_cp_train_small", 256, 2, "train"),
+    reduced_from="train_4k (B 256 x S 4096), 2 of 36 groups", steps=1,
+    bytes="2.2 GB of weights (1.56 of them the embedding), half a rank, "
+          "as much again in gradients and RMSProp state")
+# 28c: the dry run on the card (one rank)
+DRYRUN_ARGV = ["--arch", XLSTM, "--shape", "decode_32k", "--ranks", "1"]
 # the LM trainers at full published width (phases 15, 16)
 LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
               "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
-              "64", "--steps", "2"]
+              "64", "--steps", "1"]
 LM_ARGV = ["--mode", "lm", "--arch", "zamba2-2.7b", "--attn-impl", "kernel",
            "--ssd-impl", "kernel", "--batch", "4", "--seq", "512", "--steps",
            "2"]
@@ -570,11 +612,23 @@ def vtrace_inputs(t, b, seed, device="cuda"):
 
 
 def vtrace_bound(t, b):
-    nbytes = (4 * t * b + b + 2 * t * b) * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = VTRACE_FLOPS_PER_ELEM * t * b / FP32_FLOP_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                          "operations")
+    """(bound_ms, bound_by) of the function the wrapper computes: four
+    (T, B) inputs and the bootstrap read, vs and the advantages written,
+    float32, VTRACE_FLOPS_PER_ELEM operations a cell. The reference's
+    formula (``kernel_roofline("vtrace")``) counts its ``vtrace_scan``
+    alone, whose deltas and discounts the reference computes outside the
+    kernel and the port's kernel computes inside (the rows'
+    ``roofline_ms``)."""
+    return _bound((4 * t * b + b + 2 * t * b) * 4,
+                  VTRACE_FLOPS_PER_ELEM * t * b, "float32")
+
+
+def _roofline_ms(kernel, **dims):
+    """(ms, bound) of one launch by the reference's formula on the card's
+    peaks (``launch/roofline.py::kernel_roofline``)."""
+    from repro_torch.launch.roofline import kernel_roofline
+    rl = kernel_roofline(kernel, **dims)
+    return rl["roofline_s"] * 1e3, rl["bound"]
 
 
 def phase_kernel(ops, ref):
@@ -614,10 +668,12 @@ def phase_kernel(ops, ref):
             plain_ms = event_ms(lambda: ref.ref_vtrace_from_importance_weights(
                 *args), max(5, reps // 5))
             bound_ms, bound_by = vtrace_bound(t, b)
+            roof_ms, roof_by = _roofline_ms("vtrace", t=t, b=b)
             row = dict(T=t, B=b, max_abs_err=abs_err, max_rel_err=rel_err,
                        tol=VTRACE_TOL, ms=ms, graph_ms=dev_ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, bound_share=bound_ms / dev_ms,
+                       roofline_ms=roof_ms, roofline_bound=roof_by,
                        host_loop_us=host_loop_us(
                            lambda: ops.vtrace_from_importance_weights_kernel(
                                *args)),
@@ -631,13 +687,12 @@ def phase_kernel(ops, ref):
 
 def _bound(nbytes, flops, dtype):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the card's peak rate for the inputs' type."""
-    import torch
-    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / peak * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                          "operations")
+    and the operations over the card's peak rate for the inputs' type,
+    from the port's roofline (``launch/roofline.py::bound``)."""
+    from repro_torch.launch.roofline import bound
+    b = bound(flops, nbytes, dtype)
+    return b["roofline_s"] * 1e3, ("bytes" if b["bound"] == "memory"
+                                   else "operations")
 
 
 def _compare(got, want_f32, dtype):
@@ -723,6 +778,10 @@ def phase_flash(ops, ref):
                 lambda: ops.flash_attention(q, k, v, **kw),
                 lambda: ref.ref_flash_attention(q, k, v, **kw), library,
                 nbytes, flops, dtype, 10 if s > 1000 else 50)
+            row["roofline_ms"], row["roofline_bound"] = _roofline_ms(
+                "flash_attention", dtype_bytes=q.element_size(),
+                dtype=str(dtype).split(".")[1], b=b, h=h, kh=kh, s=s, hd=hd,
+                window=window)
             row.update(max_abs_err=err, dtype=str(dtype).split(".")[1],
                        shape=[b, h, kh, s, hd], window=window, softcap=cap)
             rows[(shape, row["dtype"])] = row
@@ -795,6 +854,10 @@ def phase_decode(ops, ref):
                 lambda: ops.decode_attention(q, kt, vt, slot, pos, **kw),
                 lambda: ref.ref_decode_attention(q, kt, vt, slot, pos, **kw),
                 library, nbytes, flops, dtype, 50)
+            row["roofline_ms"], row["roofline_bound"] = _roofline_ms(
+                "decode_attention", dtype_bytes=esize,
+                dtype=str(dtype).split(".")[1], b=b, h=h, kh=kh, s=cap,
+                hd=hd)
             row.update(max_abs_err=err, dtype=str(dtype).split(".")[1],
                        shape=[b, h, kh, cap, hd], pos=pos_kind,
                        window=window, softcap=cap_soft, valid_slots=n_valid,
@@ -851,10 +914,7 @@ def ssd_tc_bound(shape):
     """(bound_ms, bound_by) of the same work on the tensor cores as the
     kernel runs it: every product three TF32 MMAs (3xTF32)."""
     nbytes, flops = _ssd_work(shape)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                          "operations")
+    return _bound(nbytes, 3 * flops, "tf32")
 
 
 def phase_ssd(ops, ref):
@@ -893,6 +953,9 @@ def phase_ssd(ops, ref):
         row["bound_ms"], row["bound_by"] = ssd_bound(shape)
         row["bound_share"] = row["bound_ms"] / row["graph_ms"]
         row["tc_bound_ms"], row["tc_bound_by"] = ssd_tc_bound(shape)
+        row["roofline_ms"], row["roofline_bound"] = _roofline_ms(
+            "ssd_chunk", dtype_bytes=4, bh=shape[0], l=shape[1], n=shape[2],
+            p=shape[3])
         row.update(shape=list(shape[:4]), heads=heads, decay=shape[5],
                    layout="model" if heads > 1 else "reference",
                    max_abs_err=max(e["max_abs_err"] for e in err.values()),
@@ -2127,7 +2190,8 @@ def router_probe(arch, tokens_of):
 def phase_lm_rl(ops, argv=LM_RL_ARGV, phase="lm_rl"):
     """``--mode lm-rl`` at full width through the entry point (Qwen3-4B
     by default; bf16 activations on float32 weights, AdamW, the settings
-    of ``train.build_lm_rl``): 2 steps of 8 episodes of 64 tokens, each
+    of ``train.build_lm_rl``): ``--steps`` steps of 8 episodes of 64
+    tokens (1 since the script's time was cut), each
     generated by the decode session (flash attention in the prefill,
     decode attention in every layer of every step) and learned from with
     the flash-attention kernel under autograd (twice a layer: remat) and
@@ -3040,7 +3104,8 @@ def _mp_rank(mesh, argv, f32_groups):
     (``train._BUILDERS``, the mesh's model slices) driven by ``Runtime``
     as ``train._train`` drives it: the per-step losses and step ms, the
     run's launches and peak memory, the model-group all-reduces of its
-    steps after the first (calls, bytes, host seconds), and the last
+    steps after the first (of its one step when it runs one: calls,
+    bytes, host seconds), and the last
     batch; then the float32 check of the same mode at ``f32_groups``
     groups on that batch. Returns every rank's record on rank 0."""
     import torch
@@ -3074,7 +3139,7 @@ def _mp_rank(mesh, argv, f32_groups):
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize(mesh.device)
         stamps.append(time.perf_counter())
-        if step == 0:
+        if step == 0 and args.steps > 1:
             common.reset_collective_stats()
 
     source.next_batch = keep_last
@@ -4018,7 +4083,8 @@ def phase27():
 
 def phase_multihost_serve():
     """27d: ``python -m repro_torch.launch.multihost --mode serve`` as two
-    ``--coordinator`` processes on the card (gloo: they share it)."""
+    ``--coordinator`` processes on the card (``--backend gloo``: they
+    share it)."""
     import socket
 
     with socket.socket() as s:
@@ -4028,7 +4094,7 @@ def phase_multihost_serve():
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.multihost"] + MH_ARGV
         + ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
-           "--process-id", str(i)], stdout=subprocess.PIPE,
+           "--process-id", str(i), "--backend", "gloo"], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=_cli_env())
         for i in range(2)]
     outs = []
@@ -4046,6 +4112,256 @@ def phase_multihost_serve():
                                  f"{p.returncode}:\n{out[-3000:]}")
     emit("multihost_serve", argv=MH_ARGV, processes=2, seconds=seconds,
          output=[o.strip().splitlines() for o in outs])
+
+
+# ---------------------------------------------------------------------------
+# slice 15: K2's query offset, the geometry mirrors, rl-agent over
+# coordinated processes, the context-parallel program, the dry run
+
+
+def phase_flash_offset(ops, ref):
+    """Phase 3's K2 rows with the queries offset from the keys
+    (``q_offset``): each FLASH_OFFSET_SHAPES entry in bf16 and float32
+    against its plain version at the attention bars, timed beside its
+    bound and SDPA with the explicit causal mask of those positions.
+    Returns {(shape, dtype name): row}."""
+    import torch
+    import torch.nn.functional as F
+    rows = {}
+    for i, shape in enumerate(FLASH_OFFSET_SHAPES):
+        b, h, kh, sq, sk, off, hd = shape
+        gen = torch.Generator(device="cuda").manual_seed(2500 + i)
+        q32 = torch.randn((b, h, sq, hd), generator=gen, device="cuda")
+        k32 = torch.randn((b, kh, sk, hd), generator=gen, device="cuda")
+        v32 = torch.randn((b, kh, sk, hd), generator=gen, device="cuda")
+        qpos = off + torch.arange(sq, device="cuda")
+        mask = torch.arange(sk, device="cuda")[None, :] <= qpos[:, None]
+        pairs = int(mask.sum())
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            got = ops.flash_attention(q, k, v, q_offset=off)
+            want = ref.ref_flash_attention(q.float(), k.float(), v.float(),
+                                           q_offset=off)
+            torch.cuda.synchronize()
+            err = _compare(got, want, dtype)
+            del got, want
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            name = str(dtype).split(".")[1]
+            row = _time_row(
+                lambda: ops.flash_attention(q, k, v, q_offset=off),
+                lambda: ref.ref_flash_attention(q, k, v, q_offset=off),
+                library, 2 * (q.numel() + k.numel()) * q.element_size(),
+                4 * hd * h * b * pairs, dtype, 50)
+            row["roofline_ms"], row["roofline_bound"] = _roofline_ms(
+                "flash_attention", dtype_bytes=q.element_size(), dtype=name,
+                b=b, h=h, kh=kh, s=sk, hd=hd, sq=sq, q_offset=off)
+            row.update(max_abs_err=err, dtype=name, shape=[b, h, kh, sq, hd],
+                       keys=sk, q_offset=off, pairs=pairs,
+                       library_note="SDPA with the boolean mask of these "
+                                    "positions")
+            rows[(shape, name)] = row
+            emit("kernel", name="flash_attention_offset", **row)
+            del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_geometry(ops):
+    """2b: each kernel's Python launch geometry (``ops.launch_geometry``,
+    which ``python -m repro_torch.analysis`` audits) against the built
+    ``.cu``'s own ``<kernel>_geometry`` at phase 3's shapes and at every
+    launch the audit checks (every arch x input shape)."""
+    import torch
+
+    from repro_torch.analysis.kernel_audit import audit_kernels
+
+    sms = ops._sm_count(torch.device("cuda", 0))
+    cases = [("vtrace", dict(t=t, b=b)) for t, b in
+             VTRACE_SHAPES + REPLAY_VTRACE_SHAPES + LM_RL_VTRACE_SHAPES]
+    for bf16 in (True, False):
+        cases += [("flash_attention", dict(b=b, h=h, sq=s, hd=hd, bf16=bf16))
+                  for b, h, _, s, hd, _, _ in FLASH_SHAPES]
+        cases += [("flash_attention", dict(b=b, h=h, sq=sq, hd=hd,
+                                           bf16=bf16))
+                  for b, h, _, sq, _, _, hd in FLASH_OFFSET_SHAPES]
+        cases += [("decode_attention", dict(b=b, h=h, kh=kh, s=cap, hd=hd,
+                                            bf16=bf16, sms=sms))
+                  for b, h, kh, cap, hd, _, _, _ in DECODE_SHAPES]
+    cases += [("ssd_chunk", dict(rows=sl, l=length, n=n, p=p))
+              for sl, length, n, p, _, _ in SSD_SHAPES]
+    _, tables = audit_kernels()
+    cases += [(t["kernel"], t["dims"]) for t in tables]
+    bad = []
+    for kernel, dims in cases:
+        mirror = [(tuple(g), t, m) for g, t, m in
+                  ops.launch_geometry(kernel, **dims)]
+        built = ops.library_geometry(kernel, **dims)
+        if mirror != built:
+            bad.append(dict(kernel=kernel, dims=dims, mirror=mirror,
+                            built=built))
+    smem = [(length, n, p, ops.ssd_smem_bytes(length, n, p),
+             ops.ssd_chunk_smem_bytes(length, n, p))
+            for _, length, n, p, _, _ in SSD_SHAPES]
+    bad += [dict(kernel="ssd_smem", dims=x[:3], mirror=x[3], built=x[4])
+            for x in smem if x[3] != x[4]]
+    emit("geometry", cases=len(cases), audited=len(tables),
+         mismatches=bad)
+    if bad:
+        raise AssertionError(f"geometry mirrors differ from the .cu: {bad}")
+
+
+def _mh_rl_rank(mesh, argv):
+    """28a's spawned leg in each rank: ``train._train`` (train.main's rank
+    body) on the parsed command, cuDNN pinned deterministic; returns each
+    rank's launches, final loss and log on rank 0."""
+    import repro_torch
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    repro_torch.resolve_device("cuda")
+    args = train._parser().parse_args(argv)
+    with cudnn_deterministic():
+        ops.reset_stats()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            runtime = train._train(mesh, args)
+        launches = ops.stats()["vtrace"]
+    return sharding.gather_to_main(dict(
+        launches=launches, loss=float(runtime.metrics["loss"]),
+        log=out.getvalue()), mesh)
+
+
+# 28a's coordinated leg: one process a rank, train.main as a user runs it
+MH_RL_CLI = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import repro_torch
+from repro_torch.kernels import ops
+from repro_torch.launch import train
+repro_torch.resolve_device("cuda")
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+ops.reset_stats()
+runtime = train.main(sys.argv[2:])
+print("MH_RL " + json.dumps(dict(launches=ops.stats()["vtrace"],
+                                 loss=float(runtime.metrics["loss"]))),
+      flush=True)
+"""
+
+
+def _step_lines(text):
+    return [ln.split(" fps=")[0] for ln in text.splitlines()
+            if ln.startswith("step")]
+
+
+def phase_mh_rl(workdir):
+    """28a: ``train.main --mode rl-agent --mesh-data 2 --coordinator
+    ...`` as two processes sharing cuda:0 through gloo (one rank a
+    process, ``multihost.bootstrap``'s DataMesh) against the same command's
+    two ranks spawned onto the card (``launch(devices=, backend=
+    "gloo")``, as 17b spawns its ranks): the step lines and final loss
+    bitwise, the final checkpoint bitwise, and each coordinated process's
+    K1 launches equal to its steps. Returns those launches."""
+    import socket
+
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.launch import mesh as mesh_lib
+
+    one, two = (os.path.join(workdir, d) for d in ("spawned", "coord"))
+    t0 = time.perf_counter()
+    spawned = mesh_lib.launch(
+        _mh_rl_rank, 2, device="cuda", devices=["cuda:0", "cuda:0"],
+        backend="gloo", args=(MH_RL_ARGV + ["--checkpoint-dir", one],),
+        timeout_s=300)
+    spawned_s = time.perf_counter() - t0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MH_RL_CLI, SRC] + MH_RL_ARGV
+        + ["--checkpoint-dir", two, "--coordinator", f"127.0.0.1:{port}",
+           "--num-processes", "2", "--process-id", str(i),
+           "--backend", "gloo"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_cli_env()) for i in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    coord_s = time.perf_counter() - t0
+    records = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        said = [ln for ln in out.splitlines() if ln.startswith("MH_RL ")]
+        if p.returncode != 0 or not said:
+            raise AssertionError(f"28a process {i} exited {p.returncode}:"
+                                 f"\n{out[-3000:]}")
+        records.append(json.loads(said[-1][len("MH_RL "):]))
+    launches = [r["launches"] for r in records]
+    if launches != [MH_RL_STEPS] * 2:
+        raise AssertionError(f"28a: K1 launches {launches} in "
+                             f"{MH_RL_STEPS} steps a process")
+    if _step_lines(outs[0]) != _step_lines(spawned[0]["log"]) \
+            or len(_step_lines(outs[0])) != MH_RL_STEPS:
+        raise AssertionError(f"28a: step lines differ:\n{outs[0]}\n"
+                             f"{spawned[0]['log']}")
+    if records[0]["loss"] != spawned[0]["loss"]:
+        raise AssertionError(f"28a: final loss {records[0]['loss']!r}, "
+                             f"spawned {spawned[0]['loss']!r}")
+    import torch
+    step = f"step_{MH_RL_STEPS}"
+    got, want = ({k: torch.as_tensor(v) for k, v in sorted(
+        ckpt_lib.load_flat(os.path.join(d, step))[0].items())}
+        for d in (two, one))
+    _bitwise("28a: the coordinated run's checkpoint", got, want)
+    emit("mh_rl", argv=MH_RL_ARGV, processes=2, backend="gloo",
+         device="cuda:0 (both processes)", steps=MH_RL_STEPS,
+         shape=list(MH_RL_SHAPE), launches=launches,
+         spawned_launches=[r["launches"] for r in spawned],
+         loss=records[0]["loss"], bitwise=True,
+         step_lines=_step_lines(outs[0]), spawned_s=spawned_s,
+         coordinated_s=coord_s,
+         timing="gloo's host-staging path, not a speed figure")
+    return launches
+
+
+def phase_dryrun():
+    """28c: ``python -m repro_torch.launch.dryrun`` on the card: one
+    step of xLSTM-125M's decode_32k program and of its block program,
+    peak memory measured; then the modelled report of the production
+    mesh."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        (run,) = dryrun.main(DRYRUN_ARGV + ["--device", "cuda"])
+        (modelled,) = dryrun.main(DRYRUN_ARGV[:4] + ["--mesh", "16x16"])
+    if not run["memory"]["peak_bytes"] or run["sources"][
+            "memory.peak_bytes"] != "measured":
+        raise AssertionError(f"28c: no peak memory measured: {run}")
+    emit("dryrun", argv=DRYRUN_ARGV, seconds=time.perf_counter() - t0,
+         output=out.getvalue().strip().splitlines(),
+         memory=run["memory"], step_s=run["step_s"],
+         launches=run["launches"], block=run["cost_block"],
+         roofline=run["roofline"], modelled_16x16=dict(
+             memory=modelled["memory"], roofline=modelled["roofline"]))
+
+
+def phase28():
+    """28a–c; returns each run's launches a rank, by phase."""
+    from repro_torch.configs.base import InputShape
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as workdir:
+        out = {"mh_rl": {"vtrace": phase_mh_rl(workdir)}}
+    out[CP_SPEC_RUN["phase"]] = phase_specs(
+        dict(CP_SPEC_RUN, shape=InputShape(*CP_SPEC_RUN["shape"])))
+    phase_dryrun()
+    return out
 
 
 def main():
@@ -4085,10 +4401,13 @@ def main():
         if name == "vtrace" and spill_bytes:
             raise AssertionError(f"vtrace kernel spills {spill_bytes} bytes")
     emit("build", total_seconds=time.perf_counter() - t0)
+    # 2b. the launch geometry's Python mirrors against the built .cu
+    phase_geometry(ops)
 
     # 3. each kernel against its plain version
     rows = phase_kernel(ops, ref)
     flash_rows = phase_flash(ops, ref)
+    offset_rows = phase_flash_offset(ops, ref)
     decode_rows = phase_decode(ops, ref)
     ssd_rows = phase_ssd(ops, ref)
     # SDPA's graph captures left cuBLAS a workspace on each capture
@@ -4237,6 +4556,11 @@ def main():
     # multihost entry point
     spec_launches = phase27()
 
+    # 28. slice 15: 28a --mode rl-agent as two --coordinator processes on
+    # the card, 28b the context-parallel specs program (K2 with its query
+    # offset), 28c the dry run
+    slice15 = phase28()
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -4338,9 +4662,22 @@ def main():
         "tc_bound_ms": row["tc_bound_ms"], "tc_bound_by": row["tc_bound_by"],
         "shape": row["shape"], "heads": row["heads"], "dtype": "float32"})
     for k in kernels:
-        # phase 27's launches a rank, run by run
+        # phase 27's and 28's launches a rank, run by run
         k["slice14_launches"] = {phase: launches[k["name"]]
                                  for phase, launches in spec_launches.items()}
+        k["slice15_launches"] = {
+            phase: launches[k["name"]] for phase, launches in slice15.items()
+            if k["name"] in launches}
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    row = offset_rows[(FLASH_OFFSET_SHAPES[0], "bfloat16")]
+    flash.update(offset_shape=list(FLASH_OFFSET_SHAPES[0]),
+                 offset_ms=row["ms"], offset_plain_ms=row["plain_ms"],
+                 offset_graph_ms=row["graph_ms"],
+                 offset_bound_ms=row["bound_ms"],
+                 offset_bound_by=row["bound_by"],
+                 offset_library_ms=row["library_ms"],
+                 offset_max_abs_err=max(
+                     r["max_abs_err"] for r in offset_rows.values()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,12 +32,13 @@ one entry per dimension (None, or the mesh axis it is split over; the
 reference's ``PartitionSpec``), dropping a mapping whose dimension the
 axis size does not divide and, with ``fallback_model``, splitting the
 largest divisible dimension of a leaf that would otherwise keep nothing on
-"model". The LM layers compute under every table of the reference but
-the context-parallel one (``rules_named``): ``MEGATRON_RULES``,
-``FSDP_RULES`` (every ``embed`` axis also split over the data axes),
-``SEQPAR_RULES`` (the residual stream split over "model" on its sequence
-dimension), ``EXPERT_RULES`` (MoE experts over "model") and their
-combinations. ``zero1_shardings`` decides the optimizer state's slices
+"model". The LM layers compute under every table of the reference
+(``rules_named``): ``MEGATRON_RULES``, ``FSDP_RULES`` (every ``embed``
+axis also split over the data axes), ``SEQPAR_RULES`` (the residual
+stream split over "model" on its sequence dimension), ``EXPERT_RULES``
+(MoE experts over "model"), their combinations, and
+``CP_FSDP_SEQPAR_RULES`` (``attn_pref="seq"``: the queries stay split
+over the sequence through attention, ``models/attention.py``). ``zero1_shardings`` decides the optimizer state's slices
 (ZeRO-1) of ``launch/specs.py::build_train``. The collectives of the
 model axis, and of the data axis of a split leaf, live beside the layers
 (``models/common.py``).
@@ -96,25 +97,20 @@ RULE_SETS = {
 
 
 # the tables the LM layers compute under (``rules_named``)
-LM_RULES = ("megatron", "fsdp", "seqpar", "fsdp_seqpar", "expert",
-            "expert_seqpar")
+LM_RULES = ("megatron", "fsdp", "seqpar", "fsdp_seqpar", "cp_fsdp_seqpar",
+            "expert", "expert_seqpar")
 
 
 def rules_named(name: str) -> Dict[str, object]:
-    """The rules table ``name`` for the LM layers. The context-parallel
-    ``cp_fsdp_seqpar`` is refused: it keeps the queries split over the
-    sequence through attention, which needs attention over queries
-    offset from their keys (ROADMAP item 27); ``rl_agent`` is the
-    agent's data-parallel table (``--mesh-data``), not an LM one."""
+    """The rules table ``name`` for the LM layers; ``rl_agent`` is the
+    agent's data-parallel table (``--mesh-data``), not an LM one, and is
+    refused."""
     if name not in RULE_SETS:
         raise KeyError(f"unknown rules {name!r}; known: {sorted(RULE_SETS)}")
     if name not in LM_RULES:
-        why = ("context-parallel attention (queries split over the "
-               "sequence, offset from their keys), ROADMAP item 27"
-               if name == "cp_fsdp_seqpar" else
-               "an agent table; the LM layers take " + ", ".join(LM_RULES))
         raise NotImplementedError(
-            f"not ported yet: the {name!r} rules table ({why})")
+            f"not ported yet: the {name!r} rules table (an agent table; "
+            "the LM layers take " + ", ".join(LM_RULES) + ")")
     return RULE_SETS[name]
 
 

@@ -417,6 +417,12 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
+// The main kernel's grid: (KV head, row, split x group of ROWS query
+// heads); decode_attention_geometry reports it for the Python mirror.
+inline dim3 main_grid(int K, int B, int splits, int group, int rows) {
+  return dim3(K, B, splits * ((group + rows - 1) / rows));
+}
+
 template <typename T, int HD, int ROWS>
 cudaError_t launch_rows(const void* q, const void* k, const void* v,
                         void* o, int B, int K, const Args& a,
@@ -426,8 +432,8 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v,
   static unsigned long long opted_in = 0;
   cudaError_t err = attn::opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid(K, B, a.splits * ((a.group + ROWS - 1) / ROWS));
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<main_grid(K, B, a.splits, a.group, ROWS), kThreads, smem,
+           stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), a);
   err = cudaGetLastError();
@@ -443,6 +449,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (a.group == 1)
     return launch_rows<T, HD, 1>(q, k, v, o, B, K, a, stream);
   return launch_rows<T, HD, kMaxRows>(q, k, v, o, B, K, a, stream);
+}
+
+template <typename T, int HD>
+int geometry(int B, int H, int K, int splits, long long* out) {
+  const int group = H / K;
+  const dim3 g = main_grid(K, B, splits, group, group == 1 ? 1 : kMaxRows);
+  out[0] = g.x;
+  out[1] = g.y;
+  out[2] = g.z;
+  out[3] = kThreads;
+  out[4] = static_cast<long long>(smem_bytes<T, HD>());
+  if (splits == 1) return 1;
+  out[5] = H;  // the combine kernel
+  out[6] = B;
+  out[7] = 1;
+  out[8] = kCombineThreads;
+  out[9] = 0;
+  return 2;
+}
+
+template <typename T>
+int geometry_hd(int hd, int B, int H, int K, int splits, long long* out) {
+  switch (hd) {
+    case 64:
+      return geometry<T, 64>(B, H, K, splits, out);
+    case 80:
+      return geometry<T, 80>(B, H, K, splits, out);
+    case 128:
+      return geometry<T, 128>(B, H, K, splits, out);
+    case 256:
+      return geometry<T, 256>(B, H, K, splits, out);
+    default:
+      return -1;
+  }
 }
 
 template <typename T>
@@ -515,4 +555,18 @@ extern "C" int decode_attention_forward(
   if (is_bf16)
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, K, a, s);
   return dispatch_hd<float>(hd, q, k, v, o, B, K, a, s);
+}
+
+// The launches of a call with B rows, H query heads over K KV heads and
+// `splits` ranges: for each, out[5 i .. 5 i + 2] the grid, out[5 i + 3]
+// threads a block, out[5 i + 4] bytes of dynamic shared memory a block.
+// Returns the number of launches (1, or 2 with the combine kernel), or -1
+// for a head_dim the kernels were not compiled for.
+extern "C" int decode_attention_geometry(int is_bf16, int B, int H, int K,
+                                         int hd, int splits,
+                                         long long* out) {
+  if (K <= 0 || H % K != 0 || splits <= 0) return -1;
+  if (is_bf16)
+    return geometry_hd<__nv_bfloat16>(hd, B, H, K, splits, out);
+  return geometry_hd<float>(hd, B, H, K, splits, out);
 }

@@ -17,6 +17,11 @@
 // inputs come with any (b, head, s) strides whose head_dim axis is
 // contiguous, so the model's (B, S, H, hd) activations go in as transposed
 // views. head_dim is 64, 80, 128 or 256. The dtype alone picks the kernel.
+// The queries may be offset from the keys: q holds Sq rows at positions
+// q_offset .. q_offset + Sq - 1 of the Sk keys (one rank's share of a
+// sequence split over its queries, the keys whole), and the mask, the
+// window and the key tiles a query tile visits all read those positions.
+// At q_offset 0 and Sq = Sk it is the reference's function.
 //
 // Bound. At the serving path's prefill shape (Qwen3-4B: 32 query heads
 // over 8 KV heads, hd 128, bf16, S = 512, causal) the function reads q, k,
@@ -149,9 +154,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
-                           int group, int S, Strides qs, Strides ks,
-                           Strides vs, Strides os, float scale, int causal,
-                           int window, float softcap) {
+                           int group, int Sq, int Sk, int q_off, Strides qs,
+                           Strides ks, Strides vs, Strides os, float scale,
+                           int causal, int window, float softcap) {
   // float4 column chunks of a thread in PV: columns 4 cg + 64 j. At hd 80
   // the second chunk covers columns 64..79, so only cg < 4 holds one.
   constexpr int kDV = (HD + 63) / 64;
@@ -172,12 +177,13 @@ __global__ void __launch_bounds__(kThreads)
   const T* vb = v + b * vs.b + kvh * vs.h;
   T* ob = o + b * os.b + h * os.h;
 
-  load_tile<T, HD>(sQ, qb, qs.s, q0, S);
+  load_tile<T, HD>(sQ, qb, qs.s, q0, Sq);
 
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int n_tiles = (S + kBK - 1) / kBK;
+  // query row r sits at position q_off + r of the keys' sequence
+  const int q_last = q_off + min(q0 + kBQ, Sq) - 1;
+  const int n_tiles = (Sk + kBK - 1) / kBK;
   const int hi = causal ? min(n_tiles, q_last / kBK + 1) : n_tiles;
-  const int lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int lo = window > 0 ? max(0, q_off + q0 - window + 1) / kBK : 0;
 
   float m[kTM], l[kTM], acc[kTM][kDV][4];
 #pragma unroll
@@ -193,7 +199,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the last tile's PV is done with sKV and sP
-    load_tile<T, HD>(sKV, kb, ks.s, k0, S);
+    load_tile<T, HD>(sKV, kb, ks.s, k0, Sk);
     __syncthreads();
 
     // scores of this thread's 4 x 4 patch: rows rg + 16 i, keys cg + 16 j
@@ -223,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
     // mask and online softmax, one query row at a time
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
-      const int qpos = q0 + rg + kRG * i;
+      const int qpos = q_off + q0 + rg + kRG * i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < kTN; ++j) {
@@ -232,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
                           (window <= 0 || qpos - kpos < window);
         s[i][j] = live ? attn::apply_softcap(s[i][j] * scale, softcap)
                        : kNegInf;
-        if (kpos < S) mx = fmaxf(mx, s[i][j]);
+        if (kpos < Sk) mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_group_max(mx));
       const float corr = expf(m[i] - m_new);
@@ -240,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kTN; ++j) {
         const int kpos = k0 + cg + kCG * j;
-        const float p = kpos < S ? expf(s[i][j] - m_new) : 0.f;
+        const float p = kpos < Sk ? expf(s[i][j] - m_new) : 0.f;
         sP[(rg + kRG * i) * kPStride + cg + kCG * j] = p;
         sum += p;
       }
@@ -253,7 +259,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     __syncthreads();  // every thread is done with K; P is written
-    load_tile<T, HD>(sKV, vb, vs.s, k0, S);
+    load_tile<T, HD>(sKV, vb, vs.s, k0, Sk);
     __syncthreads();
 
     // acc += P V: rows rg + 16 i, columns 4 cg + 64 j .. + 3
@@ -282,8 +288,8 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
-    const int qpos = q0 + rg + kRG * i;
-    if (qpos >= S) continue;
+    const int row = q0 + rg + kRG * i;
+    if (row >= Sq) continue;
     const float denom = fmaxf(l[i], attn::kMinDenominator);
 #pragma unroll
     for (int j = 0; j < kDV; ++j) {
@@ -291,7 +297,7 @@ __global__ void __launch_bounds__(kThreads)
       float out[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) out[e] = acc[i][j][e] / denom;
-      attn::store_vec<4>(ob + qpos * os.s + 4 * cg + 64 * j, out);
+      attn::store_vec<4>(ob + row * os.s + 4 * cg + 64 * j, out);
     }
   }
 }
@@ -411,9 +417,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                    int group, int S, Strides qs, Strides ks, Strides vs,
-                    Strides os, float scale, int causal, int window,
-                    float softcap) {
+                    int group, int Sq, int Sk, int q_off, Strides qs,
+                    Strides ks, Strides vs, Strides os, float scale,
+                    int causal, int window, float softcap) {
   using C = Cfg<HD>;
   constexpr int kBK = C::kBK;
   constexpr int kStride = C::kStride;
@@ -439,10 +445,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bf16* vb = v + b * vs.b + kvh * vs.h;
   bf16* ob = o + b * os.b + h * os.h;
 
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int n_tiles = (S + kBK - 1) / kBK;
+  // query row r sits at position q_off + r of the keys' sequence
+  const int q_last = q_off + min(q0 + kBQ, Sq) - 1;
+  const int n_tiles = (Sk + kBK - 1) / kBK;
   const int hi = causal ? min(n_tiles, q_last / kBK + 1) : n_tiles;
-  const int lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int lo = window > 0 ? max(0, q_off + q0 - window + 1) / kBK : 0;
 
   // the first two tiles, one for each half, and Q; later pairs are loaded
   // one pair ahead
@@ -452,13 +459,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (kt + i >= hi) break;
       const int stage = (kt + i - lo) % kStages;
       load_tile_async<HD, kBK>(sK + stage * C::kTile, kb, ks.s,
-                               (kt + i) * kBK, S);
+                               (kt + i) * kBK, Sk);
       load_tile_async<HD, kBK>(sV + stage * C::kTile, vb, vs.s,
-                               (kt + i) * kBK, S);
+                               (kt + i) * kBK, Sk);
     }
     attn::cp_async_commit();
   };
-  load_tile_async<HD, kBQ>(sQ, qb, qs.s, q0, S);
+  load_tile_async<HD, kBQ>(sQ, qb, qs.s, q0, Sq);
   load_pair(lo);
 
   // ldmatrix row addresses of this lane: Q's A fragment (rows l % 16,
@@ -471,6 +478,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   unsigned qf[C::kQInRegs ? C::kKSteps : 1][4];
   const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  const int pos0 = q_off + row0;        // and their positions
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[C::kOTiles][4];
 #pragma unroll
@@ -523,11 +531,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    // scale, softcap and mask in log2 units; keys past S get -inf, which
+    // scale, softcap and mask in log2 units; keys past Sk get -inf, which
     // keeps them out of the row max and gives them p = 0 exactly
     const int k0 = kt * kBK;
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0) ||
-                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+    const int p0 = q_off + q0;  // the tile's first query position
+    const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > p0) ||
+                      (window > 0 && p0 + kBQ - 1 - k0 >= window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < C::kSTiles; ++n)
@@ -537,11 +546,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                       ? attn::apply_softcap(s[n][e] * scale, softcap) * kLog2e
                       : s[n][e] * scale_log2;
         if (edge) {
-          const int qpos = row0 + (e / 2) * 8;
+          const int qpos = pos0 + (e / 2) * 8;
           const int kpos = k0 + n * 8 + 2 * t + e % 2;
           const bool live = (!causal || kpos <= qpos) &&
                             (window <= 0 || qpos - kpos < window);
-          x = kpos >= S ? -INFINITY : live ? x : kNegInf;
+          x = kpos >= Sk ? -INFINITY : live ? x : kNegInf;
         }
         s[n][e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -628,10 +637,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qpos = row0 + r * 8;
+    const int row = row0 + r * 8;
     const float denom = fmaxf(quad_sum(l[r]), attn::kMinDenominator);
-    if (qpos >= S) continue;
-    bf16* dst = ob + qpos * os.s + 2 * t;
+    if (row >= Sq) continue;
+    bf16* dst = ob + row * os.s + 2 * t;
 #pragma unroll
     for (int n = 0; n < C::kOTiles; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
@@ -642,88 +651,137 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace tc
 
+// The shape of one call: B rows, H query heads over K KV heads, Sq
+// queries at positions q_off .. q_off + Sq - 1 of the Sk keys.
+struct Dims {
+  int B, H, K, Sq, Sk, q_off;
+};
+
+// Each kernel's grid; flash_attention_geometry reports it with the block
+// size and the dynamic shared memory, for the port's Python mirror.
+inline dim3 simt_grid(const Dims& d) {
+  return dim3((d.Sq + simt::kBQ - 1) / simt::kBQ, d.H, d.B);
+}
+
+inline dim3 tc_grid(const Dims& d) {
+  return dim3(d.H, (d.Sq + tc::kBQ - 1) / tc::kBQ, d.B);
+}
+
 template <typename T, int HD>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int K, int S, Strides qs, Strides ks,
-                        Strides vs, Strides os, float scale, int causal,
-                        int window, float softcap, cudaStream_t stream) {
+                        const Dims& d, Strides qs, Strides ks, Strides vs,
+                        Strides os, float scale, int causal, int window,
+                        float softcap, cudaStream_t stream) {
   auto kernel = simt::flash_attention_kernel<T, HD>;
   constexpr size_t smem = simt::smem_bytes<HD>();
   static unsigned long long opted_in = 0;
   const cudaError_t err = attn::opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + simt::kBQ - 1) / simt::kBQ, H, B);
-  kernel<<<grid, simt::kThreads, smem, stream>>>(
+  kernel<<<simt_grid(d), simt::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / K, S, qs, ks, vs, os,
-      scale, causal, window, softcap);
+      static_cast<const T*>(v), static_cast<T*>(o), d.H / d.K, d.Sq, d.Sk,
+      d.q_off, qs, ks, vs, os, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int K, int S, Strides qs, Strides ks,
-                      Strides vs, Strides os, float scale, int causal,
-                      int window, float softcap, cudaStream_t stream) {
+                      const Dims& d, Strides qs, Strides ks, Strides vs,
+                      Strides os, float scale, int causal, int window,
+                      float softcap, cudaStream_t stream) {
   auto kernel = tc::flash_tc_kernel<HD>;
   constexpr size_t smem = tc::Cfg<HD>::kSmem;
   static unsigned long long opted_in = 0;
   const cudaError_t err = attn::opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, (S + tc::kBQ - 1) / tc::kBQ, B);
-  kernel<<<grid, tc::kThreads, smem, stream>>>(
+  kernel<<<tc_grid(d), tc::kThreads, smem, stream>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), H / K, S,
-      qs, ks, vs, os, scale, causal, window, softcap);
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(o), d.H / d.K,
+      d.Sq, d.Sk, d.q_off, qs, ks, vs, os, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 // bf16 on the tensor cores, float32 on the CUDA cores, by head_dim
 template <int HD>
 cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v,
-                   void* o, int B, int H, int K, int S, Strides qs,
-                   Strides ks, Strides vs, Strides os, float scale,
-                   int causal, int window, float softcap,
-                   cudaStream_t stream) {
+                   void* o, const Dims& d, Strides qs, Strides ks,
+                   Strides vs, Strides os, float scale, int causal,
+                   int window, float softcap, cudaStream_t stream) {
   if (is_bf16)
-    return launch_tc<HD>(q, k, v, o, B, H, K, S, qs, ks, vs, os, scale,
-                         causal, window, softcap, stream);
-  return launch_simt<float, HD>(q, k, v, o, B, H, K, S, qs, ks, vs, os,
-                                scale, causal, window, softcap, stream);
+    return launch_tc<HD>(q, k, v, o, d, qs, ks, vs, os, scale, causal,
+                         window, softcap, stream);
+  return launch_simt<float, HD>(q, k, v, o, d, qs, ks, vs, os, scale,
+                                causal, window, softcap, stream);
+}
+
+template <int HD>
+int geometry(int is_bf16, const Dims& d, long long* out) {
+  const dim3 g = is_bf16 ? tc_grid(d) : simt_grid(d);
+  out[0] = g.x;
+  out[1] = g.y;
+  out[2] = g.z;
+  out[3] = is_bf16 ? tc::kThreads : simt::kThreads;
+  out[4] = static_cast<long long>(is_bf16 ? tc::Cfg<HD>::kSmem
+                                          : simt::smem_bytes<HD>());
+  return 1;
 }
 
 }  // namespace
 
-// q (B,H,S,hd), k and v (B,K,S,hd), o (B,H,S,hd), each given by its
-// (b, head, s) strides in elements with hd contiguous; is_bf16 selects
-// bf16 for all four (rows 16-byte aligned), else float32. hd must be 64,
-// 80, 128 or 256.
+// q (B,H,Sq,hd), k and v (B,K,Sk,hd), o (B,H,Sq,hd), each given by its
+// (b, head, s) strides in elements with hd contiguous; query row i sits at
+// position q_offset + i of the keys' sequence (the causal mask and the
+// window read k_pos <= q_offset + i). is_bf16 selects bf16 for all four
+// (rows 16-byte aligned), else float32. hd must be 64, 80, 128 or 256.
 extern "C" int flash_attention_forward(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
-    int H, int K, int S, int hd, long long q_sb, long long q_sh,
-    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float scale, int causal, int window,
-    float softcap, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
-  if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+    int H, int K, int Sq, int Sk, int q_offset, int hd, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, float scale, int causal,
+    int window, float softcap, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0) return cudaSuccess;
+  if (K <= 0 || H % K != 0 || Sk <= 0 || q_offset < 0)
+    return cudaErrorInvalidValue;
+  const Dims d{B, H, K, Sq, Sk, q_offset};
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch<64>(is_bf16, q, k, v, o, B, H, K, S, qs, ks, vs, os,
-                        scale, causal, window, softcap, s);
+      return launch<64>(is_bf16, q, k, v, o, d, qs, ks, vs, os, scale,
+                        causal, window, softcap, s);
     case 80:
-      return launch<80>(is_bf16, q, k, v, o, B, H, K, S, qs, ks, vs, os,
-                        scale, causal, window, softcap, s);
+      return launch<80>(is_bf16, q, k, v, o, d, qs, ks, vs, os, scale,
+                        causal, window, softcap, s);
     case 128:
-      return launch<128>(is_bf16, q, k, v, o, B, H, K, S, qs, ks, vs, os,
-                         scale, causal, window, softcap, s);
+      return launch<128>(is_bf16, q, k, v, o, d, qs, ks, vs, os, scale,
+                         causal, window, softcap, s);
     case 256:
-      return launch<256>(is_bf16, q, k, v, o, B, H, K, S, qs, ks, vs, os,
-                         scale, causal, window, softcap, s);
+      return launch<256>(is_bf16, q, k, v, o, d, qs, ks, vs, os, scale,
+                         causal, window, softcap, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The one launch of a call with B rows, H query heads and Sq queries:
+// out[0..2] the grid, out[3] threads a block, out[4] bytes of dynamic
+// shared memory a block. Returns the number of launches (1), or -1 for a
+// head_dim the kernels were not compiled for.
+extern "C" int flash_attention_geometry(int is_bf16, int B, int H, int Sq,
+                                        int hd, long long* out) {
+  const Dims d{B, H, 1, Sq, Sq, 0};
+  switch (hd) {
+    case 64:
+      return geometry<64>(is_bf16, d, out);
+    case 80:
+      return geometry<80>(is_bf16, d, out);
+    case 128:
+      return geometry<128>(is_bf16, d, out);
+    case 256:
+      return geometry<256>(is_bf16, d, out);
+    default:
+      return -1;
   }
 }

@@ -743,6 +743,11 @@ size_t smem_bytes(int L, int N, int P) {
   return sizeof(float) * static_cast<size_t>(layout(L, N, P).total);
 }
 
+// (slice, row block or the state block); ssd_chunk_geometry reports it
+inline dim3 grid_of(int BH, int L) {
+  return dim3(BH, (L + kRows - 1) / kRows + 1);
+}
+
 template <int P>
 cudaError_t launch(const Args& a, int BH, cudaStream_t stream) {
   auto kernel = ssd_chunk_kernel<P>;
@@ -765,8 +770,7 @@ cudaError_t launch(const Args& a, int BH, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     opted_in |= 1ull << device;
   }
-  const dim3 grid(BH, (a.L + kRows - 1) / kRows + 1);
-  kernel<<<grid, kThreads, smem_bytes(a.L, a.N, P), stream>>>(a);
+  kernel<<<grid_of(BH, a.L), kThreads, smem_bytes(a.L, a.N, P), stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -775,6 +779,23 @@ cudaError_t launch(const Args& a, int BH, cudaStream_t stream) {
 // Bytes of shared memory a launch at (L, N, P) needs.
 extern "C" size_t ssd_chunk_smem_bytes(int L, int N, int P) {
   return smem_bytes(L, N, P);
+}
+
+// The one launch of a call of BH slices at (L, N, P): out[0..2] the grid,
+// out[3] threads a block, out[4] bytes of dynamic shared memory a block.
+// Returns the number of launches (1), or -1 for a P the kernel was not
+// compiled for or an N it does not take.
+extern "C" int ssd_chunk_geometry(int BH, int L, int N, int P,
+                                  long long* out) {
+  if ((P != 16 && P != 32 && P != 64) || N <= 0 || N % 4 != 0 || L <= 0)
+    return -1;
+  const dim3 g = grid_of(BH, L);
+  out[0] = g.x;
+  out[1] = g.y;
+  out[2] = g.z;
+  out[3] = kThreads;
+  out[4] = static_cast<long long>(smem_bytes(L, N, P));
+  return 1;
 }
 
 // Floats of the `states` workspace a launch of BH slices needs (any

@@ -282,10 +282,12 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes)
   }
 }
 
+// a block owns kLanes columns, one a lane of each of its W warps
+inline int blocks_of(int B) { return (B + kLanes - 1) / kLanes; }
+
 template <int L>
 int launch(const Args& a, int warps, cudaStream_t stream) {
-  const int blocks = (a.B + kLanes - 1) / kLanes;
-  vtrace_chunked<L><<<blocks, warps * kLanes, 0, stream>>>(a);
+  vtrace_chunked<L><<<blocks_of(a.B), warps * kLanes, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,4 +331,18 @@ extern "C" int vtrace_from_importance_weights(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The one launch of a call of B columns with W = warps: out[0..2] the
+// grid, out[3] threads a block, out[4] bytes of dynamic shared memory a
+// block (none: the carries' maps are static). Returns the number of
+// launches (1), or -1 for a W the kernel does not take.
+extern "C" int vtrace_geometry(int B, int warps, long long* out) {
+  if (warps < 1 || warps > kMaxWarps) return -1;
+  out[0] = blocks_of(B);
+  out[1] = 1;
+  out[2] = 1;
+  out[3] = warps * kLanes;
+  out[4] = 0;
+  return 1;
 }

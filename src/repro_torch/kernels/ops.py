@@ -164,8 +164,8 @@ def vtrace_from_importance_weights_kernel(
 # ---------------------------------------------------------------------------
 
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
-_ATTN_HEAD_DIMS = (64, 80, 128, 256)
-_FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+ATTN_HEAD_DIMS = (64, 80, 128, 256)    # what the .cu is compiled for
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 12 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_void_p])
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 5
@@ -196,9 +196,9 @@ def _check_attn(name, tensors: Sequence[torch.Tensor],
         raise TypeError(f"{name} kernel takes float32 or bfloat16 (all "
                         f"alike), got {[x.dtype for x in tensors]}")
     hd = tensors[0].shape[-1]
-    if hd not in _ATTN_HEAD_DIMS:
+    if hd not in ATTN_HEAD_DIMS:
         raise ValueError(f"{name} kernel: head_dim {hd} is not one of "
-                         f"{_ATTN_HEAD_DIMS}")
+                         f"{ATTN_HEAD_DIMS}")
     esize = tensors[0].element_size()
     for x, vec in zip(tensors, vecs):
         st = x.stride()
@@ -212,30 +212,37 @@ def _check_attn(name, tensors: Sequence[torch.Tensor],
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
-                    softcap=0.0):
+                    softcap=0.0, q_offset=0):
     """Flash attention forward on the CUDA kernel ``csrc/flash_attention.cu``
-    (the reference's ``kernels.ops.flash_attention``). q: (B,H,S,hd); k, v:
-    (B,K,S,hd) with H % K == 0, any strides whose hd axis is contiguous
+    (the reference's ``kernels.ops.flash_attention``). q: (B,H,Sq,hd); k, v:
+    (B,K,Sk,hd) with H % K == 0, any strides whose hd axis is contiguous
     (transposed views of (B,S,H,hd) activations go in without a copy).
-    float32 (CUDA cores) or bf16 (tensor cores; rows 16-byte aligned), hd
-    64, 80, 128 or 256, any S. Returns (B,H,S,hd) in q's type, laid out
-    like q. CPU tensors take the plain version."""
+    Query row i sits at position ``q_offset + i`` of the keys' sequence,
+    which the causal mask and the window read (the reference's kernel is
+    q_offset 0 and Sq = Sk; a rank of a sequence split over its queries
+    passes its share of the queries and every key). float32 (CUDA cores)
+    or bf16 (tensor cores; rows 16-byte aligned), hd 64, 80, 128 or 256,
+    any Sq and Sk. Returns (B,H,Sq,hd) in q's type, laid out like q. CPU
+    tensors take the plain version."""
     if q.is_cpu and k.is_cpu and v.is_cpu:
         return _ref.ref_flash_attention(q, k, v, scale=scale, causal=causal,
-                                        window=window, softcap=softcap)
+                                        window=window, softcap=softcap,
+                                        q_offset=q_offset)
     # float32 rows: 4-element vector loads; bf16 rows: 16-byte cp.async
     vec = 8 if q.dtype == torch.bfloat16 else 4
     device = _check_attn("flash_attention", (q, k, v), (vec,) * 3)
     _refuse_grad("flash_attention", (q, k, v),
                  "models.attention.attn_apply(impl='kernel')")
     b, h, s, hd = q.shape
-    kheads = k.shape[1]
-    if k.shape != (b, kheads, s, hd) or v.shape != k.shape \
-            or kheads == 0 or h % kheads:
-        raise ValueError("flash_attention kernel: q (B,H,S,hd) and k, v "
-                         "(B,K,S,hd) with H % K == 0, got "
+    kheads, sk = k.shape[1], k.shape[2]
+    if k.shape != (b, kheads, sk, hd) or v.shape != k.shape \
+            or kheads == 0 or h % kheads or sk == 0:
+        raise ValueError("flash_attention kernel: q (B,H,Sq,hd) and k, v "
+                         "(B,K,Sk,hd) with H % K == 0 and Sk > 0, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention kernel: q_offset {q_offset} < 0")
     if scale is None:
         scale = hd ** -0.5
     out = torch.empty_like(q)
@@ -243,7 +250,8 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
         device, _kernel_fn("flash_attention", "flash_attention_forward",
                            _FLASH_ARGTYPES),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, h, kheads, s, hd,
+        int(q.dtype == torch.bfloat16), b, h, kheads, s, sk, int(q_offset),
+        hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], float(scale), int(bool(causal)),
         int(window or 0), float(softcap or 0.0))
@@ -362,8 +370,7 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
 # Mamba2 SSD chunk
 # ---------------------------------------------------------------------------
 
-_SSD_HEAD_DIMS = (16, 32, 64)
-_SSD_MAX_SMEM = 232448          # bytes of shared memory a block may use
+SSD_HEAD_DIMS = (16, 32, 64)            # what the .cu is compiled for
 _SSD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 13 + [ctypes.c_void_p] * 3)
 _ssd_smem: Dict[tuple, int] = {}
@@ -376,7 +383,8 @@ _ssd_flags: Dict[int, torch.Tensor] = {}
 
 def ssd_chunk_smem_bytes(length, n, p):
     """Bytes of shared memory a launch of the SSD chunk kernel at (L, N, P)
-    needs, as the kernel's library computes them (built if needed)."""
+    needs, as the kernel's library computes them (built if needed);
+    ``ssd_smem_bytes`` is its Python mirror."""
     key = (length, n, p)
     nbytes = _ssd_smem.get(key)
     if nbytes is None:
@@ -466,9 +474,9 @@ def ssd_chunk(c, b, xdt, da, h_prev):
     if shapes != want or l == 0:
         raise ValueError(f"ssd_chunk kernel: shapes {shapes}, want {want} "
                          "with L >= 1")
-    if p not in _SSD_HEAD_DIMS or n % 4:
+    if p not in SSD_HEAD_DIMS or n % 4:
         raise ValueError(f"ssd_chunk kernel: head dim {p} not in "
-                         f"{_SSD_HEAD_DIMS} or state size {n} not a "
+                         f"{SSD_HEAD_DIMS} or state size {n} not a "
                          "multiple of 4")
     for x in (c, b, xdt):
         if x.stride(-1) != 1 or any(st % 4 for st in x.stride()[:-1]) \
@@ -479,10 +487,10 @@ def ssd_chunk(c, b, xdt, da, h_prev):
     if not h_prev.is_contiguous():
         raise ValueError("ssd_chunk kernel: h_prev must be contiguous")
     _refuse_grad("ssd_chunk", args, "ssd_chunk_trainable")
-    smem = ssd_chunk_smem_bytes(l, n, p)
-    if smem > _SSD_MAX_SMEM:
+    smem = ssd_smem_bytes(l, n, p)
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"ssd_chunk kernel: L={l}, N={n} need {smem} bytes "
-                         f"of shared memory, more than {_SSD_MAX_SMEM}")
+                         f"of shared memory, more than {MAX_SMEM_BYTES}")
 
     h_new = torch.empty_like(h_prev)
     states, flags = _ssd_workspaces(device, bsz * heads, l, n, p)
@@ -528,3 +536,123 @@ def ssd_chunk_trainable(c, b, xdt, da, h_prev):
     plain version for CPU tensors), the VJP of the plain version on the
     backward, in either layout."""
     return _SSDChunk.apply(c, b, xdt, da, h_prev)
+
+
+# ---------------------------------------------------------------------------
+# launch geometry: Python mirrors of each kernel's launches
+# ---------------------------------------------------------------------------
+
+# An H100's limits on a launch: grid x, y and z; threads a block; dynamic
+# shared memory a block (227 KB of the SM's 256 KB, after the opt-in)
+GRID_X_MAX = 2 ** 31 - 1
+GRID_YZ_MAX = 65535
+BLOCK_THREADS_MAX = 1024
+MAX_SMEM_BYTES = 232448
+
+_FLASH_ROWS = 64               # query rows a flash-attention block owns
+_FLASH_THREADS = 256           # both kernels: 8 warps
+_DECODE_THREADS = 128          # 4 warps
+_DECODE_COMBINE_THREADS = 128
+_SSD_ROWS = 64                 # chunk positions a row block owns
+_SSD_THREADS = 256
+
+
+def ssd_smem_bytes(length, n, p):
+    """Bytes of shared memory a launch of the SSD chunk kernel at (L, N,
+    P) needs: the mirror of ``csrc/ssd_chunk.cu``'s ``layout``, in float32
+    words, every offset a multiple of 4 (``chip_smoke.py`` holds it equal
+    to the library's ``ssd_chunk_smem_bytes``)."""
+    keys = 32
+    lp = -(-length // _SSD_ROWS) * _SSD_ROWS
+    n8 = -(-n // 8) * 8
+    ns, xs = n8 + 4, p + 4
+    w = 12 + lp
+    c = w + lp
+    state = c + _SSD_ROWS * ns
+    planes = state + p * ns
+    ring = planes + max(max(2 * keys * ns, 2 * n8 * (keys + 4))
+                        + 2 * p * (keys + 4), 4 * 32 * 32)
+    return 4 * (ring + 2 * keys * (ns + xs))
+
+
+def _flash_smem(hd, bf16):
+    if bf16:                   # tc::Cfg<HD>: K and V rings (+ Q at hd 256)
+        keys, stride = (32 if hd == 256 else 64), hd + 8
+        return 2 * (2 * 4 * keys * stride
+                    + (0 if hd <= 128 else _FLASH_ROWS * stride))
+    return 4 * (2 * _FLASH_ROWS * (hd + 4) + _FLASH_ROWS * 80)
+
+
+def _decode_smem(hd, bf16):
+    esize, tile = (2, 32) if bf16 else (4, 16)
+    lanes = hd // 32 if hd % 32 == 0 else 4
+    return max(2 * 3 * tile * hd * esize, 4 * 4 * 32 * lanes * 4)
+
+
+def launch_geometry(kernel, **dims):
+    """The launches one wrapper call makes, as its ``.cu`` makes them:
+    a list of ((grid x, y, z), threads a block, dynamic shared memory
+    bytes a block). Dims:
+
+      vtrace            t, b
+      flash_attention   b, h, sq, hd, bf16
+      decode_attention  b, h, kh, s, hd, bf16 [, sms=132]
+      ssd_chunk         rows (slices), l, n, p
+    """
+    if kernel == "vtrace":
+        warps, _ = vtrace_chunks(dims["t"])
+        return [((-(-dims["b"] // 32), 1, 1), 32 * warps, 0)]
+    if kernel == "flash_attention":
+        b, h, sq, hd, bf16 = (dims[k] for k in ("b", "h", "sq", "hd",
+                                                "bf16"))
+        tiles = -(-sq // _FLASH_ROWS)
+        grid = (h, tiles, b) if bf16 else (tiles, h, b)
+        return [(grid, _FLASH_THREADS, _flash_smem(hd, bf16))]
+    if kernel == "decode_attention":
+        b, h, kh, s, hd, bf16 = (dims[k] for k in ("b", "h", "kh", "s",
+                                                   "hd", "bf16"))
+        splits, _ = decode_splits(b, h, kh, s, dims.get("sms", 132))
+        group = h // kh
+        rows = 1 if group == 1 else _DECODE_ROWS
+        out = [((kh, b, splits * -(-group // rows)), _DECODE_THREADS,
+                _decode_smem(hd, bf16))]
+        if splits > 1:
+            out.append(((h, b, 1), _DECODE_COMBINE_THREADS, 0))
+        return out
+    if kernel == "ssd_chunk":
+        rows, length = dims["rows"], dims["l"]
+        return [((rows, -(-length // _SSD_ROWS) + 1, 1), _SSD_THREADS,
+                 ssd_smem_bytes(length, dims["n"], dims["p"]))]
+    raise ValueError(f"unknown kernel {kernel}")
+
+
+def library_geometry(kernel, **dims):
+    """The same launches as the built ``.cu`` reports them (its
+    ``<kernel>_geometry`` export; the library is built if needed)."""
+    out = (ctypes.c_longlong * 10)()
+    if kernel == "vtrace":
+        warps, _ = vtrace_chunks(dims["t"])
+        n = _kernel_fn("vtrace", "vtrace_geometry", [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])(dims["b"], warps, out)
+    elif kernel == "flash_attention":
+        n = _kernel_fn("flash_attention", "flash_attention_geometry",
+                       [ctypes.c_int] * 5 + [ctypes.c_void_p])(
+            int(dims["bf16"]), dims["b"], dims["h"], dims["sq"], dims["hd"],
+            out)
+    elif kernel == "decode_attention":
+        splits, _ = decode_splits(dims["b"], dims["h"], dims["kh"],
+                                  dims["s"], dims.get("sms", 132))
+        n = _kernel_fn("decode_attention", "decode_attention_geometry",
+                       [ctypes.c_int] * 6 + [ctypes.c_void_p])(
+            int(dims["bf16"]), dims["b"], dims["h"], dims["kh"], dims["hd"],
+            splits, out)
+    elif kernel == "ssd_chunk":
+        n = _kernel_fn("ssd_chunk", "ssd_chunk_geometry",
+                       [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+            dims["rows"], dims["l"], dims["n"], dims["p"], out)
+    else:
+        raise ValueError(f"unknown kernel {kernel}")
+    if n < 0:
+        raise ValueError(f"{kernel} kernel: not compiled for {dims}")
+    return [(tuple(out[5 * i:5 * i + 3]), out[5 * i + 3], out[5 * i + 4])
+            for i in range(n)]

@@ -19,12 +19,13 @@ NEG_INF = -2.0e38
 
 
 def ref_flash_attention(q, k, v, *, scale=None, causal=True, window=0,
-                        softcap=0.0):
-    """q: (B,H,S,hd); k, v: (B,K,S,hd), H % K == 0 (query head h reads kv
-    head h // (H/K)). Dense softmax in float32; the output is in q's
-    type."""
+                        softcap=0.0, q_offset=0):
+    """q: (B,H,Sq,hd); k, v: (B,K,Sk,hd), H % K == 0 (query head h reads
+    kv head h // (H/K)); query row i sits at position ``q_offset + i`` of
+    the keys' sequence (the reference's function is q_offset 0, Sq = Sk).
+    Dense softmax in float32; the output is in q's type."""
     b, h, s, hd = q.shape
-    kheads = k.shape[1]
+    kheads, sk = k.shape[1], k.shape[2]
     group = h // kheads
     if scale is None:
         scale = hd ** -0.5
@@ -32,9 +33,9 @@ def ref_flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     logits = torch.einsum("bkgqh,bkth->bkgqt", qg, k.float()) * scale
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qpos = q_offset + torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos <= qpos
     if window:

@@ -59,6 +59,20 @@ import torch.distributed as dist
 # rank 0 is done.
 DEFAULT_TIMEOUT_S = 120.0
 
+# The card's peaks for the roofline model (``launch/roofline.py``), the
+# role the reference's TPU v5e constants play in its ``launch/mesh.py``:
+# NVIDIA H100 SXM5 80 GB, from NVIDIA's H100 Tensor Core GPU datasheet
+# (dense rates, no sparsity; at the card's full 700 W power limit).
+HBM_BW = 3.35e12              # bytes/s of HBM3 per card
+PEAK_FLOPS_BF16 = 989e12      # bf16 (and fp16) tensor cores, dense
+PEAK_FLOPS_TF32 = 495e12      # TF32 tensor cores, dense
+PEAK_FLOPS_FP32 = 67e12       # float32 on the CUDA cores
+NVLINK_BW = 450e9             # bytes/s per card per direction (900 GB/s both)
+HBM_BYTES = 80 * 10**9        # device memory per card
+# the peak by the type the operands are multiplied in
+PEAK_FLOPS = {"bfloat16": PEAK_FLOPS_BF16, "float16": PEAK_FLOPS_BF16,
+              "tf32": PEAK_FLOPS_TF32, "float32": PEAK_FLOPS_FP32}
+
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
@@ -181,19 +195,21 @@ def rank_devices(n: int, device) -> list:
 
 
 @contextlib.contextmanager
-def make_data_mesh(n: int, device, *, rank: int = 0, port: int,
+def make_data_mesh(n: int, device, *, rank: int = 0,
+                   host: str = "127.0.0.1", port: int,
                    backend: Optional[str] = None,
                    timeout_s: float = DEFAULT_TIMEOUT_S):
-    """Join the ``n``-rank process group at ``127.0.0.1:port`` as
-    ``rank`` on ``device`` and yield its ``DataMesh``; the group is
-    destroyed on the way out, whatever happened inside."""
+    """Join the ``n``-rank process group whose rendezvous rank 0 serves
+    at ``host:port`` as ``rank`` on ``device`` and yield its
+    ``DataMesh``; the group is destroyed on the way out, whatever
+    happened inside."""
     device = torch.device(device)
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":
         torch.cuda.set_device(device)
     timeout = datetime.timedelta(seconds=timeout_s)
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group(backend, init_method=f"tcp://{host}:{port}",
                             rank=rank, world_size=n, timeout=timeout)
     try:
         group = dist.group.WORLD

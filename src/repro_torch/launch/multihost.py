@@ -28,17 +28,31 @@ of one host on the CPU:
       --device cpu --coordinator 127.0.0.1:29512 --num-processes 2 \
       --process-id $i & done; wait
 
-Ranks that share a CUDA device (more processes than the host's GPUs)
-talk through gloo, which takes CUDA tensors; NCCL refuses them.
-``--mode dryrun`` (the reference compiles the program and prints XLA's
-memory analysis) is not ported: ROADMAP item 22.
+``--mode dryrun`` runs one step of the program and of its block program
+on every process and reports what ``launch/dryrun.py::run_one`` measures
+(peak memory on the card, launches by kernel, collective bytes by group
+and kind) beside the modelled roofline terms; the reference compiles the
+program instead and prints XLA's memory analysis.
+
+``launch/train.py`` joins its processes here too (``bootstrap``): the LM
+modes' (data, model) mesh, or, for ``--mode rl-agent``, a ``DataMesh`` of
+``--mesh-data`` ranks, one a process.
+
+On CUDA the ranks talk through NCCL, which refuses two ranks on one
+device. Processes that share a card talk through gloo instead, which
+takes CUDA tensors: ``--backend gloo``, or ``LOCAL_WORLD_SIZE`` (the
+processes of this host, as torchrun exports it) above the host's GPUs.
+The global process count does not decide it: across hosts every host
+has cards of its own.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import time
+from typing import Optional
 
 import torch
 
@@ -62,28 +76,57 @@ def process_device(device, process_id: int) -> torch.device:
     return torch.device("cuda", process_id % torch.cuda.device_count())
 
 
+def coordinated_backend(device, backend: Optional[str] = None, *,
+                        local_processes: Optional[int] = None,
+                        visible: Optional[int] = None) -> Optional[str]:
+    """The process group's backend for a coordinated rank on ``device``:
+    ``backend`` when given; else gloo when this host's processes
+    (``local_processes``, default ``LOCAL_WORLD_SIZE``, 1 when unset)
+    outnumber its ``visible`` GPUs on CUDA, so that two of them share a
+    card; else None, the mesh's default (NCCL on CUDA, gloo on the
+    CPU)."""
+    if backend is not None or torch.device(device).type != "cuda":
+        return backend
+    if local_processes is None:
+        local_processes = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    if visible is None:
+        visible = torch.cuda.device_count()
+    return "gloo" if local_processes > visible else None
+
+
 @contextlib.contextmanager
 def bootstrap(coordinator: str, num_processes: int, process_id: int, *,
-              data: int, model: int, device, backend=None,
+              data: int, model: Optional[int] = None, device, backend=None,
               timeout_s: float = mesh_lib.DEFAULT_TIMEOUT_S):
-    """Join the ``num_processes``-rank (data, model) mesh at
-    ``coordinator`` as rank ``process_id`` and yield its ``Mesh2D``; the
-    group is destroyed on the way out."""
-    if data * model != num_processes:
-        raise ValueError(
-            f"--num-processes {num_processes} but the mesh is ({data}, "
-            f"{model}) = {data * model} ranks")
+    """Join the ``num_processes``-rank mesh at ``coordinator`` as rank
+    ``process_id`` and yield its view: a ``Mesh2D`` of (data, model), or,
+    with ``model`` None (rl-agent's ``--mesh-data``), a ``DataMesh`` of
+    ``data`` ranks. The group is destroyed on the way out. ``backend``:
+    as ``coordinated_backend`` decides it."""
+    ranks = data * (model or 1)
+    if ranks != num_processes:
+        shape = f"({data},)" if model is None else f"({data}, {model})"
+        raise ValueError(f"--num-processes {num_processes} but the mesh is "
+                         f"{shape} = {ranks} ranks")
     if not 0 <= process_id < num_processes:
         raise ValueError(f"--process-id {process_id} not in "
                          f"[0, {num_processes})")
     host, port = parse_coordinator(coordinator)
     device = process_device(device, process_id)
-    with mesh_lib._threads_for(device), mesh_lib.make_mesh2d(
-            data, model, device, rank=process_id, host=host, port=port,
-            backend=backend, timeout_s=timeout_s) as mesh:
-        print(f"[process {process_id}] rank {mesh.rank} of {mesh.size}: "
-              f"data {mesh.data_index}, model {mesh.model_index} on "
-              f"{device}")
+    backend = coordinated_backend(device, backend)
+    if model is None:
+        join = mesh_lib.make_data_mesh(data, device, rank=process_id,
+                                       host=host, port=port,
+                                       backend=backend, timeout_s=timeout_s)
+    else:
+        join = mesh_lib.make_mesh2d(data, model, device, rank=process_id,
+                                    host=host, port=port, backend=backend,
+                                    timeout_s=timeout_s)
+    with mesh_lib._threads_for(device), join as mesh:
+        where = "" if model is None else \
+            f": data {mesh.data_index}, model {mesh.model_index}"
+        print(f"[process {process_id}] rank {mesh.rank} of {mesh.size}"
+              f"{where} on {device}")
         yield mesh
 
 
@@ -114,6 +157,11 @@ def _parser():
                    choices=["scan", "kernel"])
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend (default: NCCL on "
+                        "CUDA, gloo on the CPU or where this host's "
+                        "LOCAL_WORLD_SIZE processes outnumber its GPUs); "
+                        "gloo lets processes share one card")
     return p
 
 
@@ -128,6 +176,16 @@ def _run(mesh, args, pid):
     from repro_torch.launch.dryrun import resolve_rules
     from repro_torch.launch.specs import build_program
 
+    if args.mode == "dryrun":
+        from repro_torch.launch.dryrun import run_one
+        result = run_one(args.arch, args.shape, mesh=mesh,
+                         rules_name=args.rules, verbose=pid == 0,
+                         impls=ImplContext(attn=args.attn_impl,
+                                           ssd=args.ssd_impl))
+        print(f"[host {pid}] dryrun OK ({result['rules']}) peak="
+              f"{result['memory']['peak_bytes']} launches="
+              f"{result['launches']}")
+        return result
     rules_name = resolve_rules(args.rules, args.shape, args.arch)
     kw = {"vtrace_impl": args.vtrace_impl} \
         if INPUT_SHAPES[args.shape].kind == "train" else {}
@@ -156,21 +214,16 @@ def _run(mesh, args, pid):
 
 
 def main(argv=None):
-    """Returns process 0's last loss (train) or logits (serve)."""
+    """Returns this process's last loss (train), logits (serve) or dry-run
+    result (dryrun)."""
     args = _parser().parse_args(argv)
-    if args.mode == "dryrun":
-        raise NotImplementedError(
-            "not ported yet: --mode dryrun (compiling the program and "
-            "reading its memory and cost analyses), ROADMAP item 22")
     from repro_torch import resolve_device
     device = resolve_device(args.device)    # no GPU: raises here
     data, model = factor_mesh(args.num_processes)
-    backend = "gloo" if device.type == "cuda" and \
-        args.num_processes > torch.cuda.device_count() else None
     if args.coordinator:
         ctx = bootstrap(args.coordinator, args.num_processes,
                         args.process_id, data=data, model=model,
-                        device=device, backend=backend)
+                        device=device, backend=args.backend)
     elif args.num_processes > 1:
         raise SystemExit("--num-processes > 1 requires --coordinator")
     else:

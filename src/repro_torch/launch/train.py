@@ -48,13 +48,18 @@ holds its model slice of the decoder (``MEGATRON_RULES``: heads, mlp,
 SSM heads and a divisible vocabulary split over "model"), and the token
 batch is split over "data" (``launch/mesh.py::Mesh2D``). Every rank
 writes its slices of each checkpoint, and ``--resume`` restores onto any
-mesh shape (elastic). ``--coordinator HOST:PORT --num-processes N
---process-id i`` runs one rank per command instead of spawning them
-(``launch/multihost.py``). Mesh (1, 1) is the unmeshed run, bit for bit.
-On CUDA rank r runs on ``cuda:r``, so the mesh needs as many GPUs (NCCL
-refuses two ranks on one device; ``launch/mesh.py::launch(devices=,
-backend="gloo")`` puts them on one card, as ``chip_smoke.py`` does). The xLSTM mixers and the VLM's cross-attention take no model axis
-yet (``--mesh-model`` > 1 raises).
+mesh shape (elastic). Mesh (1, 1) is the unmeshed run, bit for bit.
+
+``--coordinator HOST:PORT --num-processes N --process-id i`` runs one
+rank per command instead of spawning them (``launch/multihost.py``), in
+every mode: the LM modes' (data, model) mesh, or rl-agent's data mesh of
+``--mesh-data`` ranks (1 when not given), which must equal N. The
+commands together train as the one command that spawns the ranks does.
+On CUDA rank r runs on ``cuda:r``, so a spawned mesh needs as many GPUs
+(NCCL refuses two ranks on one device; ``launch/mesh.py::launch(devices=,
+backend="gloo")`` puts them on one card, as ``chip_smoke.py`` does);
+coordinated processes share a card through ``--backend gloo``
+(``multihost.coordinated_backend``).
 
 Runs on CUDA unless ``--device cpu`` is given; without a GPU and without
 ``--device cpu`` it raises.
@@ -321,7 +326,7 @@ def _parser():
                         "parameters over M ranks, the token batch over "
                         "--mesh-data; composes with --resume (elastic)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="lm/lm-rl: run ONE rank of the mesh in this process "
+                   help="run ONE rank of the mesh in this process "
                         "(--process-id of --num-processes), joining the "
                         "others at process 0's rendezvous HOST:PORT "
                         "(launch/multihost.py) instead of spawning them")
@@ -329,6 +334,11 @@ def _parser():
                    help="with --coordinator: the mesh's rank count")
     p.add_argument("--process-id", type=int, default=0,
                    help="with --coordinator: this process's rank")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="with --coordinator: the process group's backend "
+                        "(default: NCCL on CUDA, gloo on the CPU or where "
+                        "this host's LOCAL_WORLD_SIZE processes outnumber "
+                        "its GPUs); gloo lets processes share one card")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -446,18 +456,14 @@ def main(argv=None) -> Runtime:
     if args.mesh_model and args.mode == "rl-agent":
         p.error("--mesh-model applies to the LM paths (--mode lm/lm-rl); "
                 "rl-agent is data-parallel only (--mesh-data)")
+    if args.backend and not args.coordinator:
+        p.error("--backend applies with --coordinator")
     if args.num_processes > 1 and not args.coordinator:
         # without the rendezvous each process would train a whole model
         # of its own and clobber the shared checkpoint directory
         p.error("--num-processes > 1 requires --coordinator")
     lm_mesh = args.mode != "rl-agent" and bool(
         args.mesh_data or args.mesh_model or args.coordinator)
-    if args.coordinator and not lm_mesh:
-        given = [flag for flag, on in (
-            ("--num-processes", args.num_processes > 1),
-            ("--mesh-data", args.mesh_data), ("--coordinator", True)) if on]
-        p.error(f"not ported yet: {', '.join(given)} with --mode rl-agent "
-                "(its --mesh-data ranks are spawned, one command for all)")
     if lm_mesh:
         data, model = args.mesh_data or 1, args.mesh_model or 1
         cfg = _lm_config(args)
@@ -470,10 +476,18 @@ def main(argv=None) -> Runtime:
             from repro_torch.launch.multihost import bootstrap
             with bootstrap(args.coordinator, args.num_processes,
                            args.process_id, data=data, model=model,
-                           device=device) as mesh:
+                           device=device, backend=args.backend) as mesh:
                 return _train(mesh, args)
         return mesh_lib.launch(_train, data * model, device=device,
                                args=(args,), model=model)
+    if args.coordinator:
+        # rl-agent, one rank of the --mesh-data data mesh a process
+        from repro_torch.launch.multihost import bootstrap
+        device = resolve_device(args.device)    # no GPU: raises here
+        with bootstrap(args.coordinator, args.num_processes,
+                       args.process_id, data=args.mesh_data or 1,
+                       device=device, backend=args.backend) as mesh:
+            return _train(mesh, args)
     if args.mesh_data:
         device = resolve_device(args.device)    # no GPU: raises here
         return mesh_lib.launch(_train, args.mesh_data, device=device,

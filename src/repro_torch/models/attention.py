@@ -33,6 +33,14 @@ partial sums all-reduced; its decode cache holds the local kv heads only.
 Otherwise it runs whole on every rank. ``xattn`` splits as ``attn`` does:
 its k and v are projected from the replicated ``vision`` source onto the
 rank's kv heads, and its static vision cache holds those heads.
+
+Under context parallelism (the ``cp_fsdp_seqpar`` table's
+``attn_pref="seq"``, with the residual stream sequence-parallel) a layer
+keeps its queries split over the sequence instead of its heads
+(``attn_apply(seq_shard=True)``): each rank attends its own tokens'
+queries, at their offset, to the whole sequence's keys. Decoding (one token) stays
+split over heads, as the reference's constraint falls back to heads where
+the sequence does not divide.
 """
 
 from __future__ import annotations
@@ -44,8 +52,9 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import (Params, apply_rope, copy_to_model,
-                                       model_split, operand, param,
-                                       reduce_from_model, softcap)
+                                       gather_seq, model_mesh, model_split,
+                                       operand, param, reduce_from_model,
+                                       softcap)
 
 # the self-attention kinds: causal, rotary, and the only kinds that run
 # the attention kernels (``xattn`` is the fourth kind)
@@ -173,12 +182,14 @@ def _attend_dense(q, k, v, q_pos, k_pos, scale, window, cap, causal):
 
 
 def _attend_chunked(q, k, v, q_pos, k_pos, scale, window, cap, causal,
-                    chunk, skip):
+                    chunk, skip, q_offset=0):
     """Memory-bounded online-softmax attention: a loop over query chunks,
     and inside it over KV chunks. With ``skip`` the inner loop visits only
     the KV chunks that can hold a live key (causal upper triangle and
     outside the window skipped); without it every chunk is visited and
-    masked."""
+    masked. ``q_offset``: the first query's index in the keys' sequence
+    (an int, for the skip's bounds, which take the positions to be
+    consecutive); the masks read ``q_pos`` and ``k_pos``."""
     b, sq, heads, hd = q.shape
     skv = k.shape[1]
     cq = min(chunk, sq)
@@ -199,8 +210,9 @@ def _attend_chunked(q, k, v, q_pos, k_pos, scale, window, cap, causal,
                           device=q.device)
         lo, hi = 0, nkv
         if skip and causal:
-            hi = min((((i + 1) * cq - 1) // ckv) + 1, nkv)
-            lo = max((i * cq - (window - 1)) // ckv, 0) if window else 0
+            first = q_offset + i * cq
+            hi = min(((first + cq - 1) // ckv) + 1, nkv)
+            lo = max((first - (window - 1)) // ckv, 0) if window else 0
         for j in range(lo, hi):
             kj = kf[:, j * ckv:(j + 1) * ckv]
             vj = vf[:, j * ckv:(j + 1) * ckv]
@@ -231,84 +243,127 @@ class _FlashAttention(torch.autograd.Function):
     """Causal attention on the flash-attention kernel, differentiable: the
     reference's ``jax.custom_vjp`` in its ``_attend_flash_kernel``.
 
-    Forward: the kernel (its plain version for CPU tensors). q (B,S,H,hd)
-    and k, v (B,S,K,hd) go in as (B,H,S,hd) views, unexpanded: the kernel
-    reads kv head h // (H/K) itself. Backward: autograd through the chunked
-    plain path (``_attend_chunked``) recomputed from the saved q, k, v, with
-    fixed trip counts (``skip=False``, as the reference) and positions
-    ``arange(S)``; K/V are expanded inside the recomputation, so dk and dv
-    sum back to the K heads."""
+    Forward: the kernel (its plain version for CPU tensors). q (B,Sq,H,hd)
+    and k, v (B,Sk,K,hd) go in as (B,H,S,hd) views, unexpanded: the kernel
+    reads kv head h // (H/K) itself; query i sits at position ``q_offset +
+    i`` of the keys (0 and Sq = Sk but under context parallelism).
+    Backward: autograd through the chunked plain path (``_attend_chunked``)
+    recomputed from the saved q, k, v, with fixed trip counts
+    (``skip=False``, as the reference) and positions ``q_offset +
+    arange(Sq)`` against ``arange(Sk)``; K/V are expanded inside the
+    recomputation, so dk and dv sum back to the K heads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, window, cap, chunk):
+    def forward(ctx, q, k, v, scale, window, cap, chunk, q_offset):
         ctx.save_for_backward(q, k, v)
-        ctx.opts = (scale, window, cap, chunk)
+        ctx.opts = (scale, window, cap, chunk, q_offset)
         o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), scale=scale, causal=True,
-                                 window=window, softcap=cap or 0.0)
+                                 window=window, softcap=cap or 0.0,
+                                 q_offset=q_offset)
         return o.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, g):
-        scale, window, cap, chunk = ctx.opts
+        scale, window, cap, chunk, q_offset = ctx.opts
         q, k, v = ctx.saved_tensors
         group = q.shape[2] // k.shape[2]
-        pos = torch.arange(q.shape[1], device=q.device)
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
         with torch.enable_grad():
             q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
             o = _attend_chunked(q, _expand_kv(k, group), _expand_kv(v, group),
-                                pos, pos, scale, window, cap, True, chunk,
+                                q_pos, k_pos, scale, window, cap, True, chunk,
                                 skip=False)
             dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
         need = ctx.needs_input_grad
         return (dq if need[0] else None, dk if need[1] else None,
-                dv if need[2] else None, None, None, None, None)
+                dv if need[2] else None, None, None, None, None, None)
 
 
-def _attend_flash_kernel(q, k, v, *, scale, window, cap, chunk):
+def _attend_flash_kernel(q, k, v, *, scale, window, cap, chunk, q_offset=0):
     """Causal attention on the flash-attention kernel, with the backward of
-    ``_FlashAttention``. q (B,S,H,hd), k, v (B,S,K,hd) -> (B,S,H,hd)."""
-    return _FlashAttention.apply(q, k, v, scale, window, cap, chunk)
+    ``_FlashAttention``. q (B,Sq,H,hd), k, v (B,Sk,K,hd) -> (B,Sq,H,hd),
+    query i at position ``q_offset + i``."""
+    return _FlashAttention.apply(q, k, v, scale, window, cap, chunk,
+                                 q_offset)
 
 
-def attn_apply(params, x, *, cfg, kind, positions, kv_src=None, impl=None):
+def attn_apply(params, x, *, cfg, kind, positions, kv_src=None, impl=None,
+               seq_shard=False):
     """Full-sequence attention (training / prefill).
 
     positions: (S,) int token positions. kv_src: (B,Sv,d), the source of
     an ``xattn`` layer's k and v (default ``x``). Returns (out (B,S,d),
     (k, v)) — k, v returned so that prefill can seed caches.
+
+    ``seq_shard`` (context parallelism, ``cp_fsdp_seqpar``: the
+    reference's ``attn_pref="seq"``): ``x`` is this rank's shard (B,S/M,d)
+    of the S tokens, rank i's at offset i·S/M, and so is the output. The
+    layer then computes with its whole weights (gathered; their gradients
+    summed over the model group) on its own rows: q of its tokens, every
+    head; k and v of its tokens gathered over the model group into the
+    whole sequence (an ``xattn`` layer's from the replicated vision
+    source); attention of its queries against every key; the output
+    projection of its rows, which needs no sum. The returned (k, v) are
+    this rank's kv heads, as the decode cache holds them.
+
+    The masks read ``positions``; the flash-attention kernel and the
+    chunked path's skip read the queries' offset in the keys' sequence
+    instead, so they take ``positions`` to be consecutive
+    (``positions[i] == positions[0] + i``), as training and prefill give.
     """
     causal = kind in CAUSAL_KINDS
-    src = x if kv_src is None else kv_src
-    params, split = _weights(params, cfg, kind)
-    q, k, v = _project_qkv(params, cfg, x, src, split)
+    off = 0
+    if seq_shard:
+        mesh = model_mesh()
+        off = mesh.model_index * (positions.shape[0] // mesh.model)
+        w = {n: operand(params, n, None, local=True)
+             for n in ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+             if n in params._parameters}
+        split = False
+        src = x if causal else copy_to_model(kv_src)
+    else:
+        w, split = _weights(params, cfg, kind)
+        src = x if kv_src is None else kv_src
+    q_pos = positions[off:off + x.shape[1]]
+    q, k, v = _project_qkv(w, cfg, x, src, split)
     if cfg.pos_emb == "rope" and causal:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
+    if seq_shard and causal:
+        k = copy_to_model(gather_seq(k))
+        v = copy_to_model(gather_seq(v))
     window = _window(cfg, kind)
     kv_pos = (positions if causal
               else torch.arange(src.shape[1], device=x.device))
     impl = impl or cfg.attn_impl
     if impl == "auto":
-        impl = "xla" if x.shape[1] <= 2048 else "xla_chunked_skip"
+        impl = "xla" if positions.shape[0] <= 2048 else "xla_chunked_skip"
     group = q.shape[2] // k.shape[2]
     if impl == "kernel" and causal:
         o = _attend_flash_kernel(q, k, v, scale=_scale(cfg), window=window,
                                  cap=cfg.attn_logit_softcap,
-                                 chunk=cfg.attn_chunk)
+                                 chunk=cfg.attn_chunk, q_offset=off)
     elif impl == "xla":
         o = _attend_dense(q, _expand_kv(k, group), _expand_kv(v, group),
-                          positions, kv_pos, _scale(cfg), window,
+                          q_pos, kv_pos, _scale(cfg), window,
                           cfg.attn_logit_softcap, causal)
     elif impl in ("xla_chunked", "xla_chunked_skip", "kernel"):
         # the non-causal kernel impl (xattn) falls back to this path
         o = _attend_chunked(q, _expand_kv(k, group), _expand_kv(v, group),
-                            positions, kv_pos, _scale(cfg), window,
+                            q_pos, kv_pos, _scale(cfg), window,
                             cfg.attn_logit_softcap, causal, cfg.attn_chunk,
-                            skip=impl == "xla_chunked_skip")
+                            skip=impl == "xla_chunked_skip", q_offset=off)
     else:
         raise ValueError(f"unknown attn impl {impl}")
-    return _out_proj(params, cfg, o, split), (k, v)
+    out = _out_proj(w, cfg, o, split)
+    parts = head_split(cfg)
+    if seq_shard and parts > 1:
+        n = k.shape[2] // parts
+        k = k[:, :, mesh.model_index * n:(mesh.model_index + 1) * n]
+        v = v[:, :, mesh.model_index * n:(mesh.model_index + 1) * n]
+    return out, (k, v)
 
 
 # ---------------------------------------------------------------------------

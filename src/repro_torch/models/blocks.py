@@ -20,7 +20,11 @@ and the model axis divides S): the residual ``x`` is this rank's
 gradient summed over the model group), gathers the sequence where the
 reference puts ``gather_seq`` (after the pre-norm), runs the mixer or
 FFN on the whole sequence as under Megatron, and keeps the rank's shard
-of the output (``scatter_seq``) for the residual add.
+of the output (``scatter_seq``) for the residual add. Under context
+parallelism (``cp_fsdp_seqpar``'s ``attn_pref="seq"``) an attention
+sublayer skips both: it attends the shard's queries to the whole
+sequence's keys (``attention.attn_apply(seq_shard=True)``) and returns
+the shard's output, so its norms act on the shard alone.
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ import torch
 
 from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.common import (Params, gather_seq, make_norm,
-                                       remat, remat_active, scatter_seq,
-                                       seq_local)
+                                       remat, remat_active, rule,
+                                       scatter_seq, seq_local)
 
 ATTN_KINDS = attention.CAUSAL_KINDS + ("xattn",)
 # the recurrent mixers' (init, apply, decode, cache_init(cfg, batch, dtype,
@@ -90,15 +94,16 @@ def _add_aux(a, b):
     return tuple(x + y for x, y in zip(a, b))
 
 
-def _pre_norm(norm_fn, node, x, seq_split):
+def _pre_norm(norm_fn, node, x, seq_split, gather=True):
     """The pre-norm of a sublayer's input; under ``seq_split`` over the
     rank's sequence shard, then gathered (the reference's
-    ``gather_seq``)."""
+    ``gather_seq``) unless the sublayer takes the shard (``gather``
+    False)."""
     if not seq_split:
         return norm_fn(node, x)
     with seq_local():
         h = norm_fn(node, x)
-    return gather_seq(h)
+    return gather_seq(h) if gather else h
 
 
 def _apply_ffn(layer, x, cfg, ffn, norm_fn, seq_split=False):
@@ -137,9 +142,14 @@ def block_apply(params, x, *, cfg, positions, pattern=None, vision=None,
     pattern = pattern if pattern is not None else cfg.block_pattern
     _, norm_fn = make_norm(cfg)
 
+    # context parallelism: attention takes the sequence shard
+    cp = seq_split and rule("attn_pref") == "seq"
+
     def layer_fn(layer, x, mixer, ffn):
         aux = None
-        h = _pre_norm(norm_fn, layer["pre_norm"], x, seq_split)
+        shard = cp and mixer not in _RECURRENT
+        h = _pre_norm(norm_fn, layer["pre_norm"], x, seq_split,
+                      gather=not shard)
         lcache = None
         if mixer in _RECURRENT:
             h, lcache = _RECURRENT[mixer][1](layer["mixer"], h, cfg,
@@ -147,13 +157,18 @@ def block_apply(params, x, *, cfg, positions, pattern=None, vision=None,
         else:
             h, kv = attention.attn_apply(
                 layer["mixer"], h, cfg=cfg, kind=mixer, positions=positions,
-                kv_src=vision if mixer == "xattn" else None, impl=impl)
+                kv_src=vision if mixer == "xattn" else None, impl=impl,
+                seq_shard=shard)
             if build_cache:
                 lcache = attention.attn_prefill_cache(cfg, mixer, kv,
                                                       seq_len, dtype)
         if cfg.sandwich_norm:
-            h = norm_fn(layer["post_norm"], h)
-        if seq_split:
+            if shard:
+                with seq_local():
+                    h = norm_fn(layer["post_norm"], h)
+            else:
+                h = norm_fn(layer["post_norm"], h)
+        if seq_split and not shard:
             h = scatter_seq(h)
         x = x + h
         if ffn != "none":

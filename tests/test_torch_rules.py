@@ -10,8 +10,9 @@ without process groups:
   and of its optimizer state (``zero_slices``) is the block those specs
   give that rank of the whole stacked leaf.
 * ``resolve_rules`` picks the reference's table for every arch and shape.
-* The refusals: ``rules_named('cp_fsdp_seqpar')`` (ROADMAP item 27) and
-  ``multihost --mode dryrun`` (item 22).
+* ``rules_named`` takes every LM table, ``cp_fsdp_seqpar`` included, and
+  refuses the agent's; ``multihost --mode dryrun`` refuses more
+  processes than its rendezvous joins.
 """
 
 import copy
@@ -167,11 +168,13 @@ def test_resolve_rules_matches_reference(shape):
 
 
 def test_rules_named_takes_the_lm_tables_and_refuses_cp():
-    for name in ("megatron", "fsdp", "seqpar", "fsdp_seqpar", "expert",
-                 "expert_seqpar"):
+    # (the name is kept from when cp_fsdp_seqpar was refused: the table
+    # is taken now, its programs in tests/test_torch_specs.py; the agent's
+    # table is what is still refused)
+    for name in ("megatron", "fsdp", "seqpar", "fsdp_seqpar",
+                 "cp_fsdp_seqpar", "expert", "expert_seqpar"):
         assert sharding.rules_named(name) is sharding.RULE_SETS[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 27"):
-        sharding.rules_named("cp_fsdp_seqpar")
+    assert sharding.rules_named("cp_fsdp_seqpar")["attn_pref"] == "seq"
     with pytest.raises(NotImplementedError, match="not ported yet"):
         sharding.rules_named("rl_agent")
     with pytest.raises(KeyError):
@@ -179,8 +182,12 @@ def test_rules_named_takes_the_lm_tables_and_refuses_cp():
 
 
 def test_multihost_dryrun_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 22"):
-        multihost.main(["--mode", "dryrun", "--device", "cpu"])
+    # (the name is kept from when --mode dryrun was refused; it now runs,
+    # tests/test_torch_roofline.py, and refuses only what every mode does:
+    # more processes than the rendezvous can join)
+    with pytest.raises(SystemExit, match="requires --coordinator"):
+        multihost.main(["--mode", "dryrun", "--device", "cpu",
+                        "--num-processes", "2"])
     assert multihost.factor_mesh(1) == (1, 1)
     assert multihost.factor_mesh(4) == (1, 4)
     assert multihost.factor_mesh(6) == (3, 2)

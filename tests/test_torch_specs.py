@@ -6,9 +6,12 @@
   and a small ``InputShape`` on a (1, 1) mesh (as
   ``tests/test_dryrun_small.py`` builds it), run on the same JAX weights
   and numpy-seeded inputs. The cases cover every table the LM layers
-  take but Megatron (fsdp, seqpar, fsdp_seqpar, expert, expert_seqpar),
+  take but Megatron (fsdp, seqpar, fsdp_seqpar, cp_fsdp_seqpar, expert,
+  expert_seqpar),
   every arch family (dense, MoE, hybrid Mamba2, xLSTM, VLM) and every
-  program kind (train with ZeRO-1/2, prefill, decode). Bars: losses and
+  program kind (train with ZeRO-1/2, prefill, decode); the
+  context-parallel ``cp_fsdp_seqpar`` (a train and a VLM prefill) runs at
+  (1, 2) as well. Bars: losses and
   logits within 1e-5 (float32, relative and absolute, as
   ``tests/test_torch_lm_learner.py``), every parameter after the
   RMSProp step within 1e-4 of the reference's, on each rank's slice.
@@ -56,7 +59,13 @@ CASES = (("qwen3-4b", "fsdp_seqpar", "train"),
          ("xlstm-125m", "fsdp", "train"),
          ("llama-3.2-vision-90b", "fsdp_seqpar", "prefill"),
          ("qwen3-4b", "fsdp", "decode"),
-         ("granite-moe-1b-a400m", "expert", "decode"))
+         ("granite-moe-1b-a400m", "expert", "decode"),
+         # context parallel: the queries split over the sequence through
+         # attention (offset from their gathered keys), self-attention in
+         # training and cross-attention in a prefill that builds the cache
+         ("qwen3-4b", "cp_fsdp_seqpar", "train"),
+         ("llama-3.2-vision-90b", "cp_fsdp_seqpar", "prefill"))
+CP_CASES = tuple(c for c in CASES if c[1] == "cp_fsdp_seqpar")
 TOL, PARAM_TOL, ZERO_TOL = 1e-5, 1e-4, 1e-6
 
 
@@ -192,10 +201,7 @@ def programs():
     return refs, got
 
 
-@pytest.mark.parametrize("case", CASES, ids=["-".join(c) for c in CASES])
-def test_build_program_matches_reference(programs, case):
-    refs, got = programs
-    want = refs[case][2]
+def _check(want, got, case):
     for rank, outs in enumerate(got):
         out = outs[case]
         if case[2] == "train":
@@ -208,6 +214,24 @@ def test_build_program_matches_reference(programs, case):
         np.testing.assert_allclose(
             out["logits"], want["logits"][index * rows:(index + 1) * rows],
             rtol=TOL, atol=TOL, err_msg=f"rank {rank}")
+
+
+@pytest.mark.parametrize("case", CASES, ids=["-".join(c) for c in CASES])
+def test_build_program_matches_reference(programs, case):
+    refs, got = programs
+    _check(refs[case][2], got, case)
+
+
+@pytest.mark.parametrize("case", CP_CASES, ids=["-".join(c) for c in CP_CASES])
+def test_cp_fsdp_seqpar_at_one_by_two_matches_reference(programs, case):
+    """The context-parallel table on a (1, 2) mesh too: no data axis, the
+    two ranks' queries at offsets 0 and S/2."""
+    from conftest import free_port
+    refs, _ = programs
+    got = mesh_lib.launch(_rank, 2, device="cpu", model=2,
+                          args=({case: refs[case]},), port=free_port(),
+                          timeout_s=120.0)
+    _check(refs[case][2], got, case)
 
 
 # ---------------------------------------------------------------------------

@@ -78,14 +78,11 @@ def test_lm_modes_train_on_cpu(argv, label, keys, capsys):
 
 
 # (the first case, xlstm-125m under --mesh-model 2, went with its refusal:
-# the xLSTM mixers take a model axis; the ids of the others stay)
+# the xLSTM mixers take a model axis; the next two, --coordinator with
+# --num-processes or --mesh-data for rl-agent, with theirs: rl-agent runs
+# over coordinated processes (tests/test_torch_multihost_rl.py); the id
+# of the last stays)
 @pytest.mark.parametrize("argv,message", [
-    pytest.param(["--num-processes", "2", "--coordinator", "127.0.0.1:1"],
-                 "not ported yet: --num-processes",
-                 id="argv1-not ported yet: --num-processes"),
-    pytest.param(["--mesh-data=2", "--coordinator", "127.0.0.1:1"],
-                 "not ported yet: --mesh-data",
-                 id="argv2-not ported yet: --mesh-data"),
     pytest.param(["--no-such-flag"], "unrecognized", id="argv3-unrecognized"),
 ])
 def test_unported_options_exit_with_a_clear_error(argv, message, capsys):
