@@ -230,6 +230,24 @@ exits nonzero without printing a result:
               as 27c's runs; 28c python -m repro_torch.launch.dryrun on
               the card (DRYRUN_ARGV: one step of the program and of its
               block program, peak memory) and its modelled 16x16 report
+ 29. graph    slice 16, the compiled decode step (session_fns: a CUDA
+              graph of model.serve_step a state's static buffers) at full
+              width against eager steps from the same state, every
+              product bitwise (logits, baseline, each cache leaf, token,
+              log-prob, entropy, the step's baseline): the Qwen3-4B,
+              Zamba2-2.7B, Granite and xLSTM-125M 8-slot sessions in
+              bf16 (GRAPH_SESSIONS; one capture, K3 a replay equal to an
+              eager step's, an in-place SGD step of the weights read by
+              the next replay with no new capture; xLSTM also another
+              params module, one more capture), eager and graph ms a
+              step in turns, one replay's device ms, the graph step's
+              idle share under torch.profiler; one Llama-3.2-Vision-90B
+              group's generate(vision=) (phase 25's shapes) and its
+              eager loop; Granite lm-rl generation through
+              GeneratorSource (B 8, T 64), two batches around an
+              in-place weight update, against the same episodes
+              generated eagerly, one capture. Phases 10, 12, 15, 20-25
+              decode through the graphs too, their checks unchanged
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
               phase 17's launches; recurrent_*: phase 18's; granite_*:
@@ -539,6 +557,20 @@ CP_SPEC_RUN = dict(
           "as much again in gradients and RMSProp state")
 # 28c: the dry run on the card (one rank)
 DRYRUN_ARGV = ["--arch", XLSTM, "--shape", "decode_32k", "--ranks", "1"]
+# phase 29: the compiled decode step at full width against eager: the
+# servers' sessions at phase_profile's prompt lengths and caps (Granite's
+# as xLSTM's: prompts of up to 64 tokens in its server), slot 7 evicted;
+# GRAPH_CHECK_STEPS steps (the first a warm eager step, the second the
+# capture) and GRAPH_AFTER_STEPS after an in-place weight update, held
+# bitwise; GRAPH_TIMED_STEPS steps a turn for the eager and graph times,
+# GRAPH_PROFILED under the profiler
+GRAPH_SESSIONS = (
+    ("qwen3-4b", [256 + 32 * slot for slot in range(8)], 576),
+    ("zamba2-2.7b", [32 * (slot + 1) for slot in range(8)], 320),
+    (GRANITE, [8 * (slot + 1) for slot in range(8)], 128),
+    (XLSTM, [8 * (slot + 1) for slot in range(8)], 128))
+GRAPH_CHECK_STEPS, GRAPH_AFTER_STEPS = 6, 2
+GRAPH_TIMED_STEPS, GRAPH_PROFILED = 10, 5
 # the LM trainers at full published width (phases 15, 16)
 LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
               "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
@@ -3616,7 +3648,7 @@ def _mp_serve_rank(mesh):
         served=server.served, steps=server.steps,
         admissions=server.admissions, seconds=seconds,
         decode_ms_per_step=server.decode_seconds / max(1, server.steps)
-        * 1e3, launches=ops.stats(),
+        * 1e3, launches=ops.stats(), compiled=server.session.compiled,
         outputs=[r.tolist() for r in results]), mesh)
 
 
@@ -3635,10 +3667,13 @@ def phase_mp_serve():
             raise AssertionError(f"mp_serve rank {r['rank']}: float32 "
                                  f"logits {rel:.3e} of their largest from "
                                  f"the unmeshed session's")
-        if r["served"] != MP_SERVE_REQUESTS or any(r["launches"].values()):
+        if r["served"] != MP_SERVE_REQUESTS or any(r["launches"].values()) \
+                or r["compiled"]:
             raise AssertionError(f"mp_serve rank {r['rank']} served "
                                  f"{r['served']} of {MP_SERVE_REQUESTS}, "
-                                 f"launched {r['launches']}")
+                                 f"launched {r['launches']}, compiled "
+                                 f"{r['compiled']} (a meshed session is "
+                                 "eager by rule)")
     if ranks[0]["outputs"] != ranks[1]["outputs"]:
         raise AssertionError("mp_serve: the model ranks' outputs differ")
     for r in ranks:
@@ -4364,6 +4399,392 @@ def phase28():
     return out
 
 
+# ---------------------------------------------------------------------------
+# 29. the compiled decode step (session_fns): CUDA graphs against eager
+
+
+def _clone_state(state):
+    """A copy of a session state that shares nothing with it: tensors
+    cloned, each generator at the same place of its stream."""
+    import torch
+
+    from repro_torch.models.common import tree_map
+
+    def gen(g):
+        out = torch.Generator(device=g.device)
+        out.set_state(g.get_state())
+        return out
+    return {"cache": tree_map(torch.clone, state["cache"]),
+            "pos": state["pos"].clone(), "last": state["last"].clone(),
+            "temp": state["temp"].clone(),
+            "gens": [gen(g) for g in state["gens"]],
+            "active": state["active"].copy()}
+
+
+def _gap(got, want):
+    """0.0 when bitwise equal, else the largest absolute difference (inf
+    for another shape or dtype)."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return math.inf
+    if got.dtype.is_floating_point:
+        if torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            return 0.0
+        return float((got.double() - want.double()).abs().max())
+    return 0.0 if torch.equal(got, want) else float(
+        (got.long() - want.long()).abs().max())
+
+
+def graph_against_eager(ops, fns, params, state, ref, cfg, steps, gaps):
+    """``steps`` decode steps of ``state`` through ``fns`` (its first call
+    for a key warms eagerly, the second captures, the rest replay)
+    against eager steps of ``ref`` (``_session_step``'s halves): logits,
+    baseline, every cache leaf, then the sampled token, log-prob, entropy
+    and the step's baseline, each product's worst gap into ``gaps``;
+    decode-attention launches of each graph step equal to the eager
+    step's. Returns the graph steps' K3 launches."""
+    from repro_torch.core import generate as gen_lib
+    from repro_torch.tree import flatten
+
+    def note(name, got, want):
+        gaps[name] = max(gaps.get(name, 0.0), _gap(got, want))
+
+    total = 0
+    for _ in range(steps):
+        before = ops.stats()["decode_attention"]
+        lg, bg = fns.decode(params, state)
+        lg = lg.clone()
+        k3 = ops.stats()["decode_attention"] - before
+        le, be = gen_lib._session_decode(params, ref, cfg=cfg)
+        k3_eager = ops.stats()["decode_attention"] - before - k3
+        if k3 != k3_eager:
+            raise AssertionError(f"graph step K3 {k3}, eager {k3_eager}")
+        total += k3
+        note("logits", lg, le)
+        if bg is not None:
+            note("baseline_head", bg, be)
+        for (path, x), (_, y) in zip(flatten(state["cache"]),
+                                     flatten(ref["cache"])):
+            note("cache/" + path, x, y)
+        _, og = gen_lib._session_advance(state, lg, bg)
+        _, oe = gen_lib._session_advance(ref, le, be)
+        for k in og:
+            note(k, og[k], oe[k])
+        note("pos", state["pos"], ref["pos"])
+    return total
+
+
+def _check_bitwise(phase, gaps):
+    bad = {k: v for k, v in gaps.items() if v != 0.0}
+    if bad:
+        raise AssertionError(f"{phase}: the graph path is not bitwise the "
+                             f"eager path: {bad}")
+
+
+def _sgd_in_place(params, seed):
+    """One in-place SGD step (lr 1e-3, no clip) of the port's optimizer on
+    seeded random gradients, one leaf at a time."""
+    import torch
+
+    from repro_torch.optim import sgd
+    opt = sgd(1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in params.parameters():
+            g = torch.randn(p.shape, generator=gen, device=p.device)
+            opt.step([g], opt.init([p]), [p], 0)
+
+
+def _alternated_ms(fns_by_name, steps, rounds=2):
+    """Host ms a call of each function (synchronised), in turns: median
+    over ``rounds`` blocks of ``steps`` calls each."""
+    import torch
+    times = {name: [] for name in fns_by_name}
+    for _ in range(rounds):
+        for name, fn in fns_by_name.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / steps * 1e3)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def phase_graph_session(ops, arch, prompt_lens, cap, swap=False):
+    """29 for one server's session at full width (bf16 on float32
+    weights from seed 0, 8 slots admitted with ``prompt_lens`` into
+    ``cap``-slot caches, slot 7 then evicted): GRAPH_CHECK_STEPS steps of
+    the compiled step against eager from the same state, bitwise; one
+    capture; an in-place SGD step of the weights, then GRAPH_AFTER_STEPS
+    more steps held the same way with no new capture; with ``swap``,
+    another params module: one more capture and its steps bitwise too.
+    Then decode ms a step, eager and graph in turns (DecodeSession.step
+    and ``_session_step``, each with its host copy), the device time of
+    one replay (CUDA events) and a profile of GRAPH_PROFILED graph steps
+    (device busy share)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import generate as gen_lib
+    from repro_torch.models import model as model_lib
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel",
+                              ssd_impl="kernel")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    sess = gen_lib.DecodeSession(params, cfg, max_batch=8, max_len=cap)
+    rng = np.random.default_rng(1)
+    for slot, n in enumerate(prompt_lens):
+        sess.prefill_into(slot, rng.integers(0, cfg.vocab_size, n),
+                          seed=slot)
+    sess.evict(7)
+    fns = gen_lib.session_fns(cfg)
+    state, ref = sess._state, _clone_state(sess._state)
+    captures0, gaps = fns.captures, {}
+    t0 = time.perf_counter()
+    k3 = graph_against_eager(ops, fns, params, state, ref, cfg,
+                             GRAPH_CHECK_STEPS, gaps)
+    first_steps_s = time.perf_counter() - t0
+    captured = fns.captures - captures0
+    _sgd_in_place(params, seed=29)
+    k3 += graph_against_eager(ops, fns, params, state, ref, cfg,
+                              GRAPH_AFTER_STEPS, gaps)
+    after_update = fns.captures - captures0
+    swapped = None
+    if swap:
+        other = model_lib.init(cfg, seed=1, device="cuda")
+        sess.params = other
+        graph_against_eager(ops, fns, other, state, ref, cfg,
+                            GRAPH_CHECK_STEPS, gaps)
+        swapped = fns.captures - captures0
+        sess.params = params
+        graph_against_eager(ops, fns, params, state, ref, cfg, 2, gaps)
+        del other
+    attn, _ = kernel_layers(cfg)
+    ms = _alternated_ms({
+        "eager": lambda: gen_lib._host(gen_lib._session_step(
+            params, ref, cfg=cfg)[1]),
+        "graph": sess.step}, GRAPH_TIMED_STEPS)
+    entry = fns._graphs[state["pos"]]
+    replay_ms = event_ms(entry.graph.replay, reps=10)
+    profiled_ms, busy_ms, kernels = _profiled(sess.step, GRAPH_PROFILED)
+    emit("graph_session", arch=cfg.name, dtype=cfg.dtype, slots=8, cap=cap,
+         active_slots=7, compiled=sess.compiled,
+         checked_steps=GRAPH_CHECK_STEPS + GRAPH_AFTER_STEPS,
+         gaps=gaps, captures=captured, captures_after_update=after_update,
+         captures_after_swap=swapped, k3_per_step=k3 / (
+             GRAPH_CHECK_STEPS + GRAPH_AFTER_STEPS), k3_layers=attn,
+         first_steps_s=first_steps_s, eager_ms_per_step=ms["eager"],
+         graph_ms_per_step=ms["graph"],
+         graph_replay_device_ms=replay_ms,
+         profiled_graph_step_ms=profiled_ms,
+         device_busy_ms=busy_ms if busy_ms is not None else "not measured",
+         device_idle_share=(1 - busy_ms / profiled_ms if busy_ms
+                            else "not measured"), **kernels)
+    _check_bitwise(f"graph_session {arch}", gaps)
+    if not sess.compiled or captured != 1 or after_update != 1 \
+            or (swap and swapped != 2):
+        raise AssertionError(f"graph_session {arch}: compiled "
+                             f"{sess.compiled}, captures {captured}, "
+                             f"{after_update} after the update, {swapped} "
+                             "after the swap; want 1, 1, 2")
+    if k3 != attn * (GRAPH_CHECK_STEPS + GRAPH_AFTER_STEPS):
+        raise AssertionError(f"graph_session {arch}: K3 {k3}, want "
+                             f"{attn} a step")
+    del sess, state, ref, params, entry
+    torch.cuda.empty_cache()
+
+
+def _eager_generate(params, prompt, seed, cfg, num_steps, vision):
+    """``generate``'s loop by hand from the plain functions: the prefill,
+    then ``_session_step`` on its own state."""
+    import torch
+
+    from repro_torch.core import generate as gen_lib
+    b = prompt.shape[0]
+    gens = [torch.Generator(device="cuda").manual_seed(seed + i)
+            for i in range(b)]
+    temp = torch.ones((b,), dtype=torch.float32, device="cuda")
+    state, out = gen_lib._session_prefill(
+        params, prompt, gens, temp, cfg=cfg,
+        cache_seq_len=prompt.shape[1] + num_steps, vision=vision)
+    outs = [out]
+    for _ in range(num_steps - 1):
+        state, out = gen_lib._session_step(params, state, cfg=cfg)
+        outs.append(out)
+    return {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}
+
+
+def phase_graph_vlm(ops):
+    """29 for one Llama-3.2-Vision-90B group (phase 25's: bf16 on float32
+    weights, B 4, VLM_PROMPT-token prompts with the seeded vision stub,
+    VLM_GEN tokens): GRAPH_CHECK_STEPS compiled steps against eager on
+    ``generate``'s static buffers, bitwise; then ``generate(vision=)``
+    twice against its eager loop, bitwise, with no new capture; decode ms
+    a step of each from the calls' times less a prefill's."""
+    import weakref
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import generate as gen_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_config(VLM), num_groups=VLM_GROUPS,
+                              attn_impl="kernel")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    b, cap = 4, VLM_PROMPT + VLM_GEN
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (b, VLM_PROMPT))
+    vision = vision_stub(cfg, b, torch.bfloat16)
+    fns = gen_lib.session_fns(cfg)
+    captures0, gaps = fns.captures, {}
+    gens = [torch.Generator(device="cuda").manual_seed(i) for i in range(b)]
+    state, _ = fns.prefill(params, torch.as_tensor(prompt, device="cuda"),
+                           gens, torch.ones((b,), device="cuda"),
+                           cache_seq_len=cap, vision=vision)
+    bufs = fns.buffers(params, b, cap)           # generate's, as it does
+    tree_map(lambda dst, src: dst.copy_(src), bufs,
+             {k: state[k] for k in bufs})
+    state.update(bufs)
+    ref = _clone_state(state)
+    k3 = graph_against_eager(ops, fns, params, state, ref, cfg,
+                             GRAPH_CHECK_STEPS, gaps)
+    del state, ref
+    fns.release(weakref.ref(params), b, cap, bufs)
+    attn, _ = kernel_layers(cfg)
+    if k3 != attn * GRAPH_CHECK_STEPS:
+        raise AssertionError(f"graph_vlm: K3 {k3}, want {attn} a step")
+
+    def timed(eager, num_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if eager:
+            out = _eager_generate(params, torch.as_tensor(prompt,
+                                                          device="cuda"),
+                                  0, cfg, num_steps, vision)
+            out["tokens"] = out.pop("token")
+        else:
+            out = gen_lib.generate(params, prompt, 0, cfg=cfg,
+                                   num_steps=num_steps, vision=vision)
+            out["tokens"] = out["tokens"][:, VLM_PROMPT:]
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    _, prefill_ms = timed(False, 1)
+    ms, outs = {}, {}
+    for name in ("eager", "graph", "graph2", "eager2"):
+        outs[name], ms[name] = timed(name.startswith("eager"), VLM_GEN)
+    for name in ("graph", "graph2"):
+        for k in ("tokens", "logprob", "entropy", "baseline"):
+            gaps["generate/" + k] = max(gaps.get("generate/" + k, 0.0),
+                                        _gap(outs[name][k], outs["eager"][k]))
+    captured = fns.captures - captures0
+    per_step = {name: (ms[name] - prefill_ms) / (VLM_GEN - 1)
+                for name in ms}
+    emit("graph_vlm", arch=cfg.name, dtype=cfg.dtype,
+         num_groups=cfg.num_groups, batch=b, prompt_len=VLM_PROMPT,
+         gen_tokens=VLM_GEN, checked_steps=GRAPH_CHECK_STEPS, gaps=gaps,
+         captures=captured, k3=k3, prefill_ms=prefill_ms, call_ms=ms,
+         eager_ms_per_step=statistics.median(
+             [per_step["eager"], per_step["eager2"]]),
+         graph_ms_per_step=statistics.median(
+             [per_step["graph"], per_step["graph2"]]))
+    _check_bitwise("graph_vlm", gaps)
+    if captured != 1:
+        raise AssertionError(f"graph_vlm: {captured} captures, want 1")
+    del params, outs, vision
+    torch.cuda.empty_cache()
+
+
+def phase_graph_source(ops):
+    """29 for Granite lm-rl generation at full width: GeneratorSource
+    (GLM_RL_ARGV's B 8, T 64) through the compiled session, two batches
+    with an in-place SGD step of the weights between them, each against
+    the same episodes generated eagerly (the source's prompts and seeds,
+    ``_session_step`` on a session of its own): tokens and behaviour
+    log-probs bitwise, K3 launches equal, one capture for both batches;
+    generation ms of each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import generate as gen_lib
+    from repro_torch.core.sources import GeneratorSource
+    from repro_torch.models import model as model_lib
+
+    b, t = 8, 64
+    cfg = dataclasses.replace(get_config(GRANITE), attn_impl="kernel")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    source = GeneratorSource(cfg, batch_size=b, episode_length=t, seed=0)
+    fns = gen_lib.session_fns(cfg)
+    captures0, gaps, rounds = fns.captures, {}, []
+    for round_ in range(2):
+        saved = source._gen.get_state()
+        before = ops.stats()["decode_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = source.next_batch(params)
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) * 1e3
+        k3 = ops.stats()["decode_attention"] - before
+        gen = torch.Generator()
+        gen.set_state(saved)
+        prompt = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen)
+        seeds = torch.randint(0, 2 ** 62, (b,), generator=gen)
+        sess = gen_lib.DecodeSession(params, cfg, max_batch=b,
+                                     max_len=t + 1)
+        before = ops.stats()["decode_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = sess.prefill_many(range(b), list(prompt.numpy()),
+                                  seeds=seeds.tolist())
+        toks, lps = [[f["token"] for f in first]], [[f["logprob"]
+                                                     for f in first]]
+        for _ in range(t - 1):
+            o = gen_lib._host(gen_lib._session_step(params, sess._state,
+                                                    cfg=cfg)[1])
+            toks.append(o["token"])
+            lps.append(o["logprob"])
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        k3_eager = ops.stats()["decode_attention"] - before
+        del sess
+        want_obs = torch.cat([prompt.T, torch.as_tensor(np.asarray(toks))])
+        gaps["tokens"] = max(gaps.get("tokens", 0.0), _gap(
+            batch["obs"].cpu().long(), want_obs.long()))
+        gaps["behavior_logprob"] = max(gaps.get("behavior_logprob", 0.0), _gap(
+            batch["behavior_logprob"].cpu(),
+            torch.as_tensor(np.asarray(lps, np.float32))))
+        rounds.append(dict(graph_ms=graph_ms, eager_ms=eager_ms, k3=k3,
+                           k3_eager=k3_eager))
+        if k3 != k3_eager:
+            raise AssertionError(f"graph_source: K3 {k3}, eager {k3_eager}")
+        if round_ == 0:
+            _sgd_in_place(params, seed=30)
+    captured = fns.captures - captures0
+    emit("graph_source", arch=cfg.name, dtype=cfg.dtype, batch=b,
+         episode_length=t, gaps=gaps, captures=captured, rounds=rounds,
+         note="generation ms: prefill_many plus 63 steps, each with its "
+              "host copy; round 0 includes the warm step and the capture")
+    _check_bitwise("graph_source", gaps)
+    if captured != 1:
+        raise AssertionError(f"graph_source: {captured} captures, want 1")
+    del params, source
+    torch.cuda.empty_cache()
+
+
+def phase29(ops):
+    """29: the compiled decode step at full width against eager."""
+    for arch, lens, cap in GRAPH_SESSIONS:
+        phase_graph_session(ops, arch, lens, cap, swap=arch == XLSTM)
+    phase_graph_vlm(ops)
+    phase_graph_source(ops)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4560,6 +4981,11 @@ def main():
     # the card, 28b the context-parallel specs program (K2 with its query
     # offset), 28c the dry run
     slice15 = phase28()
+
+    # 29. slice 16: the compiled decode step at full width (the servers'
+    # sessions, one VLM group's generate, Granite's lm-rl generation),
+    # graph against eager
+    phase29(ops)
 
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]

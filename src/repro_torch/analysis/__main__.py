@@ -2,7 +2,8 @@
 
 Exits 0 iff no unwaived findings; the JSON report carries every audited
 kernel launch (grid, threads, shared memory, joined with the roofline's
-FLOPs and bytes) and every finding (waived ones included, marked)."""
+FLOPs and bytes), every trace-audit entry and every finding (waived ones
+included, marked)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import sys
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="static kernel-geometry and concurrency audit")
+        description="static kernel-geometry, trace and concurrency audit")
     parser.add_argument("--report", default=None, metavar="PATH",
                         help="write the full JSON report here")
     parser.add_argument("--archs", default=None,
@@ -32,6 +33,12 @@ def main(argv=None) -> int:
               f"{row['shape']:<12} grid={tuple(row['grid'])!s:<20} "
               f"threads={row['threads']:>4} smem={row['smem_bytes']:>6} B  "
               f"flops={row['roofline']['flops']:.3g}")
+    print(f"trace entries audited: {len(report['trace_entries'])}")
+    for row in report["trace_entries"]:
+        facts = " ".join(f"{k}={v}" for k, v in row.items()
+                         if k not in ("entry", "ok"))
+        print(f"  {row['entry']:<44} {facts}  "
+              f"{'ok' if row['ok'] else 'FAIL'}")
     if args.report:
         with open(args.report, "w", encoding="utf-8") as f:
             json.dump(report, f, indent=1, sort_keys=True)

@@ -31,19 +31,34 @@ table, the params this rank's slices) each call runs the model under
 model group where the vocabulary is split), and model rank 0's tokens,
 log-probs and entropies are broadcast to the other ranks of its group, so
 the ranks of a data index stay in lockstep whatever their arithmetic.
+
+Both drive them through ``session_fns(cfg, mesh, rules)``, the
+reference's compiled session functions, cached by the config's value. On
+CUDA tensors with no mesh its ``step`` runs the model's decode step
+(``model.serve_step``) as a CUDA graph of the state's static buffers: the
+cache leaves, ``pos`` and ``last`` (written in place, never rebound) and
+the params' storages. Sampling and the pos/last update stay outside the
+graph, on the per-slot generators. On CPU tensors, and under a mesh
+(gloo's collectives cannot be captured), ``step`` is the eager
+``_session_step``, the plain version.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import Dict
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.core.batcher import bucket_size
+from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import model_mesh, tree_map, use_rules
+from repro_torch.tree import leaves
 
 
 def logprob_entropy(logits, tokens):
@@ -113,27 +128,42 @@ def _session_prefill(params, prompt, gens, temp, *, cfg, cache_seq_len,
     active = np.ones(b, bool)
     tok, lp, ent = _from_model_root(*_sample(logits0[:, 0], temp, gens,
                                              active))
-    state = {"cache": cache, "pos": (li + 1).to(torch.int32), "last": tok,
-             "gens": list(gens), "temp": temp, "active": active}
+    # ``last`` is updated in place by every step: its own copy of tok
+    state = {"cache": cache, "pos": (li + 1).to(torch.int32),
+             "last": tok.clone(), "gens": list(gens), "temp": temp,
+             "active": active}
     return state, _out(tok, lp, ent, base0)
 
 
 @torch.no_grad()
-def _session_step(params, state, *, cfg):
-    """Advance every slot one token. Inactive rows still run (lockstep
-    batch) but their pos/last are frozen and their generators draw nothing;
-    their cache writes land in their own row only, which admission
-    overwrites."""
+def _session_decode(params, state, *, cfg):
+    """The model's decode step on every slot's last token at its position,
+    the cache written in place: (logits (B,1,V) float32, baseline)."""
+    logits, baseline, _ = model_lib.serve_step(
+        params, state["last"][:, None], state["cache"], state["pos"],
+        cfg=cfg)
+    return logits, baseline
+
+
+def _session_advance(state, logits, baseline):
+    """Sample each slot's token from ``logits`` and move the active slots'
+    pos and last, in place. Inactive rows' pos/last are frozen and their
+    generators draw nothing. Returns (state, out)."""
     pos, last, active = state["pos"], state["last"], state["active"]
-    logits, baseline, cache = model_lib.serve_step(
-        params, last[:, None], state["cache"], pos, cfg=cfg)
     tok, lp, ent = _from_model_root(*_sample(logits[:, 0], state["temp"],
                                              state["gens"], active))
     live = torch.as_tensor(active, device=pos.device)
-    new_state = dict(state, cache=cache,
-                     pos=torch.where(live, pos + 1, pos),
-                     last=torch.where(live, tok, last))
-    return new_state, _out(tok, lp, ent, baseline)
+    pos.copy_(torch.where(live, pos + 1, pos))
+    last.copy_(torch.where(live, tok, last))
+    return state, _out(tok, lp, ent, baseline)
+
+
+@torch.no_grad()
+def _session_step(params, state, *, cfg):
+    """Advance every slot one token, eagerly: the plain version of the
+    compiled step. Inactive rows still run (lockstep batch); their cache
+    writes land in their own row only, which admission overwrites."""
+    return _session_advance(state, *_session_decode(params, state, cfg=cfg))
 
 
 def prefill_len(cfg, p: int, max_len: int) -> int:
@@ -163,6 +193,188 @@ def _host(out):
 
 
 # ---------------------------------------------------------------------------
+# compiled session functions: one set per (cfg, mesh, rules)
+# ---------------------------------------------------------------------------
+
+_FNS_CACHE: Dict[tuple, "_SessionFns"] = {}
+
+
+def _freeze_rules(rules):
+    return tuple(sorted(rules.items())) if isinstance(rules, dict) else rules
+
+
+class _StepGraph:
+    """The decode step of one state's static buffers. ``key``: those
+    buffers and the params' storages it was warmed for; ``graph``: its
+    CUDA graph once captured, with its outputs (graph memory, overwritten
+    by every replay) and the kernel launches each replay makes."""
+
+    def __init__(self, key):
+        self.key = key
+        self.graph = self.logits = self.baseline = None
+        self.launches: Dict[str, int] = {}
+
+
+class _SessionFns:
+    """The session functions for one (cfg, mesh, rules), the counterpart
+    of the reference's jitted ``prefill`` and ``step`` (``step``
+    updating the state in place, as the reference's donates it).
+
+    ``step`` on CUDA tensors with no mesh (``compiled``) runs the decode
+    step as a CUDA graph, one per state's static buffers and params'
+    storages (``graph_key``): the first call for a key runs it eagerly on
+    a side stream, which warms the kernels, cuBLAS and the allocator
+    there; the second captures it on that stream; every later call
+    replays it. The same params module updated in place is read by the
+    next replay; another module, or rebound storages, is another key.
+    ``captures`` counts the captures. A capture or replay failure
+    raises: nothing falls back to eager on a CUDA tensor.
+
+    ``buffers`` hands out zeroed static state buffers per (params module,
+    batch, cache length), and ``release`` takes them back with their
+    graph, so that sessions one after another, and every ``generate``
+    call of one shape, replay one graph; ``allocations`` counts the sets
+    made.
+    """
+
+    def __init__(self, cfg, mesh, rules):
+        self.cfg, self.mesh, self.rules = cfg, mesh, rules
+        self.compiled = mesh is None
+        self.captures = 0
+        self.allocations = 0                          # sets of buffers
+        self._graphs = WeakTensorKeyDictionary()      # state's pos -> graph
+        self._free = weakref.WeakKeyDictionary()      # params -> {shape: []}
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._lock = threading.Lock()
+
+    def prefill(self, params, prompt, gens, temp, *, cache_seq_len,
+                last_index=None, vision=None):
+        """``_session_prefill`` under the session's mesh and rules."""
+        with use_rules(self.mesh, self.rules):
+            return _session_prefill(params, prompt, gens, temp, cfg=self.cfg,
+                                    cache_seq_len=cache_seq_len,
+                                    last_index=last_index, vision=vision)
+
+    @torch.no_grad()
+    def step(self, params, state):
+        """Advance every slot one token (``_session_step``), the decode
+        step compiled where ``compiled`` and the state lies on CUDA.
+        Returns (state, out); state is the same dict, updated in place."""
+        logits, baseline = self.decode(params, state)
+        with use_rules(self.mesh, self.rules):
+            return _session_advance(state, logits, baseline)
+
+    @torch.no_grad()
+    def decode(self, params, state):
+        """``_session_decode``: (logits, baseline), the cache written in
+        place. From a graph replay the logits lie in graph memory that the
+        next replay overwrites; the baseline is a copy."""
+        if not (self.compiled and state["pos"].is_cuda):
+            with use_rules(self.mesh, self.rules):
+                return _session_decode(params, state, cfg=self.cfg)
+        key = self.graph_key(params, state)
+        entry = self._graphs.get(state["pos"])
+        if entry is None or entry.key != key:
+            self._graphs[state["pos"]] = _StepGraph(key)
+            return self._warm(params, state)
+        if entry.graph is None:
+            self._capture(entry, params, state)
+        entry.graph.replay()
+        ops.record_replay(entry.launches)
+        return entry.logits, (None if entry.baseline is None
+                              else entry.baseline.clone())
+
+    def graph_key(self, params, state):
+        """What a captured step reads and writes by address: the state's
+        cache leaves (with their shapes), pos and last, and the params'
+        storages."""
+        return (tuple((x.data_ptr(), tuple(x.shape))
+                      for x in leaves(state["cache"])),
+                state["pos"].data_ptr(), state["last"].data_ptr(),
+                tuple(p.data_ptr() for p in params.parameters()))
+
+    def _stream(self, device):
+        stream = self._streams.get(device)
+        if stream is None:
+            stream = self._streams[device] = torch.cuda.Stream(device)
+        return stream
+
+    def _warm(self, params, state):
+        """The first call for a key: an eager decode step on the stream the
+        graph is captured on (its kernels loaded, cuBLAS's workspace for
+        that stream made), ordered after and before the current stream's
+        work."""
+        device = state["pos"].device
+        current = torch.cuda.current_stream(device)
+        side = self._stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = _session_decode(params, state, cfg=self.cfg)
+        current.wait_stream(side)
+        for x in out:
+            if x is not None:
+                x.record_stream(current)
+        return out
+
+    def _capture(self, entry, params, state):
+        """Capture the decode step on ``state``'s buffers into ``entry``;
+        the kernel launches recorded into it are what each replay adds to
+        ``ops.stats()``."""
+        graph = torch.cuda.CUDAGraph()
+        ops.take_captured()
+        with torch.cuda.graph(graph, stream=self._stream(state["pos"].device),
+                              capture_error_mode="thread_local"):
+            logits, baseline = _session_decode(params, state, cfg=self.cfg)
+        entry.launches = ops.take_captured()
+        entry.graph, entry.logits, entry.baseline = graph, logits, baseline
+        self.captures += 1
+
+    def buffers(self, params, batch: int, cache_len: int):
+        """Zeroed static state buffers {"cache", "pos", "last"} for
+        ``batch`` slots of ``cache_len`` tokens on the params' device: a
+        released set of this params module's (its graph with it) if one
+        is free, else new ones."""
+        device = next(params.parameters()).device
+        shape = (batch, cache_len, device)
+        with self._lock:
+            free = self._free.setdefault(params, {}).get(shape)
+            bufs = free.pop() if free else None
+        if bufs is None:
+            self.allocations += 1
+            return {"cache": model_lib.cache_init(self.cfg, batch, cache_len,
+                                                  device=device),
+                    "pos": torch.zeros((batch,), dtype=torch.int32,
+                                       device=device),
+                    "last": torch.zeros((batch,), dtype=torch.int64,
+                                        device=device)}
+        for x in leaves(bufs):
+            x.zero_()
+        return bufs
+
+    def release(self, params_ref, batch: int, cache_len: int, bufs) -> None:
+        """Take back ``bufs``, which ``buffers`` handed out for ``batch``
+        slots of ``cache_len`` tokens; ``params_ref``: a weak reference to
+        the params module they were handed out for (dropped with it)."""
+        params = params_ref()
+        if params is None:
+            return
+        shape = (batch, cache_len, bufs["pos"].device)
+        with self._lock:
+            self._free.setdefault(params, {}).setdefault(shape, []).append(
+                bufs)
+
+
+def session_fns(cfg, mesh=None, rules=None) -> _SessionFns:
+    """The session functions of ``cfg`` under ``mesh`` and ``rules``,
+    cached by value: two equal configs, built apart, share one object (and
+    its graphs), as the reference's compile cache keys them."""
+    key = (cfg, mesh, _freeze_rules(rules))
+    if key not in _FNS_CACHE:
+        _FNS_CACHE[key] = _SessionFns(cfg, mesh, rules)
+    return _FNS_CACHE[key]
+
+
+# ---------------------------------------------------------------------------
 # DecodeSession: slot-indexed continuous-batching decode state
 # ---------------------------------------------------------------------------
 
@@ -179,6 +391,12 @@ class DecodeSession:
                                              per shared prefill bucket
       step()                              -> per-slot dict for one token
       evict(slot)                         -> frees the slot
+
+    Its functions are ``session_fns(cfg, mesh, rules)``'s. Without a
+    mesh its cache, pos and last are static buffers from
+    ``_SessionFns.buffers``, given back when the session is collected,
+    and on CUDA ``step`` replays their CUDA graph (``compiled``); under a
+    mesh they are its own and ``step`` is eager.
     """
 
     def __init__(self, params, cfg, *, max_batch: int, max_len: int,
@@ -187,23 +405,35 @@ class DecodeSession:
         if cfg.vision_seq:
             raise ValueError("DecodeSession serves text-only configs")
         self.cfg = cfg
-        self._rules = (mesh, rules)
+        self._fns = session_fns(cfg, mesh, rules)
         self.max_batch = max_batch
         self.max_len = max_len
         self._params = params
         self.device = next(params.parameters()).device
         dev = self.device
-        with use_rules(mesh, rules):
-            cache = model_lib.cache_init(cfg, max_batch, max_len, device=dev)
-        self._state = {
-            "cache": cache,
-            "pos": torch.zeros((max_batch,), dtype=torch.int32, device=dev),
-            "last": torch.zeros((max_batch,), dtype=torch.int64, device=dev),
-            "gens": [torch.Generator(device=dev) for _ in range(max_batch)],
-            "temp": torch.ones((max_batch,), dtype=torch.float32,
-                               device=dev),
-            "active": np.zeros(max_batch, bool),
-        }
+        if self._fns.compiled:
+            bufs = self._fns.buffers(params, max_batch, max_len)
+            weakref.finalize(self, self._fns.release, weakref.ref(params),
+                             max_batch, max_len, bufs)
+        else:
+            with use_rules(mesh, rules):
+                bufs = {"cache": model_lib.cache_init(cfg, max_batch,
+                                                      max_len, device=dev),
+                        "pos": torch.zeros((max_batch,), dtype=torch.int32,
+                                           device=dev),
+                        "last": torch.zeros((max_batch,), dtype=torch.int64,
+                                            device=dev)}
+        self._state = dict(
+            bufs,
+            gens=[torch.Generator(device=dev) for _ in range(max_batch)],
+            temp=torch.ones((max_batch,), dtype=torch.float32, device=dev),
+            active=np.zeros(max_batch, bool))
+
+    @property
+    def compiled(self) -> bool:
+        """Whether ``step`` replays a CUDA graph of the decode step (CUDA,
+        no mesh); a session under a mesh decodes eagerly by rule."""
+        return self._fns.compiled and self.device.type == "cuda"
 
     @property
     def params(self):
@@ -212,7 +442,8 @@ class DecodeSession:
     @params.setter
     def params(self, params) -> None:
         """Swap the served params (e.g. the RL actor following the learner).
-        Safe between calls: every call reads the params afresh."""
+        Safe between calls: every call reads the params afresh (another
+        module, or rebound storages, is another graph key)."""
         self._params = params
 
     # -- slot bookkeeping ---------------------------------------------------
@@ -243,11 +474,9 @@ class DecodeSession:
         gens = [state["gens"][s].manual_seed(int(seed))
                 for s, seed in zip(slots, seeds)]
         temp = torch.tensor(temps, dtype=torch.float32, device=dev)
-        with use_rules(*self._rules):
-            rows, out = _session_prefill(
-                self._params, torch.as_tensor(padded, device=dev), gens,
-                temp, cfg=self.cfg, cache_seq_len=self.max_len,
-                last_index=lengths - 1)
+        rows, out = self._fns.prefill(
+            self._params, torch.as_tensor(padded, device=dev), gens, temp,
+            cache_seq_len=self.max_len, last_index=lengths - 1)
         idx = torch.tensor(slots, device=dev)
 
         def overwrite(full, row):
@@ -315,9 +544,7 @@ class DecodeSession:
     def step(self) -> Dict[str, np.ndarray]:
         """Advance every active slot one token. Returns per-slot arrays
         (B,); entries for inactive slots are garbage — gate on .active."""
-        with use_rules(*self._rules):
-            self._state, out = _session_step(self._params, self._state,
-                                             cfg=self.cfg)
+        self._state, out = self._fns.step(self._params, self._state)
         return _host(out)
 
     def evict(self, slot: int) -> None:
@@ -331,11 +558,14 @@ class DecodeSession:
 def generate(params, prompt, seed: int, *, cfg, num_steps: int,
              temperature: float = 1.0, vision=None, mesh=None, rules=None):
     """prompt: (B, P) int. Samples ``num_steps`` tokens for every row
-    through the same session functions the continuous server runs; row i
-    samples from a generator seeded with ``seed + i``, so a single-request
-    server given ``seed`` is bitwise-identical to row 0. ``vision`` (B, Sv,
-    d): a VLM's patch embeddings, which feed the prefill (and through the
-    ``xattn`` caches every step), as the reference's ``_generate_vision``.
+    through the same session functions the continuous server runs
+    (``session_fns``); row i samples from a generator seeded with ``seed +
+    i``, so a single-request server given ``seed`` is bitwise-identical to
+    row 0. ``vision`` (B, Sv, d): a VLM's patch embeddings, which feed the
+    prefill (and through the ``xattn`` caches every step), as the
+    reference's ``_generate_vision``. Without a mesh the prefilled cache
+    is copied into static buffers per (cfg, B, P + num_steps, params), so
+    that on CUDA every call of one shape replays one graph.
     Returns a dict of tensors on the params' device:
       tokens    (B, P + num_steps)
       logprob   (B, num_steps)  behavior log-prob of each sampled token
@@ -351,15 +581,30 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
     temp = torch.full((b,), temperature, dtype=torch.float32, device=dev)
     if vision is not None:
         vision = torch.as_tensor(vision, device=dev)
-    with use_rules(mesh, rules):
-        state, out0 = _session_prefill(params, prompt, gens, temp, cfg=cfg,
-                                       cache_seq_len=p + num_steps,
-                                       vision=vision)
-        outs = [out0]
+    fns = session_fns(cfg, mesh, rules)
+    cache_len = p + num_steps
+    state, out0 = fns.prefill(params, prompt, gens, temp,
+                              cache_seq_len=cache_len, vision=vision)
+    outs = [out0]
+    bufs = fns.buffers(params, b, cache_len) if fns.compiled else None
+    try:
+        if bufs is not None:
+            tree_map(_copy_into, bufs, {k: state[k] for k in bufs})
+            state.update(bufs)
         for _ in range(num_steps - 1):
-            state, out = _session_step(params, state, cfg=cfg)
+            state, out = fns.step(params, state)
             outs.append(out)
+    finally:
+        if bufs is not None:
+            fns.release(weakref.ref(params), b, cache_len, bufs)
     stacked = {k: torch.stack([o[k] for o in outs], dim=1) for k in outs[0]}
     return {"tokens": torch.cat([prompt, stacked["token"]], dim=1),
             "logprob": stacked["logprob"], "entropy": stacked["entropy"],
             "baseline": stacked["baseline"]}
+
+
+def _copy_into(dst, src):
+    if dst.shape != src.shape or dst.dtype != src.dtype:
+        raise ValueError(f"static buffer {tuple(dst.shape)} {dst.dtype} "
+                         f"cannot take {tuple(src.shape)} {src.dtype}")
+    dst.copy_(src)

@@ -6,6 +6,10 @@ takes, launches it on the current stream, and raises on anything else:
 there is no fallback from a CUDA tensor to the plain version, and a kernel
 that fails to build is an error. Each launch adds one to the kernel's
 count in ``stats()``, so a run can show that it went through the kernel.
+Under CUDA graph capture a wrapper launches nothing: it records the
+launch into the graph, and counts it in ``take_captured()``; the graph's
+owner adds those counts to ``stats()`` at every replay
+(``record_replay``), when the kernels do launch.
 
 The kernels have no backward, as the reference's ``pallas_call``s have
 none: on CUDA the attention and SSD wrappers raise when autograd would
@@ -28,6 +32,8 @@ from repro_torch.kernels import ref as _ref
 
 _launches: Dict[str, int] = {"vtrace": 0, "flash_attention": 0,
                              "decode_attention": 0, "ssd_chunk": 0}
+# launches recorded into CUDA graphs under capture, by kernel
+_captured: Dict[str, int] = dict.fromkeys(_launches, 0)
 
 
 def stats() -> Dict[str, int]:
@@ -38,6 +44,32 @@ def stats() -> Dict[str, int]:
 def reset_stats() -> None:
     for name in _launches:
         _launches[name] = 0
+        _captured[name] = 0
+
+
+def _count(name) -> None:
+    """One launch of kernel ``name``, or its record into the CUDA graph
+    that the current stream is capturing."""
+    if torch.cuda.is_current_stream_capturing():
+        _captured[name] += 1
+    else:
+        _launches[name] += 1
+
+
+def take_captured() -> Dict[str, int]:
+    """The launches recorded into CUDA graphs since the last call, by
+    kernel; zeroes them."""
+    out = dict(_captured)
+    for name in _captured:
+        _captured[name] = 0
+    return out
+
+
+def record_replay(launches: Dict[str, int]) -> None:
+    """Add a CUDA graph replay's launches (``take_captured()`` right after
+    its capture) to ``stats()``."""
+    for name, n in launches.items():
+        _launches[name] += n
 
 
 _fns: Dict[str, Callable[..., int]] = {}
@@ -154,7 +186,7 @@ def vtrace_from_importance_weights_kernel(
         warps, rows)
     if err != 0:
         raise RuntimeError(f"vtrace kernel launch failed: CUDA error {err}")
-    _launches["vtrace"] += 1
+    _count("vtrace")
     _vtrace_chunks.update(warps=warps, rows=rows)
     return VTraceReturns(vs, pg_advantages)
 
@@ -258,7 +290,7 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    _launches["flash_attention"] += 1
+    _count("flash_attention")
     return out
 
 
@@ -361,7 +393,7 @@ def decode_attention(q, k, v, slot_pos, pos, *, scale=None, softcap=0.0,
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    _launches["decode_attention"] += 1
+    _count("decode_attention")
     _decode_split.update(splits=splits, range=span)
     return out
 
@@ -502,7 +534,7 @@ def ssd_chunk(c, b, xdt, da, h_prev):
         *x_st, *da_st, *y_st, states.data_ptr(), flags.data_ptr())
     if err != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err}")
-    _launches["ssd_chunk"] += 1
+    _count("ssd_chunk")
     return y, h_new
 
 

@@ -346,7 +346,7 @@ def main(argv=None) -> dict:
             h.t_first - h.t_submit for h in handles),
         "prompt_echo_ok": ok, "device": str(device),
         "policy": args.policy, "attn_impl": cfg.attn_impl,
-        "ssd_impl": cfg.ssd_impl,
+        "ssd_impl": cfg.ssd_impl, "compiled": server.session.compiled,
     }
     print(f"served {server.served} requests / {server.tokens_out} tokens "
           f"in {server.steps} decode steps ({dt:.2f}s, "
