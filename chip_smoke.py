@@ -571,6 +571,18 @@ GRAPH_SESSIONS = (
     (XLSTM, [8 * (slot + 1) for slot in range(8)], 128))
 GRAPH_CHECK_STEPS, GRAPH_AFTER_STEPS = 6, 2
 GRAPH_TIMED_STEPS, GRAPH_PROFILED = 10, 5
+# phase 30: the compiled rl-agent entries and admissions at full width
+# against eager: learner steps on a linear anneal, unroll calls before a
+# state_dict round trip, rounds of each admission (warm, capture, replay),
+# calls a turn of the eager and graph times; the admissions' sessions: the
+# servers' caps, two prefill buckets of 4 prompts each (Zamba2's Mamba2
+# prefills exact lengths: one length a bucket)
+GRAPH_LEARNER_STEPS, GRAPH_UNROLL_CALLS = 3, 4
+GRAPH_ADMIT_ROUNDS, GRAPH_TIMED = 3, 5
+GRAPH_ADMITS = (
+    ("qwen3-4b", 576, ([200, 220, 240, 256], [100, 110, 120, 128])),
+    ("zamba2-2.7b", 320, ([256] * 4, [128] * 4)),
+)
 # the LM trainers at full published width (phases 15, 16)
 LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
               "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
@@ -1203,19 +1215,31 @@ def phase_serve(ops, argv, phase="serve"):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
+    from repro_torch.core import generate as gen_lib
+
+    def graph_counts():
+        fns = list(gen_lib._FNS_CACHE.values())
+        return (sum(f.admissions.captures for f in fns),
+                sum(f.admissions.capture_s for f in fns),
+                sum(f.captures for f in fns), sum(f.steps.capture_s
+                                                  for f in fns))
+
     attn, mamba = kernel_layers(get_config(argv[argv.index("--arch") + 1]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     ops.reset_stats()
+    counts0 = graph_counts()
     with contextlib.redirect_stdout(buf):
         summary = serve.main(argv)
     launches = ops.stats()
     peak = torch.cuda.max_memory_allocated()
+    counts = [b - a for a, b in zip(counts0, graph_counts())]
     for line in buf.getvalue().strip().splitlines():
         print("  " + line, flush=True)
     emit(phase, argv=argv, launches=launches, peak_mem_bytes=peak,
-         **summary)
+         admission_captures=counts[0], admission_capture_s=counts[1],
+         step_captures=counts[2], step_capture_s=counts[3], **summary)
     if summary["served"] != summary["requests"] \
             or not summary["prompt_echo_ok"]:
         raise AssertionError(f"served {summary['served']} of "
@@ -1336,6 +1360,7 @@ def phase_learner(ops):
     import torch
 
     from repro_torch.configs.atari_impala import NUM_ACTIONS, OBS_SHAPE, TRAIN
+    from repro_torch.core import compiled
     from repro_torch.core import learner as learner_lib
     from repro_torch.models.convnet import impala_deep
     from repro_torch.optim import make_optimizer
@@ -1355,7 +1380,10 @@ def phase_learner(ops):
         scan_agent, opt.init(list(scan_agent.parameters())), 0, batch)
     del scan_agent
 
-    step_fn = learner_lib.make_train_step(opt, TRAIN, vtrace_impl="kernel")
+    # the step as train.build_rl_agent wraps it: its first call eager, the
+    # second captures its CUDA graph, the third replays it
+    step_fn = compiled.TrainStep(
+        learner_lib.make_train_step(opt, TRAIN, vtrace_impl="kernel"), opt)
     opt_state = opt.init(list(agent.parameters()))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1380,7 +1408,10 @@ def phase_learner(ops):
     emit("learner", agent="impala_deep", obs=list(OBS_SHAPE),
          actions=NUM_ACTIONS, T=t, B=b, losses=losses, scan_loss=scan_loss,
          step_ms=step_ms, steady_step_ms=statistics.median(step_ms[1:]),
-         vtrace_launches=launches, peak_mem_bytes=peak)
+         vtrace_launches=launches, peak_mem_bytes=peak,
+         captures=step_fn.captures)
+    if step_fn.captures != 1:
+        raise AssertionError(f"learner: {step_fn.captures} captures, not 1")
 
 
 class SyntheticSource:
@@ -1422,6 +1453,7 @@ def phase_replay_learner(ops):
     import torch
 
     from repro_torch.configs.atari_impala import NUM_ACTIONS, OBS_SHAPE, TRAIN
+    from repro_torch.core import compiled
     from repro_torch.core import learner as learner_lib
     from repro_torch.core.replay import EliteReplay
     from repro_torch.core.sources import ReplaySource
@@ -1441,7 +1473,8 @@ def phase_replay_learner(ops):
                           EliteReplay(REPLAY_LEARNER_CAPACITY),
                           replay_ratio=1.0, seed=0, value_fn=value_fn)
     opt = make_optimizer(cfg)
-    step_fn = learner_lib.make_train_step(opt, cfg, vtrace_impl="kernel")
+    step_fn = compiled.TrainStep(
+        learner_lib.make_train_step(opt, cfg, vtrace_impl="kernel"), opt)
     opt_state = opt.init(list(agent.parameters()))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2645,6 +2678,7 @@ def phase_recurrent(ops):
 
     from repro_torch.configs.atari_impala import (NUM_ACTIONS, OBS_SHAPE,
                                                   TRAIN, small_train)
+    from repro_torch.core import compiled
     from repro_torch.core import learner as learner_lib
     from repro_torch.core import rollout as rollout_lib
     from repro_torch.envs import catch
@@ -2662,17 +2696,21 @@ def phase_recurrent(ops):
     agent = agent.cuda()
     opt = make_optimizer(tc)
     opt_state = opt.init(list(agent.parameters()))
-    step_fn = learner_lib.make_recurrent_train_step(opt, tc)
+    # the learner step and the unroll as CUDA graphs (compiled.TrainStep,
+    # compiled.Unroll: warmed, captured, replayed)
+    step_fn = compiled.TrainStep(
+        learner_lib.make_recurrent_train_step(opt, tc), opt)
     gen = torch.Generator(device="cuda").manual_seed(1)
     env_state, obs = rollout_lib.env_reset_batch(env, gen, b, "cuda")
     unroll = rollout_lib.make_recurrent_unroll(env, t)
-    carry = unroll.initial_carry(agent, env_state, obs)
+    actors = compiled.Unroll(unroll, unroll.initial_carry(agent, env_state,
+                                                          obs), gen)
     losses, errs, step_ms = [], [], []
     ops.reset_stats()
     for step in range(RECURRENT_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        carry, ro = unroll(agent, carry, gen)
+        ro = actors(agent)
         errs.append((relearned_logits(agent, ro)[:t]
                      - ro["behavior_logits"]).abs().max().item())
         agent, opt_state, metrics = step_fn(agent, opt_state, step, ro)
@@ -2691,7 +2729,7 @@ def phase_recurrent(ops):
         raise AssertionError(f"18a: {launches} V-trace launches for "
                              f"{RECURRENT_STEPS} steps")
     out["catch"] = dict(launches=launches, shape=[t, b])
-    del agent, opt_state, carry, ro
+    del agent, opt_state, actors, ro
 
     # 18b: full width, synthetic recurrent rollouts
     t, b = TRAIN.unroll_length, TRAIN.batch_size
@@ -2707,7 +2745,8 @@ def phase_recurrent(ops):
         scan_agent, opt.init(list(scan_agent.parameters())), 0, batch)
     scan_loss = float(scan_metrics["loss"])
     del scan_agent
-    step_fn = learner_lib.make_recurrent_train_step(opt, TRAIN)
+    step_fn = compiled.TrainStep(
+        learner_lib.make_recurrent_train_step(opt, TRAIN), opt)
     opt_state = opt.init(list(agent.parameters()))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4428,7 +4467,8 @@ def _gap(got, want):
     if got.shape != want.shape or got.dtype != want.dtype:
         return math.inf
     if got.dtype.is_floating_point:
-        if torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+        if torch.equal(got.reshape(-1).view(torch.uint8),
+                       want.reshape(-1).view(torch.uint8)):
             return 0.0
         return float((got.double() - want.double()).abs().max())
     return 0.0 if torch.equal(got, want) else float(
@@ -4566,7 +4606,7 @@ def phase_graph_session(ops, arch, prompt_lens, cap, swap=False):
         "eager": lambda: gen_lib._host(gen_lib._session_step(
             params, ref, cfg=cfg)[1]),
         "graph": sess.step}, GRAPH_TIMED_STEPS)
-    entry = fns._graphs[state["pos"]]
+    entry = fns.steps.get(state["pos"], fns.graph_key(params, state))
     replay_ms = event_ms(entry.graph.replay, reps=10)
     profiled_ms, busy_ms, kernels = _profiled(sess.step, GRAPH_PROFILED)
     emit("graph_session", arch=cfg.name, dtype=cfg.dtype, slots=8, cap=cap,
@@ -4785,6 +4825,351 @@ def phase29(ops):
     phase_graph_source(ops)
 
 
+# ---------------------------------------------------------------------------
+# 30. the compiled rl-agent entries and the admissions: CUDA graphs of the
+# learner steps, the unroll and the admissions against eager
+
+
+def _note_tree(gaps, prefix, got, want):
+    """Each leaf's gap (``_gap``) of two trees into ``gaps``, worst kept."""
+    from repro_torch.tree import flatten
+    for (path, a), (_, b) in zip(flatten(got), flatten(want), strict=True):
+        key = prefix + path
+        gaps[key] = max(gaps.get(key, 0.0), _gap(a, b))
+
+
+def _held(phase, gaps, eager_gaps):
+    """Each product's graph-vs-eager gap within twice its eager-vs-eager
+    gap from the same state (0: bitwise). Returns the products whose eager
+    runs were not bitwise, with their gaps."""
+    loose = {k: v for k, v in eager_gaps.items() if v != 0.0}
+    bad = {k: (v, 2 * eager_gaps.get(k, 0.0)) for k, v in gaps.items()
+           if not v <= 2 * eager_gaps.get(k, 0.0)}
+    if bad:
+        raise AssertionError(f"{phase}: graph against eager (gap, bar): "
+                             f"{bad}")
+    return loose
+
+
+def phase_graph_learner(ops, recurrent):
+    """30a: the full-width learner step (phase 4's deep ResNet on its
+    seeded batch, or phase 18b's recurrent agent on its) through
+    ``compiled.TrainStep`` against the plain step from the same weights,
+    GRAPH_LEARNER_STEPS steps of TRAIN's linear anneal (a new rate each
+    step), cuDNN pinned deterministic: the loss and every metric, every
+    parameter and every RMSProp leaf, held to twice a second eager run's
+    gap (0: bitwise); one capture; K1 once a graph step. Then ms a step,
+    eager and graph in turns. Returns K1's launches in the graph steps."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs.atari_impala import NUM_ACTIONS, OBS_SHAPE, TRAIN
+    from repro_torch.core import compiled
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.models.convnet import impala_deep, minatar_lstm_net
+    from repro_torch.optim import make_optimizer
+
+    t, b = TRAIN.unroll_length, TRAIN.batch_size
+    net = minatar_lstm_net if recurrent else impala_deep
+    agent = net(OBS_SHAPE, NUM_ACTIONS,
+                generator=torch.Generator().manual_seed(0)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = (recurrent_batch(gen, t, b, agent.core_size) if recurrent
+             else synthetic_batch(gen, t, b))
+    opt = make_optimizer(TRAIN)
+    plain = (learner_lib.make_recurrent_train_step if recurrent
+             else learner_lib.make_train_step)(opt, TRAIN)
+    graph = compiled.TrainStep(plain, opt)
+    agents = {"graph": agent, "eager": copy.deepcopy(agent),
+              "eager2": copy.deepcopy(agent)}
+    states = {k: opt.init(list(a.parameters())) for k, a in agents.items()}
+    gaps, eager_gaps, k1, rates = {}, {}, [], []
+    with cudnn_deterministic():
+        for step in range(GRAPH_LEARNER_STEPS):
+            before = ops.stats()["vtrace"]
+            _, _, got = graph(agents["graph"], states["graph"], step, batch)
+            k1.append(ops.stats()["vtrace"] - before)
+            rates.append(-float(opt.stage(step, "cuda")["neg_lr"]))
+            out = {k: plain(agents[k], states[k], step, batch)[2]
+                   for k in ("eager", "eager2")}
+            for name, tree in (("metrics/", lambda k: out[k]),
+                               ("params/", lambda k: dict(
+                                   agents[k].named_parameters())),
+                               ("opt_state/", lambda k: states[k])):
+                want = (got if name == "metrics/" else tree("graph"))
+                _note_tree(gaps, name, want, tree("eager"))
+                _note_tree(eager_gaps, name, tree("eager2"), tree("eager"))
+        ms = _alternated_ms({
+            "eager": lambda: plain(agents["eager"], states["eager"],
+                                   GRAPH_LEARNER_STEPS, batch),
+            "graph": lambda: graph(agents["graph"], states["graph"],
+                                   GRAPH_LEARNER_STEPS, batch)},
+            GRAPH_TIMED)
+    part = "recurrent" if recurrent else "deep"
+    loose = _held(f"graph_learner {part}", gaps, eager_gaps)
+    emit("graph_learner", part=part, obs=list(OBS_SHAPE), T=t, B=b,
+         steps=GRAPH_LEARNER_STEPS, rates=rates,
+         products=len(gaps), worst_gap=max(gaps.values()),
+         eager_not_bitwise=loose, captures=graph.captures,
+         vtrace_launches=k1, eager_ms_per_step=ms["eager"],
+         graph_ms_per_step=ms["graph"])
+    if graph.captures != 1 or k1 != [1] * GRAPH_LEARNER_STEPS \
+            or len(set(rates)) != GRAPH_LEARNER_STEPS:
+        raise AssertionError(f"graph_learner {part}: captures "
+                             f"{graph.captures}, K1 {k1}, rates {rates}")
+    del agents, states, batch, graph
+    torch.cuda.empty_cache()
+    return sum(k1)
+
+
+def phase_graph_unroll(ops, env_name, deep):
+    """30b: the trainer's device actors (``DeviceSource``, pipelined, T 20,
+    B 32; gridworld with the deep agent, Catch with the MinAtar one)
+    through the unroll's CUDA graph against the plain unroll dispatched
+    the same way from the same seed: GRAPH_UNROLL_CALLS ``next_batch``
+    calls with the learner's weights moved in place (an SGD step) between
+    them, then a ``state_dict`` round trip into a fresh source and three
+    calls more; every rollout, the carry and the generator's state after
+    every call, bitwise; one capture a source. Then unroll ms, eager and
+    graph in turns, and each one's device idle share under
+    torch.profiler."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import rollout as rollout_lib
+    from repro_torch.core.sources import DeviceSource
+    from repro_torch.envs import catch, gridworld
+    from repro_torch.models.convnet import impala_deep, minatar_net
+    from repro_torch.tree import map_leaves
+
+    t, b = TRAINER_SHAPE
+    env = {"catch": catch, "gridworld": gridworld}[env_name].make()
+    agent = (impala_deep if deep else minatar_net)(
+        env.obs_shape, env.num_actions,
+        generator=torch.Generator().manual_seed(0)).cuda()
+    source = DeviceSource.for_env(env, agent, unroll_length=t, batch_size=b,
+                                  seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ref = {"carry": rollout_lib.env_reset_batch(env, gen, b, "cuda"),
+           "actor": copy.deepcopy(agent).requires_grad_(False), "out": []}
+    unroll = rollout_lib.make_unroll(env, t)
+    gaps = {}
+
+    def eager_dispatch():
+        ref["actor"].load_state_dict(agent.state_dict())
+        ref["carry"], ro = unroll(ref["actor"], ref["carry"], gen)
+        ref["out"].append(ro)
+
+    def call(n):
+        if n == 0:
+            eager_dispatch()
+        eager_dispatch()
+        _note_tree(gaps, "rollout/", source.next_batch(agent), ref["out"][n])
+        _note_tree(gaps, "carry/", source._carry, ref["carry"])
+        _note_tree(gaps, "generator/", source._gen.get_state(),
+                   gen.get_state())
+        _sgd_in_place(agent, seed=300 + n)
+
+    for n in range(GRAPH_UNROLL_CALLS):
+        call(n)
+    captures = [source.captures]
+    saved = map_leaves(lambda x: x.detach().cpu().clone()
+                       if isinstance(x, torch.Tensor) else x,
+                       source.state_dict())
+    source.stop()
+    source = DeviceSource.for_env(env, agent, unroll_length=t, batch_size=b,
+                                  seed=99)
+    source.load_state_dict(saved)
+    for n in range(GRAPH_UNROLL_CALLS, GRAPH_UNROLL_CALLS + 3):
+        call(n)
+    captures.append(source.captures)
+    actor = source._actor
+    ms = _alternated_ms({
+        "eager": lambda: unroll(ref["actor"], ref["carry"], gen),
+        "graph": lambda: source._unroll(actor)}, GRAPH_TIMED)
+    eager_prof = _profiled(lambda: unroll(ref["actor"], ref["carry"], gen),
+                           3)
+    graph_prof = _profiled(lambda: source._unroll(actor), GRAPH_TIMED)
+
+    def idle(prof):
+        host_ms, busy_ms, _ = prof
+        return 1 - busy_ms / host_ms if busy_ms else "not measured"
+
+    emit("graph_unroll", env=env_name, agent="deep" if deep else "minatar",
+         T=t, B=b, calls=GRAPH_UNROLL_CALLS + 3, products=len(gaps),
+         gaps={k: v for k, v in gaps.items() if v}, captures=captures,
+         eager_unroll_ms=ms["eager"], graph_unroll_ms=ms["graph"],
+         eager_profiled_ms=eager_prof[0], graph_profiled_ms=graph_prof[0],
+         eager_device_busy_ms=eager_prof[1], graph_device_busy_ms=graph_prof[1],
+         eager_device_idle_share=idle(eager_prof),
+         graph_device_idle_share=idle(graph_prof),
+         graph_launches_per_call=graph_prof[2]["launches_per_call"])
+    _check_bitwise(f"graph_unroll {env_name}", gaps)
+    if captures != [1, 1]:
+        raise AssertionError(f"graph_unroll {env_name}: captures {captures}"
+                             ", want one a source")
+    del source, ref, agent
+    torch.cuda.empty_cache()
+
+
+def _eager_admit(cfg, params, state, slots, prompts, seeds, cap):
+    """``_SessionFns.admit``'s eager branch from the plain functions:
+    ``_session_admit``, then the per-slot sampling."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import generate as gen_lib
+    n = len(slots)
+    pb = gen_lib.prefill_len(cfg, len(prompts[0]), cap)
+    padded = np.zeros((n, pb), np.int64)
+    for row, p in enumerate(prompts):
+        padded[row, :len(p)] = p
+    inputs = torch.from_numpy(np.concatenate(
+        [padded.reshape(-1), [len(p) for p in prompts], slots]).astype(
+            np.int64)).cuda()
+    logits0, base0 = gen_lib._session_admit(params, state, inputs, n, pb,
+                                            cfg=cfg, cache_seq_len=cap)
+    idx = inputs[n * pb + n:]
+    gens = [state["gens"][s].manual_seed(int(seed))
+            for s, seed in zip(slots, seeds)]
+    temp = torch.ones((n,), device="cuda")
+    tok, lp, ent = gen_lib._sample(logits0[:, 0], temp, gens,
+                                   np.ones(n, bool))
+    state["last"][idx] = tok
+    state["temp"][idx] = temp
+    state["active"][slots] = True
+    return gen_lib._host(gen_lib._out(tok, lp, ent, base0))
+
+
+def _pool_bytes(pool):
+    """Bytes of the caching allocator's segments in graph memory pool
+    ``pool``; None where the snapshot does not say."""
+    import torch
+    if pool is None:
+        return None
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if "segment_pool_id" in s]
+    if not segs:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def phase_graph_admit(ops, arch, cap, lens):
+    """30c: admissions into a full-width 8-slot session (bf16 on float32
+    weights from seed 0, ``cap``-slot caches) through their CUDA graphs
+    against ``_SessionFns.admit``'s eager branch on a clone of the state:
+    prefill_many of 4 prompts into slots 0-3 and of 4 into slots 4-7 (two
+    prefill buckets, ``lens``), and prefill_into of one into slot 0, each
+    GRAPH_ADMIT_ROUNDS times (warm, capture, replay): first tokens,
+    log-probs, entropies, baselines, every cache leaf, pos and last,
+    bitwise; one capture per (rows, bucket); the K2 and K4 launches of
+    every graph admission those of the eager one. Then ms an admission of
+    4 rows, eager and graph in turns, and the admissions' graph pool
+    bytes. Returns the graph admissions' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import generate as gen_lib
+    from repro_torch.models import model as model_lib
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel",
+                              ssd_impl="kernel")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    sess = gen_lib.DecodeSession(params, cfg, max_batch=8, max_len=cap)
+    fns = gen_lib.session_fns(cfg)
+    captures0 = fns.admissions.captures
+    ref = _clone_state(sess._state)
+    rng = np.random.default_rng(30)
+    names = ("flash_attention", "ssd_chunk")
+    groups = [(list(range(4)), lens[0]), (list(range(4, 8)), lens[1]),
+              ([0], lens[0][:1])]
+    gaps, launches = {}, dict.fromkeys(names, 0)
+
+    call_ms = {}
+
+    def admit(slots, prompts, seeds, many=True):
+        for s in slots:
+            sess.evict(s)
+        before = ops.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if many:
+            got = sess.prefill_many(slots, prompts, seeds=seeds)
+        else:
+            got = [sess.prefill_into(slots[0], prompts[0], seed=seeds[0])]
+        torch.cuda.synchronize()
+        call_ms.setdefault(f"{len(slots)}x{len(prompts[0])}", []).append(
+            (time.perf_counter() - t0) * 1e3)
+        mid = ops.stats()
+        want = _eager_admit(cfg, params, ref, slots, prompts, seeds, cap)
+        after = ops.stats()
+        for k in names:
+            g, e = mid[k] - before[k], after[k] - mid[k]
+            if g != e:
+                raise AssertionError(f"graph_admit {arch}: {k} {g} in the "
+                                     f"graph admission, {e} eager")
+            launches[k] += g
+        for k in want:
+            gaps[k] = max(gaps.get(k, 0.0), _gap(
+                torch.as_tensor(np.stack([o[k] for o in got])),
+                torch.as_tensor(want[k])))
+
+    for r in range(GRAPH_ADMIT_ROUNDS):
+        for i, (slots, lens_) in enumerate(groups):
+            prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens_]
+            admit(slots, prompts, [100 * r + 10 * i + s for s in slots],
+                  many=len(slots) > 1)
+            _note_tree(gaps, "cache/", sess._state["cache"], ref["cache"])
+            for k in ("pos", "last", "temp"):
+                _note_tree(gaps, k, sess._state[k], ref[k])
+    captured = fns.admissions.captures - captures0
+    capture_s = fns.admissions.capture_s
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens[0]]
+    slots = list(range(4))
+
+    def timed(eager):
+        for s in slots:
+            sess.evict(s)
+        if eager:
+            return _eager_admit(cfg, params, ref, slots, prompts, slots, cap)
+        return sess.prefill_many(slots, prompts, seeds=slots)
+
+    ms = _alternated_ms({"eager": lambda: timed(True),
+                         "graph": lambda: timed(False)}, GRAPH_TIMED)
+    pool = _pool_bytes(fns.admissions._pool)
+    emit("graph_admit", arch=cfg.name, dtype=cfg.dtype, slots=8, cap=cap,
+         lens=[list(x) for x in lens], rounds=GRAPH_ADMIT_ROUNDS,
+         products=len(gaps), gaps={k: v for k, v in gaps.items() if v},
+         captures=captured, keys=len(groups), launches=launches,
+         warm_capture_replay_ms=call_ms, capture_s=capture_s,
+         eager_ms_per_admission=ms["eager"],
+         graph_ms_per_admission=ms["graph"],
+         graph_pool_bytes=pool if pool is not None else "not measured")
+    _check_bitwise(f"graph_admit {arch}", gaps)
+    if captured != len(groups):
+        raise AssertionError(f"graph_admit {arch}: {captured} captures for "
+                             f"{len(groups)} (rows, bucket) keys")
+    del sess, ref, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase30(ops):
+    """30: the compiled rl-agent entries and the admissions at full width
+    against eager. Returns each part's kernel launches."""
+    out = {"graph_learner": {"vtrace": phase_graph_learner(ops, False)
+                             + phase_graph_learner(ops, True)}}
+    phase_graph_unroll(ops, "gridworld", deep=True)
+    phase_graph_unroll(ops, "catch", deep=False)
+    for arch, cap, lens in GRAPH_ADMITS:
+        out[f"graph_admit_{arch}"] = phase_graph_admit(ops, arch, cap, lens)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4987,6 +5372,11 @@ def main():
     # graph against eager
     phase29(ops)
 
+    # 30. slice 17: the rl-agent learner steps (deep and recurrent, full
+    # width), the device actors' unroll (gridworld, Catch) and the
+    # admissions (Qwen3-4B, Zamba2-2.7B) as CUDA graphs against eager
+    slice17 = phase30(ops)
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -5093,6 +5483,9 @@ def main():
                                  for phase, launches in spec_launches.items()}
         k["slice15_launches"] = {
             phase: launches[k["name"]] for phase, launches in slice15.items()
+            if k["name"] in launches}
+        k["slice17_launches"] = {
+            phase: launches[k["name"]] for phase, launches in slice17.items()
             if k["name"] in launches}
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     row = offset_rows[(FLASH_OFFSET_SHAPES[0], "bfloat16")]

@@ -2,9 +2,11 @@
 contracts of the reference's ``analysis/trace_audit.py``, on the CPU.
 
 The reference abstract-evaluates its ``jax.jit`` entries and checks three
-contracts that misbehave only at scale. The port compiles one entry, the
-decode step, into CUDA graphs (``core/generate.py::session_fns``), and
-updates in place the state the reference donates. Its counterparts:
+contracts that misbehave only at scale. The port compiles its entries
+into CUDA graphs (``core/compiled.py``: the decode step and the
+admissions of ``core/generate.py::session_fns``, the rl-agent learner
+steps and the device actors' unroll), and updates in place the state the
+reference donates. Its counterparts:
 
   * **retrace -> recapture hazard** (``retrace-hazard``): every arch's
     ``ModelConfig`` is a value-keyed cache key (two fresh constructions
@@ -13,11 +15,15 @@ updates in place the state the reference donates. Its counterparts:
     graph key per shape: two sessions one after another, and two
     ``generate`` calls, with fresh, equal configs, step on the same
     static buffers, so the card captures once (``audit_recapture``). A
-    config keyed by identity would capture anew per construction.
+    config keyed by identity would capture anew per construction. The
+    rl-agent learner steps keep one graph key over steps whose rate
+    changes (the rate is a device scalar), and a session's admissions one
+    per (rows, prefill bucket) (``audit_compiled_keys``).
   * **donation -> in place** (``donation-rebound``): for each registered
     entry (``registered_entries``: the session step at ``max_batch`` 8,
     the rl-agent learner steps on Catch, the LM steps at reduced
-    Qwen3-4B), every leaf of the state the reference donates keeps its
+    Qwen3-4B, the device actors' unroll carry on Catch), every leaf of
+    the state the reference donates keeps its
     tensor and its storage across a call. A rebound leaf leaves the
     caller a second model-sized tree and, in a captured step, a graph
     that writes the stale storage.
@@ -28,7 +34,8 @@ updates in place the state the reference donates. Its counterparts:
     ``with_sharding_constraint`` for the same check).
 
 Everything runs at reduced width on the CPU; the card's side (one
-capture per key, K3's launches per replay) is ``chip_smoke.py`` phase 29.
+capture per key, the kernels' launches per replay) is ``chip_smoke.py``
+phases 29 and 30.
 """
 
 from __future__ import annotations
@@ -358,10 +365,137 @@ def _session_entry(arch: str = "qwen3-4b") -> InPlaceEntry:
                         f"{SERVE_BATCH}]", make, *_loc(_SessionFns.step))
 
 
+def _unroll_entry() -> InPlaceEntry:
+    """The device actors' dispatch: a pipelined ``DeviceSource`` on Catch,
+    whose unroll (``compiled.Unroll``) the reference jits with its carry
+    donated."""
+    from repro_torch.core import compiled
+    from repro_torch.core.sources import DeviceSource
+    from repro_torch.envs import catch
+    from repro_torch.models.convnet import MinatarNet
+
+    def make():
+        env = catch.make()
+        agent = MinatarNet(env.obs_shape, env.num_actions,
+                           generator=torch.Generator().manual_seed(0))
+        source = DeviceSource.for_env(env, agent, unroll_length=T,
+                                      batch_size=B, seed=1)
+
+        def call():
+            source.next_batch(agent)
+            return source._carry
+        return source._carry, call
+
+    return InPlaceEntry("DeviceSource.next_batch[catch]", make,
+                        *_loc(compiled.Unroll._step))
+
+
+def _learner_keys(recurrent: bool) -> Tuple[List[Finding], Dict]:
+    """An rl-agent learner step (``compiled.TrainStep``) over three steps
+    of a linear anneal: one graph key for all of them (the rate enters
+    through the optimizer's device scalars, which keep their storage and
+    take each step's value), so the card captures once."""
+    from repro_torch.configs.atari_impala import small_train
+    from repro_torch.core import compiled
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core import rollout as rollout_lib
+    from repro_torch.envs import catch
+    from repro_torch.models.convnet import MinatarLSTMNet, MinatarNet
+    from repro_torch.optim import make_optimizer
+
+    env = catch.make()
+    gen = torch.Generator().manual_seed(0)
+    net = MinatarLSTMNet if recurrent else MinatarNet
+    agent = net(env.obs_shape, env.num_actions, generator=gen)
+    unroll = (rollout_lib.make_recurrent_unroll(env, T) if recurrent
+              else rollout_lib.make_unroll(env, T))
+    env_state, obs = env.reset(B, gen, "cpu")
+    carry = (unroll.initial_carry(agent, env_state, obs) if recurrent
+             else (env_state, obs))
+    _, batch = unroll(agent, carry, gen)
+    tc = small_train(unroll_length=T, batch_size=B, total_steps=3)
+    opt = make_optimizer(tc)
+    factory = (learner_lib.make_recurrent_train_step if recurrent
+               else learner_lib.make_train_step)
+    step_fn = compiled.TrainStep(factory(opt, tc, vtrace_impl="scan"), opt)
+    opt_state = opt.init(list(agent.parameters()))
+    keys, rates, scalars = [], [], []
+    for step in range(3):
+        static = step_fn.inputs(batch)
+        held = opt.stage(step, "cpu")
+        rates.append(float(held["neg_lr"]))
+        scalars.append(tuple(x.data_ptr() for x in held.values()))
+        step_fn(agent, opt_state, step, static)
+        keys.append(step_fn.graph_key(agent, opt_state, static))
+    name = ("make_recurrent_train_step" if recurrent
+            else "make_train_step") + "[catch, 3 rates]"
+    findings = []
+    if len(set(keys)) != 1 or len(set(scalars)) != 1 \
+            or len(set(rates)) != 3:
+        findings.append(Finding(
+            rule="retrace-hazard", file=_loc(compiled.TrainStep.graph_key)[0],
+            line=_loc(compiled.TrainStep.graph_key)[1],
+            message=f"{name}: {len(set(keys))} graph keys and "
+                    f"{len(set(scalars))} scalar storages over steps of "
+                    f"{len(set(rates))} rates; want 1, 1 and 3: the card "
+                    "would capture a step per rate"))
+    return findings, {"entry": name, "graph_keys": len(set(keys)),
+                      "rates": len(set(rates)), "ok": not findings}
+
+
+def _admission_keys(arch: str = "qwen3-4b") -> Tuple[List[Finding], Dict]:
+    """A session's admissions (``_SessionFns.admit``): one graph key per
+    (rows, prefill bucket), whatever the prompts and slots, so the card
+    captures once per (rows, bucket)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core import generate as gen_lib
+    from repro_torch.models import model as model_lib
+
+    cfg = get_reduced_config(arch)
+    params = model_lib.init(cfg, seed=0)
+    sess = gen_lib.DecodeSession(params, cfg, max_batch=4, max_len=32)
+    fns = gen_lib.session_fns(cfg)
+    rng = np.random.default_rng(0)
+    keys = []
+    # (slots, lengths): (N, bucket) = (2, 8), (2, 8), (2, 16), (1, 8)
+    for slots, lens in (([0, 1], [5, 7]), ([2, 3], [6, 8]),
+                        ([0, 1], [12, 16]), ([2], [8])):
+        for slot in slots:
+            sess.evict(slot)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+        pb = gen_lib.prefill_len(cfg, lens[0], sess.max_len)
+        sess.prefill_many(slots, prompts, seeds=list(range(len(slots))))
+        keys.append((fns.graph_key(params, sess._state), len(slots), pb))
+    want = len({(n, pb) for _, n, pb in keys})
+    findings = []
+    if len(set(keys)) != want:
+        file, line = _loc(gen_lib._SessionFns.admit)
+        findings.append(Finding(
+            rule="retrace-hazard", file=file, line=line,
+            message=f"admit[{arch}]: {len(set(keys))} graph keys for "
+                    f"{want} (rows, bucket) pairs: the session's buffers "
+                    "rebound between admissions"))
+    return findings, {"entry": f"admit[{arch}]",
+                      "graph_keys": len(set(keys)), "row_buckets": want,
+                      "ok": not findings}
+
+
 def registered_entries() -> List[InPlaceEntry]:
     """Every entry the reference jits with a donation, in the port."""
     return [_session_entry(), _rl_entry(False), _rl_entry(True),
-            _lm_entry(False), _lm_entry(True)]
+            _lm_entry(False), _lm_entry(True), _unroll_entry()]
+
+
+def audit_compiled_keys() -> Tuple[List[Finding], List[Dict]]:
+    """The compiled rl-agent learner steps and admissions: one graph key
+    per step across changing rates, one per admission (rows, bucket)."""
+    findings: List[Finding] = []
+    summaries: List[Dict] = []
+    for fnd, summary in (_learner_keys(False), _learner_keys(True),
+                         _admission_keys()):
+        findings += fnd
+        summaries.append(summary)
+    return findings, summaries
 
 
 def audit_traces(archs: Optional[Sequence[str]] = None,
@@ -385,10 +519,14 @@ def audit_traces(archs: Optional[Sequence[str]] = None,
         fnd, summary = audit_entry(entry)
         findings += fnd
         summaries.append(summary)
+    fnd, sums = audit_compiled_keys()
+    findings += fnd
+    summaries += sums
     fnd, sums = audit_sharding(archs)
     return findings + fnd, summaries + sums
 
 
-__all__ = ["AbstractMesh", "InPlaceEntry", "audit_entry", "audit_recapture",
+__all__ = ["AbstractMesh", "InPlaceEntry", "audit_compiled_keys",
+           "audit_entry", "audit_recapture",
            "audit_rules", "audit_sharding", "audit_static_key",
            "audit_traces", "registered_entries"]

@@ -37,10 +37,14 @@ reference's compiled session functions, cached by the config's value. On
 CUDA tensors with no mesh its ``step`` runs the model's decode step
 (``model.serve_step``) as a CUDA graph of the state's static buffers: the
 cache leaves, ``pos`` and ``last`` (written in place, never rebound) and
-the params' storages. Sampling and the pos/last update stay outside the
-graph, on the per-slot generators. On CPU tensors, and under a mesh
-(gloo's collectives cannot be captured), ``step`` is the eager
-``_session_step``, the plain version.
+the params' storages; its ``admit`` runs the model's part of an admission
+(``_session_admit``: the prefill, the last token's heads and the scatter
+of the rows into the state's cache and pos) as a CUDA graph per (those
+buffers, rows, prefill bucket), its prompts, lengths and slots static
+inputs. Sampling and the pos/last update stay outside the graphs, on the
+per-slot generators. On CPU tensors, and under a mesh (gloo's collectives
+cannot be captured), they are the eager ``_session_step`` and
+``_session_admit``, the plain versions.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ import torch.distributed as dist
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.core.batcher import bucket_size
-from repro_torch.kernels import ops
+from repro_torch.core.compiled import Graphs
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import model_mesh, tree_map, use_rules
 from repro_torch.tree import leaves
@@ -102,6 +106,27 @@ def _out(tok, lp, ent, baseline):
                          else torch.zeros_like(lp))}
 
 
+def _prefill_heads(params, prompt, *, cfg, cache_seq_len, last_index=None,
+                   vision=None):
+    """The model part of a prefill: the model's prefill of every row, the
+    hidden state of each row's true last token (``last_index``, as in
+    ``_session_prefill``) and the heads on it. Returns (cache, li,
+    logits0 (B, 1, V) float32, baseline (B, 1) or None), li the (B,)
+    int64 last indices."""
+    b, p = prompt.shape
+    hidden, _, cache = model_lib.prefill(params, prompt, cfg=cfg,
+                                         vision=vision,
+                                         cache_seq_len=cache_seq_len)
+    if last_index is None:
+        li = torch.full((b,), p - 1, dtype=torch.int64, device=prompt.device)
+    else:
+        li = torch.as_tensor(last_index, dtype=torch.int64,
+                             device=prompt.device).expand(b)
+    h_last = hidden[torch.arange(b, device=prompt.device), li][:, None]
+    return (cache, li, model_lib.logits_from_hidden(params, cfg, h_last),
+            model_lib.baseline_from_hidden(params, cfg, h_last))
+
+
 @torch.no_grad()
 def _session_prefill(params, prompt, gens, temp, *, cfg, cache_seq_len,
                      last_index=None, vision=None):
@@ -113,18 +138,10 @@ def _session_prefill(params, prompt, gens, temp, *, cfg, cache_seq_len,
     ``xattn`` caches it fills. Returns (state, out) where ``out`` holds
     the FIRST sampled token per row, aligned with ``_session_step``'s.
     """
-    b, p = prompt.shape
-    hidden, _, cache = model_lib.prefill(params, prompt, cfg=cfg,
-                                         vision=vision,
-                                         cache_seq_len=cache_seq_len)
-    if last_index is None:
-        li = torch.full((b,), p - 1, dtype=torch.int64, device=prompt.device)
-    else:
-        li = torch.as_tensor(last_index, dtype=torch.int64,
-                             device=prompt.device).expand(b)
-    h_last = hidden[torch.arange(b, device=prompt.device), li][:, None]
-    logits0 = model_lib.logits_from_hidden(params, cfg, h_last)
-    base0 = model_lib.baseline_from_hidden(params, cfg, h_last)
+    b = prompt.shape[0]
+    cache, li, logits0, base0 = _prefill_heads(
+        params, prompt, cfg=cfg, cache_seq_len=cache_seq_len,
+        last_index=last_index, vision=vision)
     active = np.ones(b, bool)
     tok, lp, ent = _from_model_root(*_sample(logits0[:, 0], temp, gens,
                                              active))
@@ -133,6 +150,37 @@ def _session_prefill(params, prompt, gens, temp, *, cfg, cache_seq_len,
              "last": tok.clone(), "gens": list(gens), "temp": temp,
              "active": active}
     return state, _out(tok, lp, ent, base0)
+
+
+def _admit_views(inputs, n: int, pb: int):
+    """An admission's int64 inputs, laid out in one buffer: the N padded
+    prompts (N, pb), their lengths (N,) and their slots (N,)."""
+    return (inputs[:n * pb].view(n, pb), inputs[n * pb:n * pb + n],
+            inputs[n * pb + n:])
+
+
+@torch.no_grad()
+def _session_admit(params, state, inputs, n: int, pb: int, *, cfg,
+                   cache_seq_len):
+    """The model part of admitting N prompts into ``state``'s rows (the
+    reference's ``admit_many`` without its sampling): the prefill of the
+    padded prompts (``inputs``, see ``_admit_views``), then each row's
+    whole cache row and pos written at its slot, in place. Returns
+    (logits0 (N, 1, V) float32, baseline (N, 1) or None) of each row's
+    true last token."""
+    prompt, lengths, idx = _admit_views(inputs, n, pb)
+    cache, li, logits0, base0 = _prefill_heads(
+        params, prompt, cfg=cfg, cache_seq_len=cache_seq_len,
+        last_index=lengths - 1)
+
+    def overwrite(full, row):
+        full[:, idx] = row.to(full.dtype)
+
+    # every leaf of every subtree: attention k/v, Mamba2 conv/ssm, the
+    # shared block's k/v
+    tree_map(overwrite, state["cache"], cache)
+    state["pos"][idx] = (li + 1).to(torch.int32)
+    return logits0, base0
 
 
 @torch.no_grad()
@@ -203,49 +251,46 @@ def _freeze_rules(rules):
     return tuple(sorted(rules.items())) if isinstance(rules, dict) else rules
 
 
-class _StepGraph:
-    """The decode step of one state's static buffers. ``key``: those
-    buffers and the params' storages it was warmed for; ``graph``: its
-    CUDA graph once captured, with its outputs (graph memory, overwritten
-    by every replay) and the kernel launches each replay makes."""
-
-    def __init__(self, key):
-        self.key = key
-        self.graph = self.logits = self.baseline = None
-        self.launches: Dict[str, int] = {}
-
-
 class _SessionFns:
     """The session functions for one (cfg, mesh, rules), the counterpart
-    of the reference's jitted ``prefill`` and ``step`` (``step``
-    updating the state in place, as the reference's donates it).
+    of the reference's jitted ``prefill``, ``step`` and ``admit_many``
+    (``step`` and ``admit`` updating the state in place, as the
+    reference's donate it).
 
-    ``step`` on CUDA tensors with no mesh (``compiled``) runs the decode
-    step as a CUDA graph, one per state's static buffers and params'
-    storages (``graph_key``): the first call for a key runs it eagerly on
-    a side stream, which warms the kernels, cuBLAS and the allocator
-    there; the second captures it on that stream; every later call
-    replays it. The same params module updated in place is read by the
-    next replay; another module, or rebound storages, is another key.
-    ``captures`` counts the captures. A capture or replay failure
-    raises: nothing falls back to eager on a CUDA tensor.
+    Without a mesh (``compiled``) and on CUDA tensors, the model's parts
+    of ``step`` and ``admit`` run as CUDA graphs (``core/compiled.py``):
+    the decode step one per state's static buffers and params' storages
+    (``graph_key``; ``steps``, which keeps one graph a state), an
+    admission one per (those, N rows, prefill bucket) (``admissions``,
+    all of one session functions' sharing one memory pool). The first
+    call for a key runs eagerly on a side stream, the second captures,
+    every later one replays. The same params module updated in place is
+    read by the next replay; another module, or rebound storages, is
+    another key. ``captures`` counts the decode step's captures,
+    ``admissions.captures`` the admissions'. The sampling, on the
+    per-slot generators, stays outside the graphs. A capture or replay
+    failure raises: nothing falls back to eager on a CUDA tensor.
 
     ``buffers`` hands out zeroed static state buffers per (params module,
     batch, cache length), and ``release`` takes them back with their
-    graph, so that sessions one after another, and every ``generate``
-    call of one shape, replay one graph; ``allocations`` counts the sets
-    made.
+    graphs, so that sessions one after another, and every ``generate``
+    call of one shape, replay the same graphs; ``allocations`` counts the
+    sets made.
     """
 
     def __init__(self, cfg, mesh, rules):
         self.cfg, self.mesh, self.rules = cfg, mesh, rules
         self.compiled = mesh is None
-        self.captures = 0
         self.allocations = 0                          # sets of buffers
-        self._graphs = WeakTensorKeyDictionary()      # state's pos -> graph
+        self.steps = Graphs(limit=1)                  # state's pos -> step
+        self.admissions = Graphs()                    # state's pos -> admits
+        self._admit_inputs = WeakTensorKeyDictionary()  # pos -> {(n, pb):}
         self._free = weakref.WeakKeyDictionary()      # params -> {shape: []}
-        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
         self._lock = threading.Lock()
+
+    @property
+    def captures(self) -> int:
+        return self.steps.captures
 
     def prefill(self, params, prompt, gens, temp, *, cache_seq_len,
                 last_index=None, vision=None):
@@ -254,6 +299,67 @@ class _SessionFns:
             return _session_prefill(params, prompt, gens, temp, cfg=self.cfg,
                                     cache_seq_len=cache_seq_len,
                                     last_index=last_index, vision=vision)
+
+    def _graphed(self, state) -> bool:
+        return self.compiled and state["pos"].is_cuda
+
+    @torch.no_grad()
+    def admit(self, params, state, slots, padded, lengths, seeds, temps, *,
+              cache_seq_len):
+        """Admit N requests into ``state``'s rows ``slots`` (the
+        reference's ``admit_many``): ``padded`` (N, pb) int prompts of one
+        prefill bucket, right-padded; ``lengths`` (N,) their true lengths;
+        each slot's generator seeded with its ``seeds`` entry, its
+        temperature ``temps``'s. The whole cache row, pos, last, generator
+        and temperature of each slot are written, so nothing of the
+        previous tenant survives; ``cache_seq_len``: the state's cache
+        length. Returns the first sampled token's {token, logprob,
+        entropy, baseline} per row, on the device."""
+        n, pb = padded.shape
+        dev = state["pos"].device
+        flat = torch.from_numpy(np.concatenate(
+            [np.asarray(padded).reshape(-1), np.asarray(lengths),
+             np.asarray(slots)]).astype(np.int64))
+        if self._graphed(state):
+            inputs = self._admit_buffer(state["pos"], n, pb)
+            inputs.copy_(flat)
+            key = (self.graph_key(params, state), n, pb, inputs.data_ptr(),
+                   cache_seq_len)
+            logits0, base0 = self.admissions(
+                state["pos"], key, lambda: _session_admit(
+                    params, state, inputs, n, pb, cfg=self.cfg,
+                    cache_seq_len=cache_seq_len))
+            base0 = None if base0 is None else base0.clone()
+        else:
+            inputs = flat.to(dev)
+            with use_rules(self.mesh, self.rules):
+                logits0, base0 = _session_admit(
+                    params, state, inputs, n, pb, cfg=self.cfg,
+                    cache_seq_len=cache_seq_len)
+        idx = _admit_views(inputs, n, pb)[2]
+        gens = [state["gens"][s].manual_seed(int(seed))
+                for s, seed in zip(slots, seeds)]
+        temp = torch.tensor(np.asarray(temps, np.float32), device=dev)
+        with use_rules(self.mesh, self.rules):
+            tok, lp, ent = _from_model_root(*_sample(
+                logits0[:, 0], temp, gens, np.ones(n, bool)))
+        state["last"][idx] = tok
+        state["temp"][idx] = temp
+        state["active"][list(slots)] = True
+        return _out(tok, lp, ent, base0)
+
+    def _admit_buffer(self, anchor, n: int, pb: int) -> torch.Tensor:
+        """The static int64 inputs of an admission of N rows of bucket pb
+        into the state of ``anchor`` (its pos)."""
+        held = self._admit_inputs.get(anchor)
+        if held is None:
+            held = self._admit_inputs[anchor] = {}
+        buf = held.get((n, pb))
+        if buf is None:
+            buf = held[(n, pb)] = torch.empty(n * pb + 2 * n,
+                                              dtype=torch.int64,
+                                              device=anchor.device)
+        return buf
 
     @torch.no_grad()
     def step(self, params, state):
@@ -269,65 +375,22 @@ class _SessionFns:
         """``_session_decode``: (logits, baseline), the cache written in
         place. From a graph replay the logits lie in graph memory that the
         next replay overwrites; the baseline is a copy."""
-        if not (self.compiled and state["pos"].is_cuda):
+        if not self._graphed(state):
             with use_rules(self.mesh, self.rules):
                 return _session_decode(params, state, cfg=self.cfg)
-        key = self.graph_key(params, state)
-        entry = self._graphs.get(state["pos"])
-        if entry is None or entry.key != key:
-            self._graphs[state["pos"]] = _StepGraph(key)
-            return self._warm(params, state)
-        if entry.graph is None:
-            self._capture(entry, params, state)
-        entry.graph.replay()
-        ops.record_replay(entry.launches)
-        return entry.logits, (None if entry.baseline is None
-                              else entry.baseline.clone())
+        logits, baseline = self.steps(
+            state["pos"], self.graph_key(params, state),
+            lambda: _session_decode(params, state, cfg=self.cfg))
+        return logits, None if baseline is None else baseline.clone()
 
     def graph_key(self, params, state):
-        """What a captured step reads and writes by address: the state's
-        cache leaves (with their shapes), pos and last, and the params'
-        storages."""
+        """What a captured step or admission reads and writes by address:
+        the state's cache leaves (with their shapes), pos and last, and
+        the params' storages."""
         return (tuple((x.data_ptr(), tuple(x.shape))
                       for x in leaves(state["cache"])),
                 state["pos"].data_ptr(), state["last"].data_ptr(),
                 tuple(p.data_ptr() for p in params.parameters()))
-
-    def _stream(self, device):
-        stream = self._streams.get(device)
-        if stream is None:
-            stream = self._streams[device] = torch.cuda.Stream(device)
-        return stream
-
-    def _warm(self, params, state):
-        """The first call for a key: an eager decode step on the stream the
-        graph is captured on (its kernels loaded, cuBLAS's workspace for
-        that stream made), ordered after and before the current stream's
-        work."""
-        device = state["pos"].device
-        current = torch.cuda.current_stream(device)
-        side = self._stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            out = _session_decode(params, state, cfg=self.cfg)
-        current.wait_stream(side)
-        for x in out:
-            if x is not None:
-                x.record_stream(current)
-        return out
-
-    def _capture(self, entry, params, state):
-        """Capture the decode step on ``state``'s buffers into ``entry``;
-        the kernel launches recorded into it are what each replay adds to
-        ``ops.stats()``."""
-        graph = torch.cuda.CUDAGraph()
-        ops.take_captured()
-        with torch.cuda.graph(graph, stream=self._stream(state["pos"].device),
-                              capture_error_mode="thread_local"):
-            logits, baseline = _session_decode(params, state, cfg=self.cfg)
-        entry.launches = ops.take_captured()
-        entry.graph, entry.logits, entry.baseline = graph, logits, baseline
-        self.captures += 1
 
     def buffers(self, params, batch: int, cache_len: int):
         """Zeroed static state buffers {"cache", "pos", "last"} for
@@ -395,8 +458,8 @@ class DecodeSession:
     Its functions are ``session_fns(cfg, mesh, rules)``'s. Without a
     mesh its cache, pos and last are static buffers from
     ``_SessionFns.buffers``, given back when the session is collected,
-    and on CUDA ``step`` replays their CUDA graph (``compiled``); under a
-    mesh they are its own and ``step`` is eager.
+    and on CUDA ``step`` and each admission replay their CUDA graphs
+    (``compiled``); under a mesh they are its own and both are eager.
     """
 
     def __init__(self, params, cfg, *, max_batch: int, max_len: int,
@@ -431,8 +494,8 @@ class DecodeSession:
 
     @property
     def compiled(self) -> bool:
-        """Whether ``step`` replays a CUDA graph of the decode step (CUDA,
-        no mesh); a session under a mesh decodes eagerly by rule."""
+        """Whether ``step`` and the admissions replay CUDA graphs (CUDA, no
+        mesh); a session under a mesh runs them eagerly by rule."""
         return self._fns.compiled and self.device.type == "cuda"
 
     @property
@@ -463,33 +526,15 @@ class DecodeSession:
 
     def _admit(self, slots, prompts, seeds, temps):
         """Prefill ``prompts`` (all of one prefill bucket) and write each
-        into its slot's row: the whole cache row, pos, last, generator and
-        temperature, so nothing of the previous tenant survives."""
-        state, dev = self._state, self.device
+        into its slot's row (``_SessionFns.admit``)."""
         pb = prefill_len(self.cfg, prompts[0].shape[0], self.max_len)
         padded = np.zeros((len(slots), pb), np.int64)
         for row, p in enumerate(prompts):
             padded[row, :p.shape[0]] = p
-        lengths = torch.tensor([p.shape[0] for p in prompts], device=dev)
-        gens = [state["gens"][s].manual_seed(int(seed))
-                for s, seed in zip(slots, seeds)]
-        temp = torch.tensor(temps, dtype=torch.float32, device=dev)
-        rows, out = self._fns.prefill(
-            self._params, torch.as_tensor(padded, device=dev), gens, temp,
-            cache_seq_len=self.max_len, last_index=lengths - 1)
-        idx = torch.tensor(slots, device=dev)
-
-        def overwrite(full, row):
-            full[:, idx] = row.to(full.dtype)
-
-        # every leaf of every subtree: attention k/v, Mamba2 conv/ssm, the
-        # shared block's k/v
-        tree_map(overwrite, state["cache"], rows["cache"])
-        state["pos"][idx] = rows["pos"]
-        state["last"][idx] = rows["last"]
-        state["temp"][idx] = temp
-        state["active"][slots] = True
-        return _host(out)
+        lengths = np.array([p.shape[0] for p in prompts], np.int64)
+        return _host(self._fns.admit(self._params, self._state, slots,
+                                     padded, lengths, seeds, temps,
+                                     cache_seq_len=self.max_len))
 
     def prefill_into(self, slot: int, prompt, *, seed: int,
                      temperature: float = 1.0) -> Dict[str, np.ndarray]:
@@ -563,9 +608,11 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
     i``, so a single-request server given ``seed`` is bitwise-identical to
     row 0. ``vision`` (B, Sv, d): a VLM's patch embeddings, which feed the
     prefill (and through the ``xattn`` caches every step), as the
-    reference's ``_generate_vision``. Without a mesh the prefilled cache
-    is copied into static buffers per (cfg, B, P + num_steps, params), so
-    that on CUDA every call of one shape replays one graph.
+    reference's ``_generate_vision``. Without a mesh the rows are
+    admitted into static buffers per (cfg, B, P + num_steps, params) as a
+    session admits them (a VLM's prefill is copied into them), so that on
+    CUDA every call of one shape replays one admission graph and one
+    decode step graph.
     Returns a dict of tensors on the params' device:
       tokens    (B, P + num_steps)
       logprob   (B, num_steps)  behavior log-prob of each sampled token
@@ -583,14 +630,23 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
         vision = torch.as_tensor(vision, device=dev)
     fns = session_fns(cfg, mesh, rules)
     cache_len = p + num_steps
-    state, out0 = fns.prefill(params, prompt, gens, temp,
-                              cache_seq_len=cache_len, vision=vision)
-    outs = [out0]
     bufs = fns.buffers(params, b, cache_len) if fns.compiled else None
     try:
-        if bufs is not None:
-            tree_map(_copy_into, bufs, {k: state[k] for k in bufs})
-            state.update(bufs)
+        if bufs is None or vision is not None:
+            state, out0 = fns.prefill(params, prompt, gens, temp,
+                                      cache_seq_len=cache_len, vision=vision)
+            if bufs is not None:
+                tree_map(_copy_into, bufs, {k: state[k] for k in bufs})
+                state.update(bufs)
+        else:
+            # admitted into the static buffers as a session admits
+            state = dict(bufs, gens=gens, temp=temp,
+                         active=np.zeros(b, bool))
+            out0 = fns.admit(params, state, list(range(b)),
+                             prompt.cpu().numpy(), np.full(b, p),
+                             [seed + i for i in range(b)], [temperature] * b,
+                             cache_seq_len=cache_len)
+        outs = [out0]
         for _ in range(num_steps - 1):
             state, out = fns.step(params, state)
             outs.append(out)

@@ -7,7 +7,9 @@ where ``params`` is the learner's ``nn.Module`` (the agent, or the
 decoder's parameter tree), updated in place leaf by leaf (``opt.step``)
 and returned, ``step`` a host integer (it drives the LR schedule), and
 ``metrics`` a dict of device tensors: reading one is the caller's choice
-of when to synchronise with the device.
+of when to synchronise with the device. These are the plain functions, as
+the reference's are un-jitted; ``core/compiled.py::TrainStep`` compiles
+the rl-agent steps as the reference's ``launch/train.py`` jits them.
 """
 
 from __future__ import annotations

@@ -7,6 +7,10 @@ sync inside the loop), so the host can run ahead of the card.
 
 The rollout layout matches the paper's learner-input dict (§2): time-major
 (T+1 obs; T actions/rewards/dones/behavior outputs).
+
+These are the plain functions; ``core/compiled.py::Unroll`` runs one as
+the reference jits its unroll, a CUDA graph on the card with the carry
+donated (held in static buffers, updated in place).
 """
 
 from __future__ import annotations

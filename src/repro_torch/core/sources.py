@@ -65,6 +65,7 @@ from typing import (Any, Callable, Dict, Optional, Protocol,
 import numpy as np
 import torch
 
+from repro_torch.core.compiled import Unroll
 from repro_torch.distributed import sharding
 from repro_torch.tree import leaves, rebuild
 
@@ -181,14 +182,20 @@ class _CompiledUnrollSource:
     parameters in place, so each sync copies the learner's ``state_dict``
     into the actor copy; between syncs the actors keep the parameters of
     the last sync, whatever the learner does meanwhile.
+
+    The unroll is the reference's jitted one (``compiled.Unroll``): the
+    env carry lives in static buffers updated in place by every dispatch,
+    and on CUDA each dispatch replays a CUDA graph of the unroll that
+    draws from the source's generator, which it leaves where an eager
+    dispatch would. Each rollout is copied out of graph memory, so the
+    one handed out is never overwritten by the dispatch that follows it.
     """
 
     def __init__(self, unroll: Callable, carry, generator: torch.Generator,
                  actor: torch.nn.Module, *, unroll_length: int,
                  batch_size: int, pipelined: bool = True,
                  param_sync_every: int = 1):
-        self._unroll = unroll
-        self._carry = carry
+        self._unroll = Unroll(unroll, carry, generator)
         self._gen = generator
         self._actor = actor
         self.unroll_length = unroll_length
@@ -201,13 +208,21 @@ class _CompiledUnrollSource:
         self._device = next(actor.parameters()).device
         self.ready_event = None
 
+    @property
+    def _carry(self):
+        return self._unroll.carry
+
+    @property
+    def captures(self) -> int:
+        """CUDA graph captures of the unroll (``compiled.Unroll``)."""
+        return self._unroll.captures
+
     def _dispatch(self, params):
         if self._dispatches % self.param_sync_every == 0:
+            # in place: the actors' storages, which the graph reads, stay
             self._actor.load_state_dict(params.state_dict())
         self._dispatches += 1
-        self._carry, rollout = self._unroll(self._actor, self._carry,
-                                            self._gen)
-        return rollout
+        return self._unroll(self._actor)
 
     def start(self, params) -> None:
         del params  # first dispatch happens lazily in next_batch
@@ -257,7 +272,7 @@ class _CompiledUnrollSource:
             {k: torch.as_tensor(v) for k, v in actor.items()})
 
     def _load_stream(self, carry, generator) -> None:
-        self._carry = _like(self._carry, carry)
+        self._unroll.load(_like(self._carry, carry))
         self._gen.set_state(torch.as_tensor(generator,
                                             dtype=torch.uint8).cpu())
 

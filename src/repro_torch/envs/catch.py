@@ -27,8 +27,11 @@ def _obs(state):
     rows = torch.arange(b, device=state.ball_x.device)
     board = torch.zeros((b, ROWS, COLS), dtype=torch.float32,
                         device=state.ball_x.device)
-    board[rows, state.ball_y, state.ball_x] = 1.0
-    board[rows, ROWS - 1, state.paddle_x] = 1.0
+    # a device scalar: a Python 1.0 would be copied from the host, which
+    # a CUDA graph of the unroll cannot capture
+    one = torch.ones((), device=board.device)
+    board[rows, state.ball_y, state.ball_x] = one
+    board[rows, ROWS - 1, state.paddle_x] = one
     return board[..., None]
 
 

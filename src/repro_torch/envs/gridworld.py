@@ -34,11 +34,14 @@ def _obs(state):
     rows = torch.arange(b, device=device)
     board = torch.zeros((b, SIZE, SIZE, 4), dtype=torch.float32,
                         device=device)
-    board[rows, state.agent[:, 0], state.agent[:, 1], 0] = 1.0
+    # a device scalar: a Python 1.0 would be copied from the host, which
+    # a CUDA graph of the unroll cannot capture
+    one = torch.ones((), device=device)
+    board[rows, state.agent[:, 0], state.agent[:, 1], 0] = one
     for i in range(NUM_FOOD):   # in order: a later food wins a shared cell
         board[rows, state.food[:, i, 0], state.food[:, i, 1], 1] = \
             state.food_alive[:, i].float()
-    board[rows, state.hazard[:, 0], state.hazard[:, 1], 2] = 1.0
+    board[rows, state.hazard[:, 0], state.hazard[:, 1], 2] = one
     board[..., 3] = (1.0 - state.t.float() / MAX_STEPS)[:, None, None]
     return board
 

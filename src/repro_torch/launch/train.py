@@ -118,6 +118,7 @@ from repro_torch.convert import LMCheckpointLayout
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.atari_impala import small_train
 from repro_torch.configs.base import ImplContext, TrainConfig
+from repro_torch.core import compiled
 from repro_torch.core import learner as learner_lib
 from repro_torch.core import sources as sources_lib
 from repro_torch.core.runtime import Runtime
@@ -172,12 +173,31 @@ def build_rl_agent(args, mesh=None):
             source, buffer, replay_ratio=args.replay_ratio,
             seed=train_cfg.seed,
             value_fn=lambda params, obs: params(obs).baseline)
-    step_fn = learner_lib.make_train_step(opt, train_cfg,
-                                          vtrace_impl=args.vtrace_impl,
-                                          mesh=mesh)
+    # the reference's jax.jit(make_train_step(...)): a CUDA graph of the
+    # step on the card, eager under a data mesh (its all-reduce)
+    step_fn = compiled.TrainStep(
+        learner_lib.make_train_step(opt, train_cfg,
+                                    vtrace_impl=args.vtrace_impl, mesh=mesh),
+        opt, mesh=mesh)
     opt_state = opt.init(list(agent.parameters()))
     extras = {"log_keys": ("reward_per_step", "loss")}
     return source, step_fn, agent, opt_state, extras
+
+
+def compiled_summary(step_fn, device, device_actors=True) -> str:
+    """The rl-agent run's line on what replays CUDA graphs on ``device``:
+    the learner step (eager by rule under a data mesh) and the device
+    actors' unroll."""
+    if torch.device(device).type != "cuda":
+        return "compiled: nothing on the CPU (the plain functions run)"
+    graphed = (["the learner step"] if step_fn.compiled else []) \
+        + (["the unroll"] if device_actors else [])
+    line = "compiled: " + (" and ".join(graphed) or "nothing") \
+        + " as CUDA graphs"
+    if not step_fn.compiled:
+        line += ("; the learner step eager by rule under --mesh-data (its "
+                 "gradient all-reduce is a collective no graph captures)")
+    return line
 
 
 def _lm_config(args):
@@ -514,6 +534,9 @@ def _train(mesh, args) -> Runtime:
             extras.get("checkpoint_layout"), print_fn, mesh)
     if mesh is not None and not lm_mesh:
         sharding.broadcast_module(params, mesh)   # rank 0's params everywhere
+    if args.mode == "rl-agent":
+        print_fn(compiled_summary(step_fn, next(params.parameters()).device,
+                                  args.actors == "device"))
     runtime = Runtime(source, step_fn, params, opt_state,
                       total_steps=args.steps, start_step=start_step,
                       checkpoint_dir=args.checkpoint_dir,

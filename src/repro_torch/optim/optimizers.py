@@ -1,8 +1,17 @@
 """Optimizers over lists of parameter tensors, written out by hand.
 
-Each optimizer is an (init, step) pair:
+Each optimizer is an (init, step, stage) triple:
   state = opt.init(params)
   state = opt.step(grads, state, params, step)
+  scalars = opt.stage(step, device)
+
+The scalars that change from step to step (the schedule's rate, AdamW's
+bias corrections) are computed on the host in float32, as the schedules
+give them, and enter the arithmetic as 0-dim float32 tensors on the
+device, which ``stage`` writes (``step`` calls it): a CUDA graph of a
+learner step (``core/compiled.py::TrainStep``) reads them by address, so
+one graph serves every step whatever its rate, its owner staging them
+before each replay.
 
 ``params`` and ``grads`` are lists of tensors in one order (for an agent,
 ``list(model.parameters())``). The reference's arrays are immutable, so
@@ -31,14 +40,23 @@ slices over the data group.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
+
+
+def _no_scalars(step, device) -> Dict[str, torch.Tensor]:
+    del step, device
+    return {}
 
 
 class Optimizer(NamedTuple):
     init: Callable
     step: Callable    # (grads, state, params, step) -> state, in place
+    # (step, device) -> the step's device scalars (none for a rule whose
+    # step reads no changing scalar)
+    stage: Callable = _no_scalars
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -64,18 +82,54 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm,
     return norm
 
 
-def _sched(lr, step) -> float:
-    return lr(step) if callable(lr) else float(lr)
+def _sched(lr, step) -> np.float32:
+    return np.float32(lr(step) if callable(lr) else lr)
 
 
 def _zeros(params) -> List[torch.Tensor]:
     return [torch.zeros_like(p, dtype=torch.float32) for p in params]
 
 
-def _optimizer(init, leaf_update, lr, grad_clip) -> Optimizer:
+def _capturing(device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _stager(scalars: Callable[[int], Dict[str, np.float32]]) -> Callable:
+    """``stage(step, device)``: the 0-dim float32 tensors on ``device``
+    that hold ``scalars(step)`` (a step's changing scalars, computed on
+    the host in float32), written for ``step``. A CUDA graph of a step
+    reads them by address, so they are written before its replay and
+    never under its capture (which would bake the values in): under
+    capture ``stage`` only returns them."""
+    bufs: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def stage(step, device) -> Dict[str, torch.Tensor]:
+        device = torch.device(device)
+        held = bufs.get(device)
+        if _capturing(device):
+            if held is None:
+                raise RuntimeError("optimizer scalars must be staged before "
+                                   "a CUDA graph capture of the step")
+            return held
+        values = scalars(step)
+        if held is None:
+            held = bufs[device] = {
+                name: torch.zeros((), dtype=torch.float32, device=device)
+                for name in values}
+        for name, v in values.items():
+            held[name].fill_(float(v))
+        return held
+
+    return stage
+
+
+def _optimizer(init, leaf_update, scalars, grad_clip) -> Optimizer:
     """An Optimizer from its per-leaf rule ``leaf_update(state, i, g, p,
-    lr_t, step)``, which updates leaf ``i`` of the state in place and
-    returns that leaf's update (a tensor it may own or a new one)."""
+    sc)``, which updates leaf ``i`` of the state in place and returns that
+    leaf's update (a tensor it may own or a new one). ``sc``: the step's
+    changing scalars (``scalars(step)``: name -> float32, computed on the
+    host) as 0-dim device tensors, which ``stage`` writes."""
+    stage = _stager(scalars)
 
     def step_(grads: List[torch.Tensor], state, params, step,
               norm_fn=global_norm):
@@ -85,31 +139,36 @@ def _optimizer(init, leaf_update, lr, grad_clip) -> Optimizer:
         leaf is applied. ``norm_fn`` as ``clip_by_global_norm_``'s."""
         if grad_clip:
             clip_by_global_norm_(grads, grad_clip, norm_fn)
-        lr_t = _sched(lr, step)
+        sc = stage(step, params[0].device) if params else {}
         with torch.no_grad():
             for i, p in enumerate(params):
-                u = leaf_update(state, i, grads[i], p, lr_t, step)
+                u = leaf_update(state, i, grads[i], p, sc)
                 grads[i] = None
                 p.add_(u.to(p.dtype))
                 del u
         return state
 
-    return Optimizer(init, step_)
+    return Optimizer(init, step_, stage)
+
+
+def _neg_lr(lr):
+    """The scalars of a rule that scales by -lr_t."""
+    return lambda step: {"neg_lr": -_sched(lr, step)}
 
 
 def sgd(lr, momentum=0.0, grad_clip=None):
     def init(params):
         return {"mom": _zeros(params)} if momentum else {}
 
-    def leaf_update(state, i, g, p, lr_t, step):
-        del p, step
+    def leaf_update(state, i, g, p, sc):
+        del p
         if momentum:
             m = state["mom"][i]
             m.mul_(momentum).add_(g)
-            return -lr_t * m
-        return -lr_t * g
+            return m * sc["neg_lr"]
+        return g * sc["neg_lr"]
 
-    return _optimizer(init, leaf_update, lr, grad_clip)
+    return _optimizer(init, leaf_update, _neg_lr(lr), grad_clip)
 
 
 def rmsprop(lr, decay=0.99, eps=0.01, momentum=0.0, grad_clip=40.0):
@@ -120,8 +179,8 @@ def rmsprop(lr, decay=0.99, eps=0.01, momentum=0.0, grad_clip=40.0):
             state["mom"] = _zeros(params)
         return state
 
-    def leaf_update(state, i, g, p, lr_t, step):
-        del p, step
+    def leaf_update(state, i, g, p, sc):
+        del p
         g = g.float()
         m = state["ms"][i]
         m.mul_(decay).add_((1 - decay) * g * g)
@@ -129,31 +188,44 @@ def rmsprop(lr, decay=0.99, eps=0.01, momentum=0.0, grad_clip=40.0):
         if momentum:
             mo = state["mom"][i]
             mo.mul_(momentum).add_(s)
-            return -lr_t * mo
-        return s.mul_(-lr_t)
+            return mo * sc["neg_lr"]
+        return s.mul_(sc["neg_lr"])
 
-    return _optimizer(init, leaf_update, lr, grad_clip)
+    return _optimizer(init, leaf_update, _neg_lr(lr), grad_clip)
 
 
 def adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0, grad_clip=1.0):
     def init(params):
         return {"mu": _zeros(params), "nu": _zeros(params)}
 
-    def leaf_update(state, i, g, p, lr_t, step):
+    def scalars(step):
+        # the bias corrections c = 1 - b^t (t = step + 1) in float32, and
+        # 1 / c taken in float64 and rounded: the CPU divides a float32
+        # tensor by a Python float as by its float32 rounding, the card
+        # multiplies by its reciprocal so taken, so each device's eager
+        # arithmetic stays bitwise what a Python float gave
         t = float(step) + 1.0
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        return {"neg_lr": -_sched(lr, step),
+                "c1": np.float32(c1), "c2": np.float32(c2),
+                "inv_c1": np.float32(1.0 / c1), "inv_c2": np.float32(1.0 / c2)}
+
+    def leaf_update(state, i, g, p, sc):
         g = g.float()
         mu, nu = state["mu"][i], state["nu"][i]
         mu.mul_(b1).add_((1 - b1) * g)
         nu.mul_(b2).add_((1 - b2) * g * g)
         # -lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p), in two buffers
-        u = mu / (1 - b1 ** t)
-        den = nu / (1 - b2 ** t)
+        if mu.is_cuda:
+            u, den = mu * sc["inv_c1"], nu * sc["inv_c2"]
+        else:
+            u, den = mu / sc["c1"], nu / sc["c2"]
         u.div_(den.sqrt_().add_(eps))
         del den
         u.add_(weight_decay * p.detach().float())
-        return u.mul_(-lr_t)
+        return u.mul_(sc["neg_lr"])
 
-    return _optimizer(init, leaf_update, lr, grad_clip)
+    return _optimizer(init, leaf_update, scalars, grad_clip)
 
 
 class ZeroSlice(NamedTuple):
@@ -196,7 +268,7 @@ def zero1(opt: Optimizer, slices: Sequence[Optional[ZeroSlice]],
                 p.copy_(collective(buf, "data", "all_gather", mesh=mesh))
         return state
 
-    return Optimizer(init, step_)
+    return Optimizer(init, step_, opt.stage)
 
 
 def make_optimizer(train_cfg):

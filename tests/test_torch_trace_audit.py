@@ -151,3 +151,72 @@ def test_cli_runs_the_trace_audit(tmp_path, capsys):
     assert "0 unwaived finding(s)" in out
     entries = json.loads(report.read_text())["trace_entries"]
     assert any(e["entry"].startswith("session_fns.step") for e in entries)
+
+
+# ---------------------------------------------------------------------------
+# the compiled rl-agent entries and admissions (core/compiled.py)
+
+
+def test_the_unroll_and_the_compiled_keys_are_clean():
+    findings, summary = ta.audit_entry(ta._unroll_entry())
+    assert findings == [] and summary["rebound"] == 0
+    assert summary["entry"] == "DeviceSource.next_batch[catch]"
+    findings, summaries = ta.audit_compiled_keys()
+    assert findings == []
+    assert {s["entry"] for s in summaries} == {
+        "make_train_step[catch, 3 rates]",
+        "make_recurrent_train_step[catch, 3 rates]", "admit[qwen3-4b]"}
+    assert all(s["graph_keys"] == 1 and s["rates"] == 3
+               for s in summaries if "rates" in s)
+    admit = next(s for s in summaries if s["entry"] == "admit[qwen3-4b]")
+    assert admit["graph_keys"] == admit["row_buckets"] == 3
+
+
+def test_audit_entry_flags_an_unroll_that_rebinds_its_carry(monkeypatch):
+    from repro_torch.core import compiled
+
+    plain = compiled.Unroll._step
+
+    def rebinding(self, agent):         # the fault: a fresh carry
+        rollout = plain(self, agent)
+        self.carry = type(self.carry)(x.clone() if isinstance(x, torch.Tensor)
+                                      else x for x in self.carry)
+        return rollout
+
+    monkeypatch.setattr(compiled.Unroll, "_step", rebinding)
+    findings, _ = ta.audit_entry(ta._unroll_entry())
+    assert _rules(findings) == {"donation-rebound"}
+
+
+def test_audit_flags_a_rate_that_is_not_a_device_scalar(monkeypatch):
+    """An optimizer whose scalars are fresh tensors each step: a graph
+    captured at one step would read the first step's rate forever."""
+    import repro_torch.optim as optim
+
+    made = optim.make_optimizer
+
+    def fresh_scalars(train_cfg):
+        opt = made(train_cfg)
+
+        def stage(step, device):
+            held = opt.stage(step, device)
+            return {k: v.clone() for k, v in held.items()}
+        return opt._replace(stage=stage)
+
+    monkeypatch.setattr(optim, "make_optimizer", fresh_scalars)
+    findings, summary = ta._learner_keys(False)
+    assert _rules(findings) == {"retrace-hazard"} and not summary["ok"]
+
+
+def test_audit_flags_admissions_that_rebind_the_session(monkeypatch):
+    admit = G._SessionFns.admit
+
+    def rebinding(self, params, state, *args, **kwargs):
+        out = admit(self, params, state, *args, **kwargs)
+        state["pos"] = state["pos"].clone()     # the fault
+        return out
+
+    monkeypatch.setattr(G._SessionFns, "admit", rebinding)
+    findings, summary = ta._admission_keys()
+    assert _rules(findings) == {"retrace-hazard"}
+    assert summary["graph_keys"] > summary["row_buckets"]
