@@ -55,7 +55,8 @@ exits nonzero without printing a result:
               --replay-ratio 1.0 --steps 500: its final reward/step
   7. host     repro_torch.launch.train.main with --actors host (8 actor
               threads stepping gridworld on the CPU, the deep agent's
-              policy batched on the card, the learner's V-trace launches
+              policy batched on the card, a CUDA graph per padded batch:
+              31b's checks run here; the learner's V-trace launches
               reported); no inference or actor thread may outlive main
   7b. replay_host  the same with --replay uniform
   8. resume   Catch with the minatar agent, cuDNN pinned deterministic:
@@ -158,7 +159,7 @@ exits nonzero without printing a result:
  23. xserve   repro_torch.launch.serve.main for xLSTM-125M in bf16: 24
               requests of 1..64 tokens (one chunk at most) in 8 slots, no
               kernel launched; then a profile of one decode step
- 24. xlm_rl   --mode lm-rl for xLSTM-125M, B 8, T 64, 2 steps: K1 once a
+ 24. xlm_rl   --mode lm-rl for xLSTM-125M, B 8, T 64, 3 steps: K1 once a
               step at (64, 8), nothing else; ms a step split into
               generation and learner, fps, peak memory; its float32
               kernel-against-plain step (only V-trace differs); then 1
@@ -180,7 +181,8 @@ exits nonzero without printing a result:
  26. mp       --mesh-model 2, the ranks sharing cuda:0 through gloo (NCCL
               refuses two ranks on one device; the times are checks of
               the collectives, not speed figures): 26a Zamba2-2.7B --mode
-              lm and 26b Granite-3.0-1B-A400M --mode lm-rl at full width
+              lm and 26b Granite-3.0-1B-A400M --mode lm-rl at full width,
+              depth cut to MP_GROUPS (3 of 9 and 8 of 24 groups),
               through the entry point's builders and Runtime, each rank's
               losses, step ms, model-group all-reduces and peak memory,
               K1-K4 launches exact a rank (the unmeshed run's counts),
@@ -198,7 +200,8 @@ exits nonzero without printing a result:
               bitwise, the next step's losses within MP_TOL
  27. slice14  the model axis for the xLSTM mixers and xattn, and the
               other rules tables, ranks sharing cuda:0 through gloo: 27a
-              xLSTM-125M --mesh-model 2 through the trainer's builders
+              xLSTM-125M --mesh-model 2 (2 of its 6 groups, MP_GROUPS)
+              through the trainer's builders
               (lm-rl, K1 once a step; lm), each with its float32 step against
               the single-process one (XLSTM_GRAD_TOL), and Server(mesh=):
               float32 teacher-forced logits against the unmeshed session,
@@ -208,7 +211,7 @@ exits nonzero without printing a result:
               query heads a rank, float32 kernel against plain path (K2
               4), bf16 generate(vision=) (K2 4, K3 4 x 15); 27c the
               launch/specs.py programs at full width in float32
-              (SPEC_RUNS: Granite expert_seqpar train (8 of 24 groups)
+              (SPEC_RUNS: Granite expert_seqpar train (4 of 24 groups)
               and expert decode, Zamba2-2.7B seqpar train (3 of 9 groups)
               at (1, 2), one Qwen3-32B group fsdp_seqpar train and fsdp
               decode at (2, 2), each InputShape cut and its bytes
@@ -248,13 +251,42 @@ exits nonzero without printing a result:
               in-place weight update, against the same episodes
               generated eagerly, one capture. Phases 10, 12, 15, 20-25
               decode through the graphs too, their checks unchanged
+ 30. graph    slice 17 (core/compiled.py), graph against eager from one
+              state, bitwise (or within twice a second eager run's gap):
+              30a the full-width learner steps (deep, recurrent), 30b the
+              pipelined unroll (gridworld, Catch), 30c the Qwen3-4B and
+              Zamba2-2.7B admissions; phases 4-8, 17, 18 run through them
+ 31. graph    slice 18: 31a the LM learner steps at full width through
+              the compiled.TrainStep that train.build_lm_rl / build_lm
+              build, against the plain step from the built state, 3
+              steps (warm, capture, replay; AdamW's scalars new each
+              step) on batches the built source draws: Qwen3-4B lm-rl (B
+              8, T 64; K1, K2) and Zamba2-2.7B lm (4 x 512; K2, K4), their
+              kept states in host memory, Granite lm-rl (MoE), xLSTM-125M
+              lm (S 256) and the reduced VLM lm; every metric, parameter
+              and AdamW leaf bitwise (or within twice a second eager
+              run's gap), one capture, each step's K1/K2/K4 launches
+              remat_step_launches' in both runs, ms a step and peak
+              memory of each run; 31b phase 7's host actors, the policy a
+              CUDA graph per padded batch (compiled.Forward, captured on
+              the inference thread), each bucket (1, 2, 4, 8) bitwise the
+              eager forward with one capture a bucket, a replay after
+              _sync reading the new weights, ms a host step and a policy
+              call; 31c replay's value function bitwise the eager
+              baseline, one capture across a weight update; 31d (in
+              phase 29's VLM group) generate(vision=)'s prefill through
+              its admission graph, one capture a key, bitwise eager. The
+              LM phases 15, 16, 21, 24, 25 replay their learner graphs
+              (their compiled: line, one capture, the graph pools
+              released before each float32 check)
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
               phase 17's launches; recurrent_*: phase 18's; granite_*:
               phases 20 and 21's; xlstm_*: phase 24's; vlm_*: phase
               25's; mp_*: phase 26's, one entry a rank;
               slice14_launches / slice15_launches: phase 27's and 28's
-              runs, a rank each; K2's offset_*: phase 3's offset row),
+              runs, a rank each; slice17_launches / slice18_launches:
+              phases 30 and 31a; K2's offset_*: phase 3's offset row),
               then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
@@ -384,10 +416,14 @@ MODEL_TOL = 1e-3               # full-width logits, kernel vs dense path
 # the largest measured on an H100 (4.1e-5, a Zamba2 dt_bias; PERF.md)
 LM_GRAD_TOL = 2e-4
 LM_SPLIT_REPS = 1              # timed next_batch / learner calls after a run
+# what an LM run may leave reserved on the card once its runtime is freed
+# (its learner graph's pool and the session's must be released): the
+# cuBLAS workspaces of the capture streams stay
+LM_RELEASED_BYTES = 1 << 30
 SERVE_ARGV = ["--arch", "qwen3-4b", "--attn-impl", "kernel", "--requests",
               "24", "--prompt-len", "512", "--gen-tokens", "64",
               "--max-batch", "8"]
-HOST_STEPS = 6
+HOST_STEPS = 4
 HOST_ARGV = ["--mode", "rl-agent", "--actors", "host", "--env", "gridworld",
              "--agent", "deep", "--batch", "32", "--steps", str(HOST_STEPS)]
 # the resume phase's run: Catch, the minatar agent, the quickstart settings
@@ -451,7 +487,7 @@ XLSTM_LAYER_RTOL = 1e-4
 XSERVE_ARGV = ["--arch", XLSTM, "--requests", "24", "--prompt-len", "64",
                "--gen-tokens", "64", "--max-batch", "8"]
 XLM_RL_ARGV = ["--mode", "lm-rl", "--arch", XLSTM, "--vtrace-impl",
-               "kernel", "--batch", "8", "--seq", "64", "--steps", "2"]
+               "kernel", "--batch", "8", "--seq", "64", "--steps", "3"]
 XLM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq", "256",
             "--steps", "1"]
 # phase 25: Llama-3.2-Vision-90B, one of its 20 groups at every published
@@ -475,12 +511,17 @@ GMP_ARGV = ["--mode", "lm-rl", "--arch", GRANITE, "--attn-impl", "kernel",
             "--vtrace-impl", "kernel", "--batch", "8", "--seq", "64",
             "--steps", "1", "--mesh-model", "2"]
 MP_F32_GROUPS = {"zamba2-2.7b": 1, GRANITE: 2}
+# the depth of 26a, 26b and 27a's runs (full width; the published 9, 24
+# and 6 groups before PR 29): a rank's gloo collectives grow with the
+# layers, and the checks hold per layer
+MP_GROUPS = {"zamba2-2.7b": 3, GRANITE: 8, XLSTM: 2}
 MP22_STEPS = 2
 MP_TOL = 1e-5
 MP_CKPT_ARGV = ["--mode", "lm", "--arch", "qwen3-4b", "--reduced",
                 "--batch", "8", "--seq", "32", "--steps", "6"]
 # phase 27: 27a xLSTM-125M at (1, 2) through the trainer (--mesh-model 2;
-# the float32 step at full depth) and Server(mesh=); 27b one of
+# the float32 step at XMP_F32_GROUPS of its 6 groups: full depth before
+# PR 29) and Server(mesh=); 27b one of
 # Llama-3.2-Vision-90B's groups at (1, 2); 27c the launch/specs.py
 # programs at full width (float32) under the tables resolve_rules picks
 # (SPEC_RUNS: each InputShape cut from the named one, see reduced_from;
@@ -491,7 +532,7 @@ XMP_RL_ARGV = ["--mode", "lm-rl", "--arch", XLSTM, "--vtrace-impl", "kernel",
                "--mesh-model", "2"]
 XMP_LM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq",
                "64", "--steps", "1", "--mesh-model", "2"]
-XMP_F32_GROUPS = 6
+XMP_F32_GROUPS = 2
 # the xLSTM's float32 step gradients carry more rounding than the other
 # archs' (exp-gated recurrences over 12 layers): at full width on the CPU
 # (tests/xlstm_grad_gap.py: B 8, T 64, lm-rl, seed 0) the port's unmeshed
@@ -500,19 +541,19 @@ XMP_F32_GROUPS = 6
 # LM_GRAD_TOL
 XLSTM_GRAD_TOL = 1e-3
 MP_SERVE_LENS, MP_SERVE_STEPS, MP_SERVE_RTOL = (1, 20, 47, 64), 8, 1e-4
-MP_SERVE_REQUESTS, MP_SERVE_TOKENS = 12, 8
+MP_SERVE_REQUESTS, MP_SERVE_TOKENS = 6, 8
 MP_VLM_GEN = 16
 SPEC_RUNS = (
-    dict(phase="spec_granite_train", arch=GRANITE, groups=8,
+    dict(phase="spec_granite_train", arch=GRANITE, groups=4,
          rules="expert_seqpar", mesh=(1, 2),
          shape=("granite_train_small", 256, 4, "train"),
-         reduced_from="train_4k (B 256 x S 4096), 8 of 24 groups", steps=1,
-         bytes="0.96 GB of weights, 0.96 of gradients, 0.96 of RMSProp "
+         reduced_from="train_4k (B 256 x S 4096), 4 of 24 groups", steps=1,
+         bytes="0.53 GB of weights, 0.53 of gradients, 0.53 of RMSProp "
                "state a rank"),
-    dict(phase="spec_granite_decode", arch=GRANITE, rules="expert",
+    dict(phase="spec_granite_decode", arch=GRANITE, groups=8, rules="expert",
          mesh=(1, 2), shape=("granite_decode_small", 64, 8, "decode"),
-         reduced_from="decode_32k (B 128 x S 32768)", steps=2,
-         bytes="2.7 GB of weights a rank, a 25 MB cache"),
+         reduced_from="decode_32k (B 128 x S 32768), 8 of 24 groups",
+         steps=2, bytes="0.96 GB of weights a rank, an 8.3 MB cache"),
     dict(phase="spec_zamba_train", arch="zamba2-2.7b", groups=3,
          rules="seqpar", mesh=(1, 2),
          shape=("zamba_train_small", 256, 2, "train"),
@@ -583,6 +624,16 @@ GRAPH_ADMITS = (
     ("qwen3-4b", 576, ([200, 220, 240, 256], [100, 110, 120, 128])),
     ("zamba2-2.7b", 320, ([256] * 4, [128] * 4)),
 )
+# phase 31: the compiled LM learner steps at full width against eager
+# (GRAPH_LM_STEPS steps from the built state: warm, capture, replay), the
+# trainers of phases 15, 16, 21 (lm-rl), 24 (lm) and 25 (the reduced VLM
+# lm), the first two with their kept states in host memory; the host
+# actors' policy at each bucket up to the 8 actors, GRAPH_POLICY_CALLS
+# calls each; replay's value function, GRAPH_VALUE_CALLS calls and one
+# after a weight update
+GRAPH_LM_STEPS = 3
+GRAPH_POLICY_CALLS, GRAPH_VALUE_CALLS = 3, 3
+POLICY_BUCKETS = (1, 2, 4, 8)
 # the LM trainers at full published width (phases 15, 16)
 LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
               "kernel", "--vtrace-impl", "kernel", "--batch", "8", "--seq",
@@ -590,6 +641,8 @@ LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
 LM_ARGV = ["--mode", "lm", "--arch", "zamba2-2.7b", "--attn-impl", "kernel",
            "--ssd-impl", "kernel", "--batch", "4", "--seq", "512", "--steps",
            "2"]
+GRAPH_LM_CASES = ((LM_RL_ARGV, True), (LM_ARGV, True), (GLM_RL_ARGV, False),
+                  (XLM_ARGV, False), (VLM_LM_ARGV, False))
 
 
 def emit(phase, **fields):
@@ -1573,7 +1626,14 @@ def run_trainer(argv):
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
         print("  " + line, flush=True)
+    run_trainer.lines = lines
     return runtime, seconds, lines[-1] if lines else ""
+
+
+def _compiled_line():
+    """The last trainer run's ``compiled:`` line."""
+    return next(line for line in run_trainer.lines
+                if line.startswith("compiled:"))
 
 
 def split_ms(runtime, reps=5):
@@ -1724,8 +1784,10 @@ def _host_threads():
 
 
 def phase_host(ops):
-    """The MonoBeast host-actor path through its entry point; returns the
-    kernel launches of the run. Then its parts, alone: one env step on
+    """The MonoBeast host-actor path through its entry point, its policy a
+    CUDA graph per padded batch (31b's checks, ``phase_graph_policy``);
+    returns the kernel launches of the run. Then its parts, alone: one
+    env step on
     the CPU (one thread), one batched policy call of 8 observations on
     the card (to the logits on the host), and the two halves of a step (a
     learner batch from the restarted actors, one learner step)."""
@@ -1741,6 +1803,8 @@ def phase_host(ops):
     left = _host_threads()
     if left:
         raise AssertionError(f"host actors left threads alive: {left}")
+    # 31b: the policy's graphs, on this run
+    phase_graph_policy(runtime, seconds, last)
     if launches["vtrace"] < HOST_STEPS:
         raise AssertionError(f"host path made {launches} vtrace launches, "
                              f"fewer than its {HOST_STEPS} steps")
@@ -2090,32 +2154,51 @@ def remat_step_launches(cfg, seq):
 
 def _lm_main(ops, argv, probe=None):
     """``train.main(argv)`` with its kernel launches and peak device
-    memory; then ``split_ms`` on the trained runtime (its medians and last
-    batch), and ``probe(params, batch)``, whose dict joins the run's. The
-    model and optimizer state are freed before it returns."""
+    memory (allocated, and reserved with the learner graph's pool); then
+    ``split_ms`` on the trained runtime (its medians and last batch), and
+    ``probe(params, batch)``, whose dict joins the run's. The run's
+    ``compiled:`` line must name the learner step, whose calls (the run's
+    steps, then the timed one) share one graph key: the first runs
+    eagerly, the second captures (and so a 1-step run's timed call pays
+    the capture), the rest replay. The model, optimizer state and graphs are freed
+    before it returns: the card's reserved memory must be back within
+    LM_RELEASED_BYTES of what it was before the run."""
     import gc
 
     import torch
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
     ops.reset_stats()
     runtime, seconds, last = run_trainer(argv)
     launches = ops.stats()
+    line = _compiled_line()
     peak = torch.cuda.max_memory_allocated()
     metrics = {k: float(v) for k, v in runtime.metrics.items()}
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"{argv}: metrics not finite: {metrics}")
     frames, steps = runtime.frames, runtime.total_steps
     split, batch = split_ms(runtime, reps=LM_SPLIT_REPS)
+    peak_reserved = torch.cuda.max_memory_reserved()
+    captures = runtime.step_fn.captures
     probed = probe(runtime.params, batch) if probe is not None else {}
     del runtime
     gc.collect()
     torch.cuda.empty_cache()
+    left = torch.cuda.memory_reserved() - reserved0
+    if not line.startswith("compiled: the learner step") or captures != 1 \
+            or left > LM_RELEASED_BYTES:
+        raise AssertionError(
+            f"{argv}: {line!r}, {captures} learner captures (want 1), "
+            f"{left} bytes still reserved after the run")
     step_ms = split["unroll_ms"] + split["learner_ms"]
-    run = dict(argv=argv, seconds=seconds, fps_line=last, metrics=metrics,
-               launches=launches, peak_mem_bytes=peak, frames=frames,
-               split_reps=LM_SPLIT_REPS, **split, step_ms=step_ms,
+    run = dict(argv=argv, seconds=seconds, fps_line=last, compiled=line,
+               learner_captures=captures, metrics=metrics,
+               launches=launches, peak_mem_bytes=peak,
+               peak_reserved_bytes=peak_reserved, reserved_left_bytes=left,
+               frames=frames, split_reps=LM_SPLIT_REPS, **split,
+               step_ms=step_ms,
                frames_per_s=frames / steps / step_ms * 1e3, **probed)
     return run, batch, steps
 
@@ -3170,6 +3253,20 @@ def _mp_check_bars(label, rank, check, grad_tol=LM_GRAD_TOL):
                              f"{check['launches']}, want {want}")
 
 
+@contextlib.contextmanager
+def depth_cut(train, groups):
+    """Inside: ``train``'s builders read every config cut to ``groups``
+    groups (full width, depth cut; they look it up through
+    ``train.get_config``)."""
+    full = train.get_config
+    train.get_config = lambda name: dataclasses.replace(full(name),
+                                                        num_groups=groups)
+    try:
+        yield
+    finally:
+        train.get_config = full
+
+
 def _mp_rank(mesh, argv, f32_groups):
     """26a / 26b in each rank: the entry point's builder for this rank
     (``train._BUILDERS``, the mesh's model slices) driven by ``Runtime``
@@ -3195,8 +3292,9 @@ def _mp_rank(mesh, argv, f32_groups):
     torch.cuda.reset_peak_memory_stats(mesh.device)
     ops.reset_stats()
     t0 = time.perf_counter()
-    source, step_fn, params, opt_state, extras = train._BUILDERS[
-        args.mode](args, mesh)
+    with depth_cut(train, MP_GROUPS[args.arch]):
+        source, step_fn, params, opt_state, extras = train._BUILDERS[
+            args.mode](args, mesh)
     extras.pop("checkpoint_layout")
     build_s = time.perf_counter() - t0
     losses, stamps, last = [], [time.perf_counter()], {}
@@ -3274,7 +3372,7 @@ def phase_mp(argv, f32_groups, phase):
 
     arch, steps = _arg(argv, "--arch"), int(_arg(argv, "--steps"))
     seq = int(_arg(argv, "--seq"))
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), num_groups=MP_GROUPS[arch])
     layers, _ = kernel_layers(cfg)
     per_step = remat_step_launches(cfg, seq)
     if _arg(argv, "--mode") == "lm-rl":
@@ -3308,7 +3406,8 @@ def phase_mp(argv, f32_groups, phase):
                              " or their tokens")
     for r in ranks:
         del r["tokens"]
-    emit(phase, argv=argv, mesh=[1, 2], backend="gloo",
+    emit(phase, argv=argv, mesh=[1, 2], backend="gloo", groups=cfg.num_groups,
+         published_groups=get_config(arch).num_groups,
          device="cuda:0 (both ranks)", want_launches=want, seconds=seconds,
          timing="gloo's host-staging path, not a speed figure",
          ranks_agree=True, ranks=ranks)
@@ -3638,7 +3737,8 @@ def _mp_serve_rank(mesh):
 
     repro_torch.resolve_device("cuda")
     rules = sharding.MEGATRON_RULES
-    cfg32 = dataclasses.replace(get_config(XLSTM), dtype="float32")
+    cfg = dataclasses.replace(get_config(XLSTM), num_groups=MP_GROUPS[XLSTM])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst, scale = 0.0, 0.0
     ops.reset_stats()
@@ -3666,7 +3766,6 @@ def _mp_serve_rank(mesh):
             del params, cache
         worst = max(worst, (runs[0] - runs[1]).abs().max().item())
         scale = max(scale, runs[1].abs().max().item())
-    cfg = get_config(XLSTM)
     params = model_lib.shard_model(model_lib.init(cfg, seed=0,
                                                   device="cuda"),
                                    cfg, mesh, rules)
@@ -4660,9 +4759,13 @@ def phase_graph_vlm(ops):
     """29 for one Llama-3.2-Vision-90B group (phase 25's: bf16 on float32
     weights, B 4, VLM_PROMPT-token prompts with the seeded vision stub,
     VLM_GEN tokens): GRAPH_CHECK_STEPS compiled steps against eager on
-    ``generate``'s static buffers, bitwise; then ``generate(vision=)``
-    twice against its eager loop, bitwise, with no new capture; decode ms
-    a step of each from the calls' times less a prefill's."""
+    ``generate``'s static buffers, bitwise. Then 31d, the prefill with
+    ``vision=`` through generate's admission graph: ``generate`` of 1
+    token, eagerly then three times (warm, capture, replay), and of
+    VLM_GEN tokens three times, against the eager loop, bitwise; one
+    prefill capture a key, K2 of each prefill the eager one's, no new
+    decode step capture; decode ms a step of each from the calls' times
+    less a prefill's (the graph's less a replayed prefill's)."""
     import weakref
 
     import numpy as np
@@ -4714,28 +4817,47 @@ def phase_graph_vlm(ops):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    _, prefill_ms = timed(False, 1)
+    # the prefill alone (1 token): eager, then through generate's
+    # admission graph (warm, capture, replay), K2 as the eager prefill's
+    admits0, prefill = fns.admissions.captures, {}
+    for name in ("eager", "warm", "capture", "graph"):
+        before = ops.stats()["flash_attention"]
+        out, prefill[name] = timed(name == "eager", 1)
+        prefill[name + "_k2"] = ops.stats()["flash_attention"] - before
+        if name == "eager":
+            first = out
+        for k in ("tokens", "logprob", "entropy", "baseline"):
+            gaps["prefill/" + k] = max(gaps.get("prefill/" + k, 0.0),
+                                       _gap(out[k], first[k]))
     ms, outs = {}, {}
-    for name in ("eager", "graph", "graph2", "eager2"):
+    for name in ("eager", "graph", "graph2", "graph3", "eager2"):
         outs[name], ms[name] = timed(name.startswith("eager"), VLM_GEN)
-    for name in ("graph", "graph2"):
+    for name in ("graph", "graph2", "graph3"):
         for k in ("tokens", "logprob", "entropy", "baseline"):
             gaps["generate/" + k] = max(gaps.get("generate/" + k, 0.0),
                                         _gap(outs[name][k], outs["eager"][k]))
     captured = fns.captures - captures0
-    per_step = {name: (ms[name] - prefill_ms) / (VLM_GEN - 1)
-                for name in ms}
+    admits = fns.admissions.captures - admits0
+    per_step = {name: (ms[name] - prefill["graph" if name.startswith(
+        "graph") else "eager"]) / (VLM_GEN - 1) for name in ms}
     emit("graph_vlm", arch=cfg.name, dtype=cfg.dtype,
          num_groups=cfg.num_groups, batch=b, prompt_len=VLM_PROMPT,
          gen_tokens=VLM_GEN, checked_steps=GRAPH_CHECK_STEPS, gaps=gaps,
-         captures=captured, k3=k3, prefill_ms=prefill_ms, call_ms=ms,
+         captures=captured, prefill_captures=admits, k3=k3,
+         prefill_ms=prefill, call_ms=ms,
          eager_ms_per_step=statistics.median(
              [per_step["eager"], per_step["eager2"]]),
-         graph_ms_per_step=statistics.median(
-             [per_step["graph"], per_step["graph2"]]))
+         graph_ms_per_step=per_step["graph3"],
+         note="31d: the prefill (the admission graph with vision=) keyed "
+              "by (rows, prompt, vision, cache length): one key for the "
+              "1-token calls, one for the VLM_GEN-token calls (graph: "
+              "warm, graph2: capture, graph3: replay)")
     _check_bitwise("graph_vlm", gaps)
-    if captured != 1:
-        raise AssertionError(f"graph_vlm: {captured} captures, want 1")
+    k2 = {prefill[n + "_k2"] for n in ("eager", "warm", "capture", "graph")}
+    if captured != 1 or admits != 2 or k2 != {attn}:
+        raise AssertionError(f"graph_vlm: {captured} step captures (want "
+                             f"1), {admits} prefill captures (want 2: one "
+                             f"a key), prefill K2 {k2} (want {attn})")
     del params, outs, vision
     torch.cuda.empty_cache()
 
@@ -5170,6 +5292,339 @@ def phase30(ops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 31. the compiled LM learner steps, the host actors' policy and replay's
+# value function (the VLM's prefill: phase 29's graph_vlm): CUDA graphs
+# against eager
+
+
+def _lm_state(params, opt_state):
+    return {"params": dict(params.named_parameters()),
+            "opt_state": opt_state}
+
+
+def _kept(tree, device, pin=False):
+    """Each leaf of ``tree`` copied to ``device`` (with ``pin``, pinned
+    host memory), by path."""
+    import torch
+
+    from repro_torch.tree import flatten
+    if not pin:
+        return {path: x.detach().to(device, copy=True)
+                for path, x in flatten(tree)}
+    return {path: torch.empty(x.shape, dtype=x.dtype,
+                              pin_memory=True).copy_(x.detach())
+            for path, x in flatten(tree)}
+
+
+def _digests(tree, chunk=1 << 26):
+    """Each leaf's fingerprint by path: two int64 sums over its 32-bit
+    words, one plain and one weighted by position (mod 65521), and the
+    sum of its trailing bytes, taken on the card. Equal bits give equal
+    fingerprints; a leaf that differs is caught but for a deliberate
+    collision."""
+    import torch
+
+    from repro_torch.tree import flatten
+    out = {}
+    for path, x in flatten(tree):
+        b = x.detach().reshape(-1).view(torch.uint8)
+        n = b.numel() // 4 * 4
+        w = b[:n].view(torch.int32)
+        sums = [b[n:].long().sum()]
+        for i in range(0, w.numel(), chunk):
+            c = w[i:i + chunk].long()
+            pos = torch.arange(i, i + c.numel(), device=c.device) % 65521
+            sums += [c.sum(), (c * (pos + 1)).sum()]
+        out[path] = tuple(torch.stack(sums).tolist())
+    return out
+
+
+def _gaps_to_kept(gaps, tree, kept):
+    """Each leaf's gap to its kept copy (moved back one leaf at a time)
+    into ``gaps``, worst kept."""
+    from repro_torch.tree import flatten
+    for path, x in flatten(tree):
+        gaps[path] = max(gaps.get(path, 0.0),
+                         _gap(x, kept[path].to(x.device)))
+
+
+def phase_graph_lm_learner(ops, argv, host):
+    """31a: one LM trainer's learner step at full width (``argv``'s arch,
+    shapes and impls, ``--steps`` GRAPH_LM_STEPS), built by
+    ``train.build_lm_rl`` / ``build_lm``: its ``compiled.TrainStep``
+    against the plain step it wraps, from the built state (the weights and
+    AdamW's zeros), on GRAPH_LM_STEPS batches the built source draws first
+    from those weights (lm's corpus; lm-rl's one batch of episodes of the
+    compiled session, its columns rotated for each later step). The eager
+    run goes first and its final state is kept; the built state is
+    restored and the graph run (warm, capture, replay) is held to it:
+    every metric, parameter and AdamW leaf bitwise, or, where not, within
+    twice the gap of a second eager run from the same state. One capture;
+    K1, K2 and K4 launches of each step of both runs equal to
+    ``remat_step_launches`` (K1 once an lm-rl step); the optimizer's
+    staged scalars new each step. ``host``: the built state lies in pinned
+    host memory (two Qwen3-4B or Zamba2-2.7B states with AdamW's do not
+    fit the card beside a step) and the eager final state is held by each
+    leaf's fingerprint (``_digests``); where one differs, both runs go
+    again with that state kept in host memory and compared by value. The
+    graph is released before a second eager run. Reports each run's ms a
+    step and peak memory (the graph run's pool included). Returns the
+    graph run's launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+
+    args = train._parser().parse_args(
+        list(argv) + ["--steps", str(GRAPH_LM_STEPS)])
+    build = train.build_lm_rl if args.mode == "lm-rl" else train.build_lm
+    cfg = train._lm_config(args)
+    source, graph, params, opt_state, _ = build(args)
+    plain, opt = graph.step_fn, graph.opt
+    if args.mode == "lm-rl":
+        # one generated batch (seconds at full width), its episodes
+        # rotated along the batch for the later steps
+        first = source.next_batch(params)
+        batches = [{k: v.roll(i, dims=1) for k, v in first.items()}
+                   for i in range(GRAPH_LM_STEPS)]
+    else:
+        batches = [source.next_batch(params) for _ in range(GRAPH_LM_STEPS)]
+    source.stop()
+    del source
+    keep = "cpu" if host else "cuda"
+    start = _kept(dict(params.named_parameters()), keep, pin=host)
+    if any(bool(x.any()) for x in leaves(opt_state)):
+        raise AssertionError(f"graph_lm {cfg.name}: AdamW state not zero")
+    want = {**dict.fromkeys(ops.stats(), 0),
+            **remat_step_launches(cfg, args.seq),
+            "vtrace": int(args.mode == "lm-rl")}
+
+    def run(step_fn):
+        with torch.no_grad():
+            for path, x in params.named_parameters():
+                x.copy_(start[path])
+            for x in leaves(opt_state):
+                x.zero_()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = dict(metrics=[], launches=[], ms=[], scalars=[],
+                   allocated_at_start=torch.cuda.memory_allocated())
+        for step, batch in enumerate(batches):
+            before = ops.stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, metrics = step_fn(params, opt_state, step, batch)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append({k: v - before[k]
+                                    for k, v in ops.stats().items()})
+            out["metrics"].append({k: v.clone() for k, v in metrics.items()})
+            out["scalars"].append(tuple(
+                float(v) for v in opt.stage(step, "cuda").values()))
+        out["peak_allocated"] = torch.cuda.max_memory_allocated()
+        out["peak_reserved"] = torch.cuda.max_memory_reserved()
+        return out
+
+    eager = run(plain)
+    state = _lm_state(params, opt_state)
+    gaps, eager_gaps, kept = {}, {}, None
+    if host:
+        # two such states and a step do not fit the card, and a host copy
+        # of 48 GB takes tens of seconds: held by fingerprints, and only
+        # where they differ, again with the eager state kept on the host
+        prints = _digests(state)
+        got = run(graph)
+        if _digests(state) != prints:
+            run(plain)
+            kept = _kept(state, keep)
+            got = run(graph)
+        else:
+            gaps.update(dict.fromkeys(prints, 0.0))
+    else:
+        kept = _kept(state, keep)
+        got = run(graph)
+    for step in range(GRAPH_LM_STEPS):
+        _note_tree(gaps, f"metrics/{step}/", got["metrics"][step],
+                   eager["metrics"][step])
+    if kept is not None:
+        _gaps_to_kept(gaps, state, kept)
+    captures = graph.captures
+    del graph
+    gc.collect()
+    if any(gaps.values()):
+        # a second eager run from the same state: each product's bar (the
+        # graph and its pool freed first)
+        eager2 = run(plain)
+        for step in range(GRAPH_LM_STEPS):
+            _note_tree(eager_gaps, f"metrics/{step}/",
+                       eager2["metrics"][step], eager["metrics"][step])
+        if kept is not None:
+            _gaps_to_kept(eager_gaps, state, kept)
+    loose = _held(f"graph_lm {cfg.name}", gaps, eager_gaps)
+    emit("graph_lm", arch=cfg.name, mode=args.mode, dtype=cfg.dtype,
+         batch=args.batch, seq=args.seq, remat=cfg.remat,
+         steps=GRAPH_LM_STEPS, kept_on=keep,
+         held_by="fingerprints" if kept is None else "values",
+         products=len(gaps), worst_gap=max(gaps.values()),
+         eager2_run=bool(eager_gaps), eager_not_bitwise=loose,
+         captures=captures, want_launches=want,
+         launches={"eager": eager["launches"], "graph": got["launches"]},
+         scalars=got["scalars"], ms={"eager": eager["ms"],
+                                     "graph": got["ms"]},
+         eager_ms_per_step=statistics.median(eager["ms"][1:]),
+         graph_ms_per_step=got["ms"][-1],
+         allocated_at_start={"eager": eager["allocated_at_start"],
+                             "graph": got["allocated_at_start"]},
+         peak_allocated={"eager": eager["peak_allocated"],
+                         "graph": got["peak_allocated"]},
+         peak_reserved={"eager": eager["peak_reserved"],
+                        "graph": got["peak_reserved"]},
+         loss=[float(m["loss"]) for m in got["metrics"]],
+         note="ms: synchronised host clock a step; the graph run's steps "
+              "are the warm call, the capture with its replay, a replay; "
+              "allocated_at_start: the state and whatever copies of it "
+              "this check keeps on the card")
+    bad = [i for i, (e, g) in enumerate(zip(eager["launches"],
+                                            got["launches"]))
+           if not e == g == want]
+    if captures != 1 or bad or len(set(got["scalars"])) != GRAPH_LM_STEPS:
+        raise AssertionError(
+            f"graph_lm {cfg.name}: captures {captures}, steps {bad} launched "
+            f"other than {want}, scalars {got['scalars']}")
+    launches = {k: sum(step[k] for step in got["launches"]) for k in want}
+    del params, opt_state, opt, batches, kept, start, plain, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _np_gap(got, want):
+    """``_gap`` of two numpy arrays."""
+    import torch
+    return _gap(torch.from_numpy(got), torch.from_numpy(want))
+
+
+def phase_graph_policy(runtime, seconds, last):
+    """31b, on phase 7's run (``train.main(HOST_ARGV)``, its ``runtime``,
+    seconds and last line, just returned): the host actors' policy
+    (``HostLoopSource.policy``, ``compiled.Forward``) a CUDA graph per
+    padded batch, captured on the inference thread; the run's
+    ``compiled:`` line. Then on the run's source: each bucket of the
+    ladder up to the 8 actors (POLICY_BUCKETS), GRAPH_POLICY_CALLS calls
+    on seeded observations against the eager forward of the actor copy,
+    bitwise; one capture a bucket; an in-place update of the learner's
+    weights synced into the copy (``_sync``), read by the next replay (no
+    new capture; bitwise the new weights' eager logits, not the old
+    ones). ms a host step; ms a policy call of 8, eager and graph."""
+    import numpy as np
+    import torch
+
+    from repro_torch.envs import gridworld
+
+    line = _compiled_line()
+    source = runtime.source
+    run_captures = source.policy.captures
+    rng = np.random.default_rng(31)
+    shape = gridworld.make().obs_shape
+
+    def eager(obs):
+        with torch.no_grad():
+            return source._actor(torch.from_numpy(obs).cuda()) \
+                .policy_logits.float().cpu().numpy()
+
+    gaps = {}
+    for n in POLICY_BUCKETS:
+        for _ in range(GRAPH_POLICY_CALLS):
+            obs = rng.random((n,) + shape, dtype=np.float32)
+            key = f"bucket_{n}"
+            gaps[key] = max(gaps.get(key, 0.0),
+                            _np_gap(source._policy(obs), eager(obs)))
+    captures, keys = source.policy.captures, len(source.policy._static)
+    obs = rng.random((POLICY_BUCKETS[-1],) + shape, dtype=np.float32)
+    old = source._policy(obs)
+    _sgd_in_place(runtime.params, seed=31)
+    source._sync(runtime.params)
+    new = source._policy(obs)
+    gaps["after_sync"] = _np_gap(new, eager(obs))
+    moved = _np_gap(new, old)
+    ms = _alternated_ms({"eager": lambda: eager(obs),
+                         "graph": lambda: source._policy(obs)}, 20)
+    emit("graph_policy", argv=HOST_ARGV, compiled=line, seconds=seconds,
+         ms_per_step=seconds / HOST_STEPS * 1e3, fps_line=last,
+         run_captures=run_captures,
+         buckets=list(POLICY_BUCKETS), calls=GRAPH_POLICY_CALLS,
+         captures=captures, keys=keys,
+         captures_after_sync=source.policy.captures, gaps=gaps,
+         sync_moved_logits=moved, policy_ms=ms)
+    _check_bitwise("graph_policy", gaps)
+    if "the host actors' policy" not in line or captures != keys \
+            or keys != len(POLICY_BUCKETS) or not moved \
+            or source.policy.captures != captures:
+        raise AssertionError(
+            f"graph_policy: {line!r}, captures {captures} for {keys} keys, "
+            f"{source.policy.captures} after the sync, logits moved {moved}")
+
+
+def phase_graph_value(ops):
+    """31c: replay's value function (``build_rl_agent``'s ReplaySource
+    ``value_fn``, ``compiled.Forward`` of the baseline head) for phase
+    5b's run (gridworld, the deep agent, --replay elite) on observations
+    of its unroll's shape less the bootstrap row (T 20, B 32) against the
+    eager baseline of the same weights, bitwise: GRAPH_VALUE_CALLS calls
+    (warm, capture, replays), then one after an in-place weight update
+    (no new capture); ms a call, eager and graph."""
+    import torch
+
+    from repro_torch.envs import gridworld
+    from repro_torch.launch import train
+
+    args = train._parser().parse_args(TRAINER_ARGV + ["--replay", "elite"])
+    source, _, agent, _, _ = train.build_rl_agent(args)
+    value_fn = source._value_fn
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    shape = TRAINER_SHAPE + gridworld.make().obs_shape
+
+    def eager(obs):
+        with torch.no_grad():
+            return agent(obs).baseline
+
+    gaps = {"values": 0.0}
+    for call in range(GRAPH_VALUE_CALLS + 1):
+        if call == GRAPH_VALUE_CALLS:
+            captures = value_fn.captures
+            _sgd_in_place(agent, seed=32)
+        obs = torch.rand(shape, generator=gen, device="cuda")
+        gaps["values"] = max(gaps["values"],
+                             _gap(value_fn(agent, obs), eager(obs)))
+    ms = _alternated_ms({"eager": lambda: eager(obs),
+                         "graph": lambda: value_fn(agent, obs)}, 20)
+    emit("graph_value", obs=list(shape), calls=GRAPH_VALUE_CALLS + 1,
+         gaps=gaps, captures=captures,
+         captures_after_update=value_fn.captures, ms_per_call=ms)
+    _check_bitwise("graph_value", gaps)
+    if captures != 1 or value_fn.captures != 1:
+        raise AssertionError(f"graph_value: captures {captures}, "
+                             f"{value_fn.captures} after the update")
+    del source, agent
+    torch.cuda.empty_cache()
+
+
+def phase31(ops):
+    """31: the compiled LM learner steps at full width (31a) and replay's
+    value function (31c) against eager (31b runs on phase 7's run, 31d in
+    phase 29's VLM group). Returns 31a's launches, a case each."""
+    out = {f"graph_lm_{_arg(argv, '--arch')}":
+           phase_graph_lm_learner(ops, argv, host)
+           for argv, host in GRAPH_LM_CASES}
+    phase_graph_value(ops)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5377,6 +5832,12 @@ def main():
     # admissions (Qwen3-4B, Zamba2-2.7B) as CUDA graphs against eager
     slice17 = phase30(ops)
 
+    # 31. slice 18: the LM learner steps at full width (Qwen3-4B and
+    # Granite lm-rl, Zamba2-2.7B, xLSTM-125M and the reduced VLM lm) and
+    # replay's value function as CUDA graphs against eager (31b, the host
+    # actors' policy: phase 7's run; 31d, the VLM's prefill: phase 29)
+    slice18 = phase31(ops)
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -5486,6 +5947,9 @@ def main():
             if k["name"] in launches}
         k["slice17_launches"] = {
             phase: launches[k["name"]] for phase, launches in slice17.items()
+            if k["name"] in launches}
+        k["slice18_launches"] = {
+            phase: launches[k["name"]] for phase, launches in slice18.items()
             if k["name"] in launches}
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     row = offset_rows[(FLASH_OFFSET_SHAPES[0], "bfloat16")]

@@ -16,9 +16,10 @@ reference donates. Its counterparts:
     ``generate`` calls, with fresh, equal configs, step on the same
     static buffers, so the card captures once (``audit_recapture``). A
     config keyed by identity would capture anew per construction. The
-    rl-agent learner steps keep one graph key over steps whose rate
-    changes (the rate is a device scalar), and a session's admissions one
-    per (rows, prefill bucket) (``audit_compiled_keys``).
+    rl-agent and LM learner steps keep one graph key over steps whose
+    rate changes (the rate is a device scalar), the host actors' policy
+    one per padded bucket across weight syncs, and a session's
+    admissions one per (rows, prefill bucket) (``audit_compiled_keys``).
   * **donation -> in place** (``donation-rebound``): for each registered
     entry (``registered_entries``: the session step at ``max_batch`` 8,
     the rl-agent learner steps on Catch, the LM steps at reduced
@@ -35,7 +36,7 @@ reference donates. Its counterparts:
 
 Everything runs at reduced width on the CPU; the card's side (one
 capture per key, the kernels' launches per replay) is ``chip_smoke.py``
-phases 29 and 30.
+phases 29 to 31.
 """
 
 from __future__ import annotations
@@ -443,6 +444,96 @@ def _learner_keys(recurrent: bool) -> Tuple[List[Finding], Dict]:
                       "rates": len(set(rates)), "ok": not findings}
 
 
+def _lm_learner_keys(pretrain: bool,
+                     arch: str = "qwen3-4b") -> Tuple[List[Finding], Dict]:
+    """An LM learner step as ``launch/train.py`` builds it (``build_lm`` /
+    ``build_lm_rl``: ``compiled.TrainStep``) over three steps: one graph
+    key for all of them, with AdamW's staged scalars (the lm run's
+    warmup rate, both runs' bias corrections) new each step in one set of
+    storages, so the card captures once."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core import compiled
+    from repro_torch.launch import train
+
+    mode = "lm" if pretrain else "lm-rl"
+    args = train._parser().parse_args(
+        ["--mode", mode, "--arch", arch, "--reduced", "--steps", "3",
+         "--batch", str(B), "--seq", str(S), "--vtrace-impl", "scan",
+         "--device", "cpu"])
+    _, step_fn, params, opt_state, _ = (
+        train.build_lm if pretrain else train.build_lm_rl)(args)
+    vocab = get_reduced_config(arch).vocab_size
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, vocab, (S + 1, B), generator=gen)
+    if pretrain:
+        batch = {"tokens": tokens.T.contiguous()}
+    else:
+        batch = {"obs": tokens.int(), "action": tokens[1:].int(),
+                 "behavior_logprob": -torch.rand((S, B), generator=gen),
+                 "reward": torch.rand((S, B), generator=gen),
+                 "done": torch.zeros((S, B), dtype=torch.bool)}
+    keys, scalars, ptrs = [], [], []
+    for step in range(3):
+        static = step_fn.inputs(batch)
+        held = step_fn.opt.stage(step, "cpu")
+        scalars.append(tuple(float(x) for x in held.values()))
+        ptrs.append(tuple(x.data_ptr() for x in held.values()))
+        step_fn(params, opt_state, step, static)
+        keys.append(step_fn.graph_key(params, opt_state, static))
+    name = f"build_{mode.replace('-', '_')}[{arch}, 3 steps]"
+    findings = []
+    if not isinstance(step_fn, compiled.TrainStep) or len(set(keys)) != 1 \
+            or len(set(ptrs)) != 1 or len(set(scalars)) != 3:
+        findings.append(Finding(
+            rule="retrace-hazard", file=_loc(compiled.TrainStep.graph_key)[0],
+            line=_loc(compiled.TrainStep.graph_key)[1],
+            message=f"{name}: {type(step_fn).__name__}, {len(set(keys))} "
+                    f"graph keys and {len(set(ptrs))} scalar storages over "
+                    f"{len(set(scalars))} sets of staged scalars; want a "
+                    "TrainStep, 1, 1 and 3"))
+    return findings, {"entry": name, "graph_keys": len(set(keys)),
+                      "scalars": len(set(scalars)), "ok": not findings}
+
+
+def _policy_keys() -> Tuple[List[Finding], Dict]:
+    """The host actors' policy (``HostLoopSource.policy``, a
+    ``compiled.Forward``): one graph key per padded bucket of the
+    inference queue, the same key after ``_sync`` loads new weights into
+    the actor copy in place, so the card captures once a bucket."""
+    from repro_torch.core import compiled
+    from repro_torch.launch import train
+
+    args = train._parser().parse_args(["--actors", "host", "--device",
+                                       "cpu", "--batch", str(B)])
+    source, _, agent, _, _ = train.build_rl_agent(args)
+    policy = source.policy
+    source._sync(agent)
+    shape = source._env.obs_shape
+    buckets = (1, 2, 4, 8)
+
+    def key(n):
+        static = policy.inputs(torch.zeros((n,) + shape))
+        return policy.graph_key(source._actor, static)
+    keys = [key(n) for n in buckets]
+    with torch.no_grad():
+        for p in agent.parameters():
+            p.add_(1.0)
+    source._sync(agent)
+    again = [key(n) for n in buckets]
+    findings = []
+    if len(set(keys)) != len(buckets) or again != keys:
+        findings.append(Finding(
+            rule="retrace-hazard", file=_loc(compiled.Forward.graph_key)[0],
+            line=_loc(compiled.Forward.graph_key)[1],
+            message=f"HostLoopSource.policy: {len(set(keys))} graph keys "
+                    f"for {len(buckets)} buckets, "
+                    f"{'the same' if again == keys else 'new ones'} after "
+                    "_sync; want one a bucket, kept"))
+    return findings, {"entry": "HostLoopSource.policy[catch]",
+                      "graph_keys": len(set(keys)),
+                      "buckets": len(buckets), "ok": not findings}
+
+
 def _admission_keys(arch: str = "qwen3-4b") -> Tuple[List[Finding], Dict]:
     """A session's admissions (``_SessionFns.admit``): one graph key per
     (rows, prefill bucket), whatever the prompts and slots, so the card
@@ -487,12 +578,14 @@ def registered_entries() -> List[InPlaceEntry]:
 
 
 def audit_compiled_keys() -> Tuple[List[Finding], List[Dict]]:
-    """The compiled rl-agent learner steps and admissions: one graph key
-    per step across changing rates, one per admission (rows, bucket)."""
+    """The compiled learner steps (rl-agent, LM), the host actors' policy
+    and the admissions: one graph key per step across changing rates, one
+    per policy bucket, one per admission (rows, bucket)."""
     findings: List[Finding] = []
     summaries: List[Dict] = []
     for fnd, summary in (_learner_keys(False), _learner_keys(True),
-                         _admission_keys()):
+                         _lm_learner_keys(False), _lm_learner_keys(True),
+                         _policy_keys(), _admission_keys()):
         findings += fnd
         summaries.append(summary)
     return findings, summaries

@@ -22,14 +22,24 @@ and on the card as CUDA graphs of static memory:
     same generator state would, and leaves the generator where that call
     would. A capture or replay failure raises: nothing falls back to
     eager on a CUDA tensor.
-  * ``TrainStep`` wraps an rl-agent learner step (the reference's
-    ``jax.jit(make_train_step(...))``): the batch is copied into static
-    buffers, the optimizer's changing scalars are written into device
-    scalars before the replay, and the metrics are copied out.
+  * ``TrainStep`` wraps a learner step (the reference's
+    ``jax.jit(make_train_step(...))`` and its jitted LM steps): the batch
+    is copied into static buffers, the optimizer's changing scalars are
+    written into device scalars before the replay, and the metrics are
+    copied out.
   * ``Unroll`` wraps an unroll (the reference's jitted unroll with its
     carry donated): the carry lives in static buffers updated in place,
     and each rollout is copied out of graph memory, so a rollout handed
     to the learner is never overwritten by the next dispatch.
+  * ``Forward`` wraps a module's forward (the reference's jitted
+    ``apply_fn(p, obs).<head>``: the host actors' policy, replay's value
+    function): one graph per input shape, the input copied into a static
+    buffer and the output copied out.
+
+Graphs may be captured on more than one thread (the host actors' policy
+on the inference thread, the learner step on the main one): a capture
+synchronises the device first, which is invalid while another capture is
+underway, so captures take one lock (``CAPTURE_LOCK``).
 
 Outputs that a graph writes lie in graph memory, which the next replay of
 any graph of the same owner may overwrite: its caller copies out, at
@@ -38,6 +48,7 @@ once, what it keeps.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -47,6 +58,9 @@ from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.kernels import ops
 from repro_torch.tree import flatten, leaves, map_leaves
+
+# held by every capture, on whichever thread (module docstring)
+CAPTURE_LOCK = threading.Lock()
 
 
 class Graph:
@@ -126,12 +140,13 @@ class Graphs:
             graph.register_generator_state(gen)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        ops.take_captured()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              stream=self._stream(device),
-                              capture_error_mode="thread_local"):
-            out = fn()
-        entry.launches = ops.take_captured()
+        with CAPTURE_LOCK:
+            ops.take_captured()
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream(device),
+                                  capture_error_mode="thread_local"):
+                out = fn()
+            entry.launches = ops.take_captured()
         entry.graph, entry.outputs = graph, out
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
@@ -147,11 +162,15 @@ def _ptrs(tree):
 
 
 class TrainStep:
-    """An rl-agent learner step ``(params, opt_state, step, batch) ->
-    (params, opt_state, metrics)`` compiled as the reference's
-    ``jax.jit(make_train_step(...))`` is, with the same contract.
+    """A learner step ``(params, opt_state, step, batch) -> (params,
+    opt_state, metrics)`` compiled as the reference's
+    ``jax.jit(make_train_step(...))`` is, with the same contract: the
+    rl-agent steps, and the LM steps (``make_lm_train_step`` through
+    ``lm_rl_step_from_rollout``, ``make_lm_pretrain_step``), whose
+    decoder's backward runs K2's and K4's autograd Functions and remat's
+    recomputations inside the capture.
 
-    On CUDA with ``compiled`` (no data mesh) the step runs as a CUDA graph
+    On CUDA with ``compiled`` (no mesh) the step runs as a CUDA graph
     per key: the batch's structure (each leaf's path, shape and dtype),
     the params' storages and the optimizer state's. The batch is copied
     into static buffers of its structure unless it already lies in them;
@@ -161,8 +180,9 @@ class TrainStep:
     included, are copied out of graph memory. Replay's mixed batches are
     another structure, so another key.
 
-    Elsewhere, and under a data mesh (the gradients' all-reduce is a
-    collective a graph cannot capture), it calls ``step_fn``, eagerly.
+    Elsewhere, and under a mesh (the gradients' all-reduce and the model
+    axis's collectives, which no graph here captures), it calls
+    ``step_fn``, eagerly.
     """
 
     def __init__(self, step_fn: Callable, opt, *, mesh=None):
@@ -264,3 +284,52 @@ class Unroll:
         """Write ``carry`` (same structure) into the static buffers."""
         for dst, src in zip(leaves(self.carry), leaves(carry)):
             dst.copy_(src)
+
+
+class Forward:
+    """A module's forward ``fn(module, x)``, without autograd, compiled as
+    the reference jits ``apply_fn(p, obs).policy_logits`` (the host
+    actors' policy) and ``.baseline`` (replay's value function).
+
+    On a CUDA ``x`` it runs as a CUDA graph per key: ``x``'s shape and
+    dtype (one static input buffer each, which ``x`` is copied into) and
+    the module's storages. The host actors' inference queue pads its
+    batches to ``batcher.bucket_size``'s ladder, so a policy has one graph
+    per bucket. Updating the module's parameters in place
+    (``load_state_dict``) keeps the key, and the next replay reads them.
+    The output is copied out of graph memory. A forward holds no
+    collective, so a data mesh does not keep it eager (as the unroll). On
+    a CPU ``x`` it calls ``fn``."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.graphs = Graphs()
+        self._static: Dict[tuple, torch.Tensor] = {}
+
+    @property
+    def captures(self) -> int:
+        return self.graphs.captures
+
+    def graph_key(self, module, static) -> tuple:
+        return (static.data_ptr(), tuple(static.shape),
+                tuple(p.data_ptr() for p in module.parameters()))
+
+    def inputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The static input buffer of ``x``'s shape and dtype, holding
+        it."""
+        sig = (tuple(x.shape), x.dtype, x.device)
+        static = self._static.get(sig)
+        if static is None:
+            static = self._static[sig] = torch.empty(
+                x.shape, dtype=x.dtype, device=x.device)
+        static.copy_(x)
+        return static
+
+    @torch.no_grad()
+    def __call__(self, module, x: torch.Tensor):
+        if not x.is_cuda:
+            return self.fn(module, x)
+        static = self.inputs(x)
+        out = self.graphs(static, self.graph_key(module, static),
+                          lambda: self.fn(module, static))
+        return _copy_out(out)

@@ -40,11 +40,12 @@ cache leaves, ``pos`` and ``last`` (written in place, never rebound) and
 the params' storages; its ``admit`` runs the model's part of an admission
 (``_session_admit``: the prefill, the last token's heads and the scatter
 of the rows into the state's cache and pos) as a CUDA graph per (those
-buffers, rows, prefill bucket), its prompts, lengths and slots static
-inputs. Sampling and the pos/last update stay outside the graphs, on the
-per-slot generators. On CPU tensors, and under a mesh (gloo's collectives
-cannot be captured), they are the eager ``_session_step`` and
-``_session_admit``, the plain versions.
+buffers, rows, prefill bucket, and a VLM's vision shape), its prompts,
+lengths, slots and vision embeddings static inputs. Sampling and the
+pos/last update stay outside the graphs, on the per-slot generators. On
+CPU tensors, and under a mesh (gloo's collectives cannot be captured),
+they are the eager ``_session_step`` and ``_session_admit``, the plain
+versions.
 """
 
 from __future__ import annotations
@@ -161,23 +162,23 @@ def _admit_views(inputs, n: int, pb: int):
 
 @torch.no_grad()
 def _session_admit(params, state, inputs, n: int, pb: int, *, cfg,
-                   cache_seq_len):
+                   cache_seq_len, vision=None):
     """The model part of admitting N prompts into ``state``'s rows (the
     reference's ``admit_many`` without its sampling): the prefill of the
-    padded prompts (``inputs``, see ``_admit_views``), then each row's
-    whole cache row and pos written at its slot, in place. Returns
-    (logits0 (N, 1, V) float32, baseline (N, 1) or None) of each row's
-    true last token."""
+    padded prompts (``inputs``, see ``_admit_views``; ``vision`` (N, Sv,
+    d) a VLM's patch embeddings), then each row's whole cache row and pos
+    written at its slot, in place. Returns (logits0 (N, 1, V) float32,
+    baseline (N, 1) or None) of each row's true last token."""
     prompt, lengths, idx = _admit_views(inputs, n, pb)
     cache, li, logits0, base0 = _prefill_heads(
         params, prompt, cfg=cfg, cache_seq_len=cache_seq_len,
-        last_index=lengths - 1)
+        last_index=lengths - 1, vision=vision)
 
     def overwrite(full, row):
         full[:, idx] = row.to(full.dtype)
 
     # every leaf of every subtree: attention k/v, Mamba2 conv/ssm, the
-    # shared block's k/v
+    # shared block's k/v, a VLM's xattn k/v of the vision positions
     tree_map(overwrite, state["cache"], cache)
     state["pos"][idx] = (li + 1).to(torch.int32)
     return logits0, base0
@@ -284,7 +285,7 @@ class _SessionFns:
         self.allocations = 0                          # sets of buffers
         self.steps = Graphs(limit=1)                  # state's pos -> step
         self.admissions = Graphs()                    # state's pos -> admits
-        self._admit_inputs = WeakTensorKeyDictionary()  # pos -> {(n, pb):}
+        self._admit_inputs = WeakTensorKeyDictionary()  # pos -> {sig: buf}
         self._free = weakref.WeakKeyDictionary()      # params -> {shape: []}
         self._lock = threading.Lock()
 
@@ -305,7 +306,7 @@ class _SessionFns:
 
     @torch.no_grad()
     def admit(self, params, state, slots, padded, lengths, seeds, temps, *,
-              cache_seq_len):
+              cache_seq_len, vision=None):
         """Admit N requests into ``state``'s rows ``slots`` (the
         reference's ``admit_many``): ``padded`` (N, pb) int prompts of one
         prefill bucket, right-padded; ``lengths`` (N,) their true lengths;
@@ -313,29 +314,34 @@ class _SessionFns:
         temperature ``temps``'s. The whole cache row, pos, last, generator
         and temperature of each slot are written, so nothing of the
         previous tenant survives; ``cache_seq_len``: the state's cache
-        length. Returns the first sampled token's {token, logprob,
-        entropy, baseline} per row, on the device."""
+        length; ``vision`` (N, Sv, d): a VLM's patch embeddings (the
+        prefill of the reference's ``_generate_vision``), copied into a
+        static buffer of their shape when graphed. Returns the first
+        sampled token's {token, logprob, entropy, baseline} per row, on
+        the device."""
         n, pb = padded.shape
         dev = state["pos"].device
         flat = torch.from_numpy(np.concatenate(
             [np.asarray(padded).reshape(-1), np.asarray(lengths),
              np.asarray(slots)]).astype(np.int64))
         if self._graphed(state):
-            inputs = self._admit_buffer(state["pos"], n, pb)
-            inputs.copy_(flat)
+            inputs = self._admit_buffer(state["pos"], flat)
             key = (self.graph_key(params, state), n, pb, inputs.data_ptr(),
                    cache_seq_len)
+            if vision is not None:
+                vision = self._admit_buffer(state["pos"], vision)
+                key += (vision.data_ptr(), tuple(vision.shape))
             logits0, base0 = self.admissions(
                 state["pos"], key, lambda: _session_admit(
                     params, state, inputs, n, pb, cfg=self.cfg,
-                    cache_seq_len=cache_seq_len))
+                    cache_seq_len=cache_seq_len, vision=vision))
             base0 = None if base0 is None else base0.clone()
         else:
             inputs = flat.to(dev)
             with use_rules(self.mesh, self.rules):
                 logits0, base0 = _session_admit(
                     params, state, inputs, n, pb, cfg=self.cfg,
-                    cache_seq_len=cache_seq_len)
+                    cache_seq_len=cache_seq_len, vision=vision)
         idx = _admit_views(inputs, n, pb)[2]
         gens = [state["gens"][s].manual_seed(int(seed))
                 for s, seed in zip(slots, seeds)]
@@ -348,17 +354,20 @@ class _SessionFns:
         state["active"][list(slots)] = True
         return _out(tok, lp, ent, base0)
 
-    def _admit_buffer(self, anchor, n: int, pb: int) -> torch.Tensor:
-        """The static int64 inputs of an admission of N rows of bucket pb
-        into the state of ``anchor`` (its pos)."""
+    def _admit_buffer(self, anchor, x: torch.Tensor) -> torch.Tensor:
+        """The static buffer of ``x``'s shape and dtype for admissions
+        into the state of ``anchor`` (its pos), holding ``x``: an
+        admission's int64 inputs of N rows of one bucket, or a VLM's
+        vision embeddings."""
         held = self._admit_inputs.get(anchor)
         if held is None:
             held = self._admit_inputs[anchor] = {}
-        buf = held.get((n, pb))
+        sig = (tuple(x.shape), x.dtype)
+        buf = held.get(sig)
         if buf is None:
-            buf = held[(n, pb)] = torch.empty(n * pb + 2 * n,
-                                              dtype=torch.int64,
-                                              device=anchor.device)
+            buf = held[sig] = torch.empty(x.shape, dtype=x.dtype,
+                                          device=anchor.device)
+        buf.copy_(x)
         return buf
 
     @torch.no_grad()
@@ -610,9 +619,10 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
     prefill (and through the ``xattn`` caches every step), as the
     reference's ``_generate_vision``. Without a mesh the rows are
     admitted into static buffers per (cfg, B, P + num_steps, params) as a
-    session admits them (a VLM's prefill is copied into them), so that on
-    CUDA every call of one shape replays one admission graph and one
-    decode step graph.
+    session admits them (a VLM's vision embeddings too, into a static
+    buffer of their shape), so that on CUDA every call of one shape
+    replays one admission graph and one decode step graph: the
+    reference's ``_generate_vision``, prefill included, jitted whole.
     Returns a dict of tensors on the params' device:
       tokens    (B, P + num_steps)
       logprob   (B, num_steps)  behavior log-prob of each sampled token
@@ -632,12 +642,9 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
     cache_len = p + num_steps
     bufs = fns.buffers(params, b, cache_len) if fns.compiled else None
     try:
-        if bufs is None or vision is not None:
+        if bufs is None:
             state, out0 = fns.prefill(params, prompt, gens, temp,
                                       cache_seq_len=cache_len, vision=vision)
-            if bufs is not None:
-                tree_map(_copy_into, bufs, {k: state[k] for k in bufs})
-                state.update(bufs)
         else:
             # admitted into the static buffers as a session admits
             state = dict(bufs, gens=gens, temp=temp,
@@ -645,7 +652,7 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
             out0 = fns.admit(params, state, list(range(b)),
                              prompt.cpu().numpy(), np.full(b, p),
                              [seed + i for i in range(b)], [temperature] * b,
-                             cache_seq_len=cache_len)
+                             cache_seq_len=cache_len, vision=vision)
         outs = [out0]
         for _ in range(num_steps - 1):
             state, out = fns.step(params, state)
@@ -658,9 +665,3 @@ def generate(params, prompt, seed: int, *, cfg, num_steps: int,
             "logprob": stacked["logprob"], "entropy": stacked["entropy"],
             "baseline": stacked["baseline"]}
 
-
-def _copy_into(dst, src):
-    if dst.shape != src.shape or dst.dtype != src.dtype:
-        raise ValueError(f"static buffer {tuple(dst.shape)} {dst.dtype} "
-                         f"cannot take {tuple(src.shape)} {src.dtype}")
-    dst.copy_(src)

@@ -65,7 +65,7 @@ from typing import (Any, Callable, Dict, Optional, Protocol,
 import numpy as np
 import torch
 
-from repro_torch.core.compiled import Unroll
+from repro_torch.core.compiled import Forward, Unroll
 from repro_torch.distributed import sharding
 from repro_torch.tree import leaves, rebuild
 
@@ -692,6 +692,10 @@ _LEARNER_QUEUE_ITEMS = 128
 _BATCH_TIMEOUT_S = 60.0
 
 
+def _policy_logits(agent, obs):
+    return agent(obs).policy_logits
+
+
 class HostLoopSource:
     """Actor threads + inference queue + learner queue behind the contract.
 
@@ -705,7 +709,10 @@ class HostLoopSource:
     set. Actors pick the new parameters up on their next policy
     evaluation, the natural asynchronous parameter lag of the host
     architecture; ``next_batch`` then blocks until the learner queue
-    yields a stacked batch, which it moves to the device.
+    yields a stacked batch, which it moves to the device. The forward
+    pass is ``policy`` (``compiled.Forward``): on the card one CUDA graph
+    per padded batch size, captured on the inference thread, reading the
+    copy's weights in place.
 
     ``mesh`` (the data mesh of ``--mesh-data N``, ``launch/mesh.py``):
     each rank runs a pool of its own, ``num_actors / N`` actors feeding a
@@ -728,6 +735,8 @@ class HostLoopSource:
         self._actor = copy.deepcopy(agent).requires_grad_(False)
         self._device = next(agent.parameters()).device
         self._lock = threading.Lock()
+        # the reference's jitted policy (``apply_fn(p, obs).policy_logits``)
+        self.policy = Forward(_policy_logits)
         self.num_actors = num_actors
         self.unroll_length = unroll_length
         self.batch_size = batch_size
@@ -754,10 +763,13 @@ class HostLoopSource:
             self._actor.load_state_dict(params.state_dict())
 
     def _policy(self, obs: np.ndarray) -> np.ndarray:
-        """Runs on the inference thread: (n, *obs) -> (n, A) float32."""
+        """Runs on the inference thread: (n, *obs) -> (n, A) float32,
+        through ``self.policy`` (on the card a CUDA graph per padded
+        batch). The replay and the copy to the host stay under the lock:
+        ``_sync`` must not overwrite weights a replay still reads."""
         x = torch.from_numpy(obs).to(self._device)
         with self._lock:
-            logits = self._actor(x).policy_logits.float().cpu()
+            logits = self.policy(self._actor, x).float().cpu()
         return logits.numpy()
 
     def start(self, params) -> None:

@@ -169,10 +169,11 @@ def build_rl_agent(args, mesh=None):
         buffer = replay_lib.make_buffer(args.replay, args.replay_capacity) \
             if mesh is None else replay_lib.ShardedReplay(
                 args.replay, args.replay_capacity, mesh)
+        # the reference's jitted value function: a CUDA graph of the
+        # forward on the card
         source = sources_lib.ReplaySource(
             source, buffer, replay_ratio=args.replay_ratio,
-            seed=train_cfg.seed,
-            value_fn=lambda params, obs: params(obs).baseline)
+            seed=train_cfg.seed, value_fn=compiled.Forward(_baseline))
     # the reference's jax.jit(make_train_step(...)): a CUDA graph of the
     # step on the card, eager under a data mesh (its all-reduce)
     step_fn = compiled.TrainStep(
@@ -184,20 +185,42 @@ def build_rl_agent(args, mesh=None):
     return source, step_fn, agent, opt_state, extras
 
 
-def compiled_summary(step_fn, device, device_actors=True) -> str:
-    """The rl-agent run's line on what replays CUDA graphs on ``device``:
-    the learner step (eager by rule under a data mesh) and the device
-    actors' unroll."""
+def _baseline(agent, obs):
+    return agent(obs).baseline
+
+
+def compiled_summary(step_fn, device, device_actors=True, *,
+                     mode="rl-agent", replay=False) -> str:
+    """The run's line on what replays CUDA graphs on ``device``: the
+    learner step (eager by rule under a mesh); rl-agent's device actors'
+    unroll or host actors' policy, and with ``replay`` its value function;
+    lm-rl's generation (the decode step and the admissions, eager with
+    the learner step under a mesh)."""
     if torch.device(device).type != "cuda":
         return "compiled: nothing on the CPU (the plain functions run)"
-    graphed = (["the learner step"] if step_fn.compiled else []) \
-        + (["the unroll"] if device_actors else [])
+    graphed = ["the learner step"] if step_fn.compiled else []
+    if mode == "rl-agent":
+        graphed.append("the unroll" if device_actors
+                       else "the host actors' policy")
+        if replay:
+            graphed.append("replay's value function")
+    elif mode == "lm-rl" and step_fn.compiled:
+        graphed.append("the generation (decode step, admissions)")
+    if len(graphed) > 2:
+        graphed = [", ".join(graphed[:-1]), graphed[-1]]
     line = "compiled: " + (" and ".join(graphed) or "nothing") \
         + " as CUDA graphs"
-    if not step_fn.compiled:
-        line += ("; the learner step eager by rule under --mesh-data (its "
-                 "gradient all-reduce is a collective no graph captures)")
-    return line
+    if step_fn.compiled:
+        return line
+    if mode == "rl-agent":
+        return line + ("; the learner step eager by rule under --mesh-data "
+                       "(its gradient all-reduce is a collective no graph "
+                       "captures)")
+    eager = "the learner step" + (" and the generation" if mode == "lm-rl"
+                                  else "")
+    return line + (f"; {eager} eager by rule under --mesh-data / "
+                   "--mesh-model (the mesh's collectives, which no graph "
+                   "captures)")
 
 
 def _lm_config(args):
@@ -243,11 +266,14 @@ def build_lm_rl(args, mesh=None):
     source = sources_lib.GeneratorSource(
         cfg, batch_size=args.batch or 16, episode_length=args.seq, seed=7,
         mesh=mesh, rules=rules)
-    step_fn = sources_lib.lm_rl_step_from_rollout(
+    # the reference's jitted step: a CUDA graph of it on the card, eager
+    # under a mesh (its collectives)
+    step_fn = compiled.TrainStep(sources_lib.lm_rl_step_from_rollout(
         learner_lib.make_lm_train_step(cfg, opt, train_cfg,
                                        loss_chunk=args.seq,
                                        vtrace_impl=args.vtrace_impl,
-                                       mesh=mesh, rules=rules))
+                                       mesh=mesh, rules=rules)), opt,
+        mesh=mesh)
     extras = {"log_keys": ("reward_per_step", "pg_loss", "entropy_loss"),
               "checkpoint_layout": _lm_layout(params, mesh)}
     return source, step_fn, params, opt_state, extras
@@ -277,6 +303,9 @@ def build_lm(args, mesh=None):
         def step_fn(params, opt_state, step, batch):
             return pretrain_step(params, opt_state, step,
                                  dict(batch, vision=vision))
+    # the reference's jitted step, as build_lm_rl's (the vision stub is
+    # static memory already)
+    step_fn = compiled.TrainStep(step_fn, opt, mesh=mesh)
     corpus = markov_corpus(cfg.vocab_size, 200_000, seed=1)
     # Checkpointable iterator (seed + offset): its state rides in every
     # checkpoint through DataSource.state_dict, so --resume replays the
@@ -534,9 +563,9 @@ def _train(mesh, args) -> Runtime:
             extras.get("checkpoint_layout"), print_fn, mesh)
     if mesh is not None and not lm_mesh:
         sharding.broadcast_module(params, mesh)   # rank 0's params everywhere
-    if args.mode == "rl-agent":
-        print_fn(compiled_summary(step_fn, next(params.parameters()).device,
-                                  args.actors == "device"))
+    print_fn(compiled_summary(step_fn, next(params.parameters()).device,
+                              args.actors == "device", mode=args.mode,
+                              replay=args.replay != "off"))
     runtime = Runtime(source, step_fn, params, opt_state,
                       total_steps=args.steps, start_step=start_step,
                       checkpoint_dir=args.checkpoint_dir,

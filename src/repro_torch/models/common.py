@@ -124,8 +124,13 @@ def remat_active(cfg, build_cache=False) -> bool:
 def remat(fn, *args):
     """``fn(*args)`` as one checkpoint region (non-reentrant): its
     intermediates are dropped after the forward pass and recomputed in the
-    backward pass, which runs ``fn`` (and its kernels) a second time."""
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    backward pass, which runs ``fn`` (and its kernels) a second time.
+
+    No region draws a random number (the decoders have no dropout), so no
+    RNG state is stashed: stashing reads the CUDA generator's state, which
+    a CUDA graph capture of a learner step refuses."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------

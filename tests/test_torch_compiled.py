@@ -297,7 +297,8 @@ def test_rl_agent_summary_line():
     assert train.compiled_summary(plain, "cuda") == (
         "compiled: the learner step and the unroll as CUDA graphs")
     assert train.compiled_summary(plain, "cuda", device_actors=False) == (
-        "compiled: the learner step as CUDA graphs")
+        "compiled: the learner step and the host actors' policy as CUDA "
+        "graphs")
     line = train.compiled_summary(meshed, "cuda")
     assert line.startswith("compiled: the unroll as CUDA graphs; the "
                            "learner step eager by rule under --mesh-data")

@@ -11,7 +11,16 @@ the plain functions run eagerly from the same state, bitwise:
   * admissions at reduced Qwen3-4B and Zamba2-2.7B on the kernel paths:
     first tokens, log-probs, baselines and every written cache row; one
     capture per (rows, bucket); K2 / K4 launches of a replay equal to an
-    eager admission's.
+    eager admission's;
+  * the LM learner steps (lm-rl at reduced Qwen3-4B, lm at reduced
+    Zamba2-2.7B, the kernel paths under remat) through the
+    ``compiled.TrainStep`` that ``launch/train.py`` builds, over three
+    steps: metrics, every parameter and AdamW leaf; one capture; each
+    step's K1 / K2 / K4 launches those of the eager step;
+  * the host actors' policy (``compiled.Forward``) at each bucket of the
+    ladder, one capture a bucket, and a replay after ``_sync`` reading
+    the new weights; replay's value function; the VLM's prefill with
+    ``vision=`` through ``generate``'s admission graph.
 
 cuDNN is pinned deterministic for the learner cases. This file imports no
 JAX:
@@ -30,12 +39,15 @@ import torch
 
 from repro_torch.configs import get_reduced_config
 from repro_torch.configs.atari_impala import small_train
+from repro_torch.configs.base import TrainConfig
 from repro_torch.core import compiled
 from repro_torch.core import generate as G
 from repro_torch.core import learner, rollout
-from repro_torch.core.sources import DeviceSource
+from repro_torch.core.sources import (DeviceSource, HostLoopSource,
+                                     lm_rl_step_from_rollout)
 from repro_torch.envs import catch, gridworld
 from repro_torch.kernels import ops
+from repro_torch.launch import train
 from repro_torch.models import model as model_lib
 from repro_torch.models.convnet import minatar_lstm_net, minatar_net
 from repro_torch.optim import make_optimizer
@@ -282,3 +294,153 @@ def test_admission_graph_is_bitwise_eager(cuda_device, arch):
     # two keys: each warmed once, captured once, replayed after
     assert fns.admissions.captures == captures + 2
     assert all(x.is_cuda for x in leaves(sess._state["cache"]))
+
+
+def _lm_batch(kind, cfg, gen):
+    """Three batches of the LM trainers' structure: lm-rl's time-major
+    rollout (``GeneratorSource``'s), lm's tokens."""
+    t, b = 16, 4
+    out = []
+    for _ in range(3):
+        tokens = torch.randint(0, cfg.vocab_size, (t + 1, b), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        if kind == "lm":
+            out.append({"tokens": tokens.T.contiguous()})
+            continue
+        done = torch.zeros((t, b), dtype=torch.bool, device="cuda")
+        done[-1] = True
+        out.append({"obs": tokens, "action": tokens[1:],
+                    "behavior_logprob": -torch.rand((t, b), generator=gen,
+                                                    device="cuda") - 5.0,
+                    "reward": torch.rand((t, b), generator=gen,
+                                         device="cuda"),
+                    "done": done})
+    return out
+
+
+def _lm_step(mode, cfg, opt):
+    """The trainers' learner step (``launch/train.py``'s settings)."""
+    if mode == "lm":
+        return learner.make_lm_pretrain_step(cfg, opt, loss_chunk=16)
+    tc = TrainConfig(optimizer="adamw", learning_rate=3e-4, grad_clip=1.0,
+                     total_steps=3, lr_schedule="constant",
+                     entropy_cost=0.003)
+    return lm_rl_step_from_rollout(learner.make_lm_train_step(
+        cfg, opt, tc, loss_chunk=16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,mode", [("qwen3-4b", "lm-rl"),
+                                       ("zamba2-2.7b", "lm")])
+def test_lm_learner_graph_is_bitwise_eager(cuda_device, arch, mode):
+    """The builder's TrainStep, then the same on the config with remat on
+    (the published configs' setting; the reduced ones turn it off), so
+    that the checkpoint regions' recomputation runs under the capture."""
+    args = train._parser().parse_args(
+        ["--mode", mode, "--arch", arch, "--reduced", "--attn-impl",
+         "kernel", "--ssd-impl", "kernel", "--batch", "4", "--seq", "16",
+         "--steps", "3"])
+    build = train.build_lm_rl if mode == "lm-rl" else train.build_lm
+    cfg = dataclasses.replace(train._lm_config(args), remat=True)
+    _, built, params, opt_state, _ = build(args)
+    assert isinstance(built, compiled.TrainStep) and built.compiled
+    step_fn = _lm_step(mode, cfg, built.opt)
+    graph = compiled.TrainStep(step_fn, built.opt)
+    eager_params = copy.deepcopy(params)
+    eager_state = built.opt.init(list(eager_params.parameters()))
+    batches = _lm_batch(mode, cfg, torch.Generator("cuda").manual_seed(3))
+    for step, batch in enumerate(batches):
+        ops.reset_stats()
+        _, _, got = graph(params, opt_state, step, batch)
+        launched = ops.stats()
+        ops.reset_stats()
+        _, _, want = step_fn(eager_params, eager_state, step, batch)
+        assert launched == ops.stats() and launched["flash_attention"] > 0
+        _assert_trees_equal(got, want, f"metrics, step {step}")
+        _assert_trees_equal(dict(params.named_parameters()),
+                            dict(eager_params.named_parameters()),
+                            f"params, step {step}")
+        _assert_trees_equal(opt_state, eager_state, f"opt_state, {step}")
+    assert graph.captures == 1
+
+
+@pytest.mark.gpu
+def test_policy_graph_is_bitwise_eager_at_each_bucket(cuda_device):
+    env = catch.make()
+    agent = minatar_net(env.obs_shape, env.num_actions,
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    source = HostLoopSource(env, agent, num_actors=8, unroll_length=T,
+                            batch_size=B)
+    source._sync(agent)
+    rng = np.random.default_rng(0)
+
+    def eager(obs):
+        with torch.no_grad():
+            return source._actor(torch.from_numpy(obs).cuda()) \
+                .policy_logits.float().cpu().numpy()
+
+    for n in (1, 2, 4, 8):
+        for _ in range(3):
+            obs = rng.random((n,) + env.obs_shape, dtype=np.float32)
+            np.testing.assert_array_equal(source._policy(obs), eager(obs))
+    assert source.policy.captures == 4
+    old = source._policy(obs)
+    with torch.no_grad():
+        for p in agent.parameters():
+            p.add_(0.01)
+    source._sync(agent)
+    new = source._policy(obs)
+    np.testing.assert_array_equal(new, eager(obs))
+    assert not np.array_equal(new, old) and source.policy.captures == 4
+
+
+@pytest.mark.gpu
+def test_value_fn_graph_is_bitwise_eager(cuda_device):
+    args = train._parser().parse_args(["--replay", "uniform", "--batch",
+                                       str(B)])
+    source, _, agent, _, _ = train.build_rl_agent(args)
+    value_fn = source._value_fn
+    gen = torch.Generator("cuda").manual_seed(0)
+    for call in range(4):
+        if call == 3:
+            with torch.no_grad():
+                for p in agent.parameters():
+                    p.mul_(0.9)
+        obs = torch.rand((T, B) + catch.make().obs_shape, generator=gen,
+                         device="cuda")
+        with torch.no_grad():
+            want = agent(obs).baseline
+        assert _same(value_fn(agent, obs), want)
+    assert value_fn.captures == 1
+
+
+@pytest.mark.gpu
+def test_vlm_prefill_graph_is_bitwise_eager(cuda_device):
+    cfg = _cfg("llama-3.2-vision-90b")
+    params = model_lib.init(cfg, seed=0, device="cuda")
+    b, p, steps = 2, 8, 4
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, p))
+    vision = torch.randn((b, cfg.vision_seq, cfg.d_model),
+                         generator=torch.Generator("cuda").manual_seed(1),
+                         device="cuda")
+    fns = G.session_fns(cfg)
+    captures = fns.admissions.captures
+    gens = [torch.Generator("cuda").manual_seed(7 + i) for i in range(b)]
+    state, out = G._session_prefill(
+        params, torch.as_tensor(prompt, device="cuda"), gens,
+        torch.ones((b,), device="cuda"), cfg=cfg, cache_seq_len=p + steps,
+        vision=vision)
+    outs = [out]
+    for _ in range(steps - 1):
+        state, out = G._session_step(params, state, cfg=cfg)
+        outs.append(out)
+    want = {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}
+    for _ in range(3):
+        before = ops.stats()["flash_attention"]
+        got = G.generate(params, prompt, 7, cfg=cfg, num_steps=steps,
+                         vision=vision)
+        assert ops.stats()["flash_attention"] - before == 1
+        assert _same(got["tokens"][:, p:], want["token"])
+        for k in ("logprob", "entropy", "baseline"):
+            assert _same(got[k], want[k]), k
+    assert fns.admissions.captures == captures + 1

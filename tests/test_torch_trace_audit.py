@@ -165,9 +165,13 @@ def test_the_unroll_and_the_compiled_keys_are_clean():
     assert findings == []
     assert {s["entry"] for s in summaries} == {
         "make_train_step[catch, 3 rates]",
-        "make_recurrent_train_step[catch, 3 rates]", "admit[qwen3-4b]"}
+        "make_recurrent_train_step[catch, 3 rates]",
+        "build_lm_rl[qwen3-4b, 3 steps]", "build_lm[qwen3-4b, 3 steps]",
+        "HostLoopSource.policy[catch]", "admit[qwen3-4b]"}
     assert all(s["graph_keys"] == 1 and s["rates"] == 3
                for s in summaries if "rates" in s)
+    assert all(s["graph_keys"] == 1 and s["scalars"] == 3
+               for s in summaries if "scalars" in s)
     admit = next(s for s in summaries if s["entry"] == "admit[qwen3-4b]")
     assert admit["graph_keys"] == admit["row_buckets"] == 3
 
@@ -220,3 +224,42 @@ def test_audit_flags_admissions_that_rebind_the_session(monkeypatch):
     findings, summary = ta._admission_keys()
     assert _rules(findings) == {"retrace-hazard"}
     assert summary["graph_keys"] > summary["row_buckets"]
+
+
+@pytest.mark.parametrize("pretrain", [False, True], ids=["lm-rl", "lm"])
+def test_audit_flags_an_lm_step_left_eager(monkeypatch, pretrain):
+    """A builder that hands Runtime the plain LM step (the eager path the
+    reference's jit replaced) is flagged."""
+    from repro_torch.core import compiled
+    from repro_torch.launch import train
+
+    build = train.build_lm if pretrain else train.build_lm_rl
+
+    class Plain(compiled.TrainStep):      # the fault: no static buffers
+        def inputs(self, batch):
+            return {k: v.clone() for k, v in batch.items()}
+
+    def eager(args, mesh=None):
+        source, step_fn, params, opt_state, extras = build(args, mesh)
+        return (source, Plain(step_fn.step_fn, step_fn.opt), params,
+                opt_state, extras)
+
+    monkeypatch.setattr(train, "build_lm" if pretrain else "build_lm_rl",
+                        eager)
+    findings, summary = ta._lm_learner_keys(pretrain)
+    assert _rules(findings) == {"retrace-hazard"} and not summary["ok"]
+
+
+def test_audit_flags_a_policy_rebound_by_its_sync(monkeypatch):
+    """A weight sync that replaces the actor copy instead of loading into
+    it: a captured policy would go on reading the old weights."""
+    import copy
+
+    from repro_torch.core.sources import HostLoopSource
+
+    def rebinding(self, params):
+        self._actor = copy.deepcopy(params).requires_grad_(False)
+
+    monkeypatch.setattr(HostLoopSource, "_sync", rebinding)
+    findings, summary = ta._policy_keys()
+    assert _rules(findings) == {"retrace-hazard"} and not summary["ok"]
