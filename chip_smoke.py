@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 32      # phases 1, 2 and 32 alone
+
 
 Phases, each printing JSON lines; any failed check raises and the script
 exits nonzero without printing a result:
@@ -24,7 +26,9 @@ exits nonzero without printing a result:
               heads over 8 KV heads, head_dim 64) and at
               Llama-3.2-Vision-90B's (phase 25: 64 query heads over 8, a
               300-token prompt and a 364-slot cache) and at one model
-              rank's of phase 26 (half the heads); K2 with its queries
+              rank's of phase 26 (half the heads) and at phase 32's
+              families (a group of 7, 4,096-slot rings wrapped, softcap
+              50, hd 64 at group 1); K2 with its queries
               offset from the keys (FLASH_OFFSET_SHAPES, SDPA with the
               positions' mask as the library); each in bf16 and
               float32, with events and graph times,
@@ -163,7 +167,7 @@ exits nonzero without printing a result:
               step at (64, 8), nothing else; ms a step split into
               generation and learner, fps, peak memory; its float32
               kernel-against-plain step (only V-trace differs); then 1
-              step of --mode lm at B 4, S 256 (the sLSTM's 256-step loop
+              step of --mode lm at B 4, S 128 (the sLSTM's 128-step loop
               under remat, no kernel), tok/s
  25. vlm      Llama-3.2-Vision-90B at every published width, depth cut
               from 20 groups to VLM_GROUPS (4 self-attention layers and
@@ -182,7 +186,7 @@ exits nonzero without printing a result:
               refuses two ranks on one device; the times are checks of
               the collectives, not speed figures): 26a Zamba2-2.7B --mode
               lm and 26b Granite-3.0-1B-A400M --mode lm-rl at full width,
-              depth cut to MP_GROUPS (3 of 9 and 8 of 24 groups),
+              depth cut to MP_GROUPS (2 of 9 and 4 of 24 groups),
               through the entry point's builders and Runtime, each rank's
               losses, step ms, model-group all-reduces and peak memory,
               K1-K4 launches exact a rank (the unmeshed run's counts),
@@ -200,7 +204,7 @@ exits nonzero without printing a result:
               bitwise, the next step's losses within MP_TOL
  27. slice14  the model axis for the xLSTM mixers and xattn, and the
               other rules tables, ranks sharing cuda:0 through gloo: 27a
-              xLSTM-125M --mesh-model 2 (2 of its 6 groups, MP_GROUPS)
+              xLSTM-125M --mesh-model 2 (1 of its 6 groups, MP_GROUPS)
               through the trainer's builders
               (lm-rl, K1 once a step; lm), each with its float32 step against
               the single-process one (XLSTM_GRAD_TOL), and Server(mesh=):
@@ -211,8 +215,8 @@ exits nonzero without printing a result:
               query heads a rank, float32 kernel against plain path (K2
               4), bf16 generate(vision=) (K2 4, K3 4 x 15); 27c the
               launch/specs.py programs at full width in float32
-              (SPEC_RUNS: Granite expert_seqpar train (4 of 24 groups)
-              and expert decode, Zamba2-2.7B seqpar train (3 of 9 groups)
+              (SPEC_RUNS: Granite expert_seqpar train (2 of 24 groups)
+              and expert decode (4), Zamba2-2.7B seqpar train (1 of 9)
               at (1, 2), one Qwen3-32B group fsdp_seqpar train and fsdp
               decode at (2, 2), each InputShape cut and its bytes
               reckoned beforehand): launches a rank
@@ -263,7 +267,7 @@ exits nonzero without printing a result:
               step) on batches the built source draws: Qwen3-4B lm-rl (B
               8, T 64; K1, K2) and Zamba2-2.7B lm (4 x 512; K2, K4), their
               kept states in host memory, Granite lm-rl (MoE), xLSTM-125M
-              lm (S 256) and the reduced VLM lm; every metric, parameter
+              lm (S 128) and the reduced VLM lm; every metric, parameter
               and AdamW leaf bitwise (or within twice a second eager
               run's gap), one capture, each step's K1/K2/K4 launches
               remat_step_launches' in both runs, ms a step and peak
@@ -279,14 +283,31 @@ exits nonzero without printing a result:
               LM phases 15, 16, 21, 24, 25 replay their learner graphs
               (their compiled: line, one capture, the graph pools
               released before each float32 check)
+ 32. family   slice 19, the families of configs/ no earlier phase runs
+              (FAMILY_MODELS), at every published width, weights from
+              seed 0: 32a phase 9's check in float32 (logits within
+              MODEL_TOL, K2 and K3 launches exact, peak memory):
+              Gemma2-27B on 4 of 23 groups, B 1, a 4,160-token prompt
+              (its 4,096-slot local rings wrap in the prefill) and the
+              final softcap over 256,000 logits; Mixtral-8x7B on 4 of 32
+              groups, B 1, 4,608 tokens (9 MoE groups of 512), no token
+              routed to another expert set; DeepSeek-Coder-33B on 8 of
+              62 groups (56 query heads over 8), B 4 x 512; MusicGen-Large
+              whole (48 layers), B 4 x 512; 32b each served in bf16
+              (phase 10's checks; MusicGen-Large through serve.main, 24
+              requests, the others at 32a's depth through serve.run, 12
+              requests; prompts of up to 512 tokens, 64 generated, 8
+              slots) and its compiled decode step held bitwise against
+              eager (phase 29's check, one capture)
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
               phase 17's launches; recurrent_*: phase 18's; granite_*:
               phases 20 and 21's; xlstm_*: phase 24's; vlm_*: phase
               25's; mp_*: phase 26's, one entry a rank;
               slice14_launches / slice15_launches: phase 27's and 28's
-              runs, a rank each; slice17_launches / slice18_launches:
-              phases 30 and 31a; K2's offset_*: phase 3's offset row),
+              runs, a rank each; slice17_launches / slice18_launches /
+              slice19_launches: phases 30, 31a and 32b; K2's offset_*:
+              phase 3's offset row),
               then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
@@ -355,7 +376,11 @@ BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative
 # block in --mode lm, Granite's lm-rl prefill (bucket 1) and learner;
 # then one rank's of phase 27: the VLM group's prefill (27b, B 4 and the
 # float32 check's B 2), and the specs programs' training (27c: Granite,
-# Zamba2's shared block, Qwen3-32B at data 2 x model 2)
+# Zamba2's shared block, Qwen3-32B at data 2 x model 2); last, phase 32's
+# families: a Gemma2-27B global layer (softcap 50; its local layer is the
+# windowed row above), Mixtral-8x7B (window 4096 over a 4,608-token
+# prompt), DeepSeek-Coder-33B (56 query heads over 8: a group of 7) and
+# MusicGen-Large (MHA, hd 64)
 FLASH_SHAPES = [(1, 32, 8, s, 128, 0, 0.0) for s in (1, 16, 256, 300, 512)] \
     + [(1, 32, 16, 4608, 128, 4096, 50.0), (1, 8, 2, 256, 64, 0, 0.0),
        (1, 8, 2, 256, 256, 0, 0.0), (1, 32, 32, 256, 80, 0, 0.0)] \
@@ -367,7 +392,9 @@ FLASH_SHAPES = [(1, 32, 8, s, 128, 0, 0.0) for s in (1, 16, 256, 300, 512)] \
        (8, 8, 4, 64, 64, 0, 0.0)] \
     + [(4, 32, 4, 300, 128, 0, 0.0), (2, 32, 4, 300, 128, 0, 0.0),
        (4, 8, 4, 256, 64, 0, 0.0), (2, 16, 16, 512, 80, 0, 0.0),
-       (1, 32, 4, 256, 128, 0, 0.0)]
+       (1, 32, 4, 256, 128, 0, 0.0)] \
+    + [(1, 32, 16, 512, 128, 0, 50.0), (1, 32, 8, 4608, 128, 4096, 0.0),
+       (1, 56, 8, 512, 128, 0, 0.0), (1, 32, 32, 512, 64, 0, 0.0)]
 FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
 # (B, H, K, cap, hd, pos, window, softcap): the serving decode (8 slots at
 # their own positions in 576-slot caches), scalar pos, 4096-slot caches, a
@@ -378,7 +405,11 @@ FLASH_MAIN = ((1, 32, 8, 512, 128, 0, 0.0), "bfloat16")
 # phase 25's 364-slot caches (300-token prompts + 64); then one model
 # rank's of phase 26b: Granite's lm-rl episodes on 8 of 16 query heads;
 # then one rank's of phase 27: the VLM group's generate (32 over 4 heads,
-# 316 slots), Granite's and Qwen3-32B's decode programs (27c)
+# 316 slots), Granite's and Qwen3-32B's decode programs (27c); last, phase
+# 32's families: a Gemma2-27B local layer's 4,096-slot ring (positions
+# past 4,096: wrapped) and a global layer, both softcapped at 50,
+# Mixtral-8x7B's ring, DeepSeek-Coder-33B's group of 7 and MusicGen-Large
+# (group 1 at hd 64)
 DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 32, 8, 576, 128, "scalar", 0, 0.0),
                  (8, 32, 8, 4096, 128, "rows", 0, 0.0),
@@ -392,7 +423,12 @@ DECODE_SHAPES = [(8, 32, 8, 576, 128, "rows", 0, 0.0),
                  (8, 8, 4, 65, 64, "rows", 0, 0.0),
                  (4, 32, 4, 316, 128, "rows", 0, 0.0),
                  (8, 8, 4, 64, 64, "scalar", 0, 0.0),
-                 (2, 32, 4, 64, 128, "scalar", 0, 0.0)]
+                 (2, 32, 4, 64, 128, "scalar", 0, 0.0),
+                 (8, 32, 16, 4096, 128, "ring", 4096, 50.0),
+                 (8, 32, 16, 576, 128, "rows", 0, 50.0),
+                 (8, 32, 8, 4096, 128, "ring", 4096, 0.0),
+                 (8, 56, 8, 576, 128, "rows", 0, 0.0),
+                 (8, 32, 32, 576, 64, "rows", 0, 0.0)]
 DECODE_MAIN = ((8, 32, 8, 576, 128, "rows", 0, 0.0), "bfloat16")
 # (slices, L, N, P, heads, decay): heads > 1 is the model's layout, one B/C
 # group per batch row read by all its heads; da = -U(0, decay) per step.
@@ -472,9 +508,10 @@ GLM_ARGV = ["--mode", "lm", "--arch", GRANITE, "--attn-impl", "kernel",
             "--batch", "4", "--seq", "512", "--steps", "2"]
 # phases 22-24: xLSTM-125M (no kernel in its mixers). The server takes
 # prompts of at most one 64-token chunk; lm-rl as phase 15; --mode lm at
-# S 256 runs the sLSTM's 256-step loop. XLSTM_TOL: chunkwise mLSTM
-# against its sequential oracle at full width (the reference's own test
-# holds them at 2e-4 at reduced width)
+# S 128 runs the sLSTM's 128-step loop over two mLSTM chunks (PERF.md
+# section 4 lists the depths cut for the script's time). XLSTM_TOL:
+# chunkwise mLSTM against its sequential oracle at full width (the
+# reference's own test holds them at 2e-4 at reduced width)
 XLSTM = "xlstm-125m"
 XLSTM_TOL = 1e-4
 # phase 22's prefill + decode against the forward, each gap over its
@@ -488,7 +525,7 @@ XSERVE_ARGV = ["--arch", XLSTM, "--requests", "24", "--prompt-len", "64",
                "--gen-tokens", "64", "--max-batch", "8"]
 XLM_RL_ARGV = ["--mode", "lm-rl", "--arch", XLSTM, "--vtrace-impl",
                "kernel", "--batch", "8", "--seq", "64", "--steps", "3"]
-XLM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq", "256",
+XLM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq", "128",
             "--steps", "1"]
 # phase 25: Llama-3.2-Vision-90B, one of its 20 groups at every published
 # width (25.5 GB of float32 weights; all 20 are 351 GB), and its training
@@ -511,17 +548,17 @@ GMP_ARGV = ["--mode", "lm-rl", "--arch", GRANITE, "--attn-impl", "kernel",
             "--vtrace-impl", "kernel", "--batch", "8", "--seq", "64",
             "--steps", "1", "--mesh-model", "2"]
 MP_F32_GROUPS = {"zamba2-2.7b": 1, GRANITE: 2}
-# the depth of 26a, 26b and 27a's runs (full width; the published 9, 24
-# and 6 groups before PR 29): a rank's gloo collectives grow with the
-# layers, and the checks hold per layer
-MP_GROUPS = {"zamba2-2.7b": 3, GRANITE: 8, XLSTM: 2}
+# the depth of 26a, 26b and 27a's runs (full width, depth cut from the
+# published 9, 24 and 6 groups for the script's time): a rank's gloo
+# collectives grow with the layers, and the checks hold per layer
+MP_GROUPS = {"zamba2-2.7b": 2, GRANITE: 4, XLSTM: 1}
 MP22_STEPS = 2
 MP_TOL = 1e-5
 MP_CKPT_ARGV = ["--mode", "lm", "--arch", "qwen3-4b", "--reduced",
                 "--batch", "8", "--seq", "32", "--steps", "6"]
 # phase 27: 27a xLSTM-125M at (1, 2) through the trainer (--mesh-model 2;
-# the float32 step at XMP_F32_GROUPS of its 6 groups: full depth before
-# PR 29) and Server(mesh=); 27b one of
+# the float32 step at XMP_F32_GROUPS of its 6 groups) and
+# Server(mesh=); 27b one of
 # Llama-3.2-Vision-90B's groups at (1, 2); 27c the launch/specs.py
 # programs at full width (float32) under the tables resolve_rules picks
 # (SPEC_RUNS: each InputShape cut from the named one, see reduced_from;
@@ -532,7 +569,7 @@ XMP_RL_ARGV = ["--mode", "lm-rl", "--arch", XLSTM, "--vtrace-impl", "kernel",
                "--mesh-model", "2"]
 XMP_LM_ARGV = ["--mode", "lm", "--arch", XLSTM, "--batch", "4", "--seq",
                "64", "--steps", "1", "--mesh-model", "2"]
-XMP_F32_GROUPS = 2
+XMP_F32_GROUPS = 1
 # the xLSTM's float32 step gradients carry more rounding than the other
 # archs' (exp-gated recurrences over 12 layers): at full width on the CPU
 # (tests/xlstm_grad_gap.py: B 8, T 64, lm-rl, seed 0) the port's unmeshed
@@ -544,22 +581,22 @@ MP_SERVE_LENS, MP_SERVE_STEPS, MP_SERVE_RTOL = (1, 20, 47, 64), 8, 1e-4
 MP_SERVE_REQUESTS, MP_SERVE_TOKENS = 6, 8
 MP_VLM_GEN = 16
 SPEC_RUNS = (
-    dict(phase="spec_granite_train", arch=GRANITE, groups=4,
+    dict(phase="spec_granite_train", arch=GRANITE, groups=2,
          rules="expert_seqpar", mesh=(1, 2),
          shape=("granite_train_small", 256, 4, "train"),
-         reduced_from="train_4k (B 256 x S 4096), 4 of 24 groups", steps=1,
-         bytes="0.53 GB of weights, 0.53 of gradients, 0.53 of RMSProp "
+         reduced_from="train_4k (B 256 x S 4096), 2 of 24 groups", steps=1,
+         bytes="0.31 GB of weights, 0.31 of gradients, 0.31 of RMSProp "
                "state a rank"),
-    dict(phase="spec_granite_decode", arch=GRANITE, groups=8, rules="expert",
+    dict(phase="spec_granite_decode", arch=GRANITE, groups=4, rules="expert",
          mesh=(1, 2), shape=("granite_decode_small", 64, 8, "decode"),
-         reduced_from="decode_32k (B 128 x S 32768), 8 of 24 groups",
-         steps=2, bytes="0.96 GB of weights a rank, an 8.3 MB cache"),
-    dict(phase="spec_zamba_train", arch="zamba2-2.7b", groups=3,
+         reduced_from="decode_32k (B 128 x S 32768), 4 of 24 groups",
+         steps=2, bytes="0.53 GB of weights a rank, a 4.2 MB cache"),
+    dict(phase="spec_zamba_train", arch="zamba2-2.7b", groups=1,
          rules="seqpar", mesh=(1, 2),
          shape=("zamba_train_small", 256, 2, "train"),
-         reduced_from="train_4k (B 256 x S 4096), 3 of 9 groups", steps=1,
-         bytes="1.8 GB of weights, 1.8 of gradients, 1.8 of RMSProp state "
-               "a rank"),
+         reduced_from="train_4k (B 256 x S 4096), 1 of 9 groups", steps=1,
+         bytes="0.85 GB of weights, 0.85 of gradients, 0.85 of RMSProp "
+               "state a rank"),
     dict(phase="spec_qwen32_train", arch="qwen3-32b", groups=1,
          rules="fsdp_seqpar", mesh=(2, 2),
          shape=("qwen32_train_small", 256, 2, "train"),
@@ -643,6 +680,23 @@ LM_ARGV = ["--mode", "lm", "--arch", "zamba2-2.7b", "--attn-impl", "kernel",
            "2"]
 GRAPH_LM_CASES = ((LM_RL_ARGV, True), (LM_ARGV, True), (GLM_RL_ARGV, False),
                   (XLM_ARGV, False), (VLM_LM_ARGV, False))
+# phase 32: the four families of configs/ no earlier phase runs, at every
+# published width, depth cut only where their float32 weights would not
+# leave the plain path room on the card: (arch, groups (None: all),
+# batch, prompt length, 32b's requests). Gemma2-27B's 4,160 tokens and
+# Mixtral-8x7B's 4,608 pass their 4,096-token window, so the rings wrap in
+# the prefill; Mixtral's MoE routes groups of 512 tokens
+# (moe.MOE_GROUP_SIZE), so its prompt is 9 of them. 32b serves each:
+# MusicGen-Large whole through serve.main, the others at the same depth
+# through serve.run (no depth flag); then each one's compiled decode step
+# against eager
+FAMILY_MODELS = (("gemma2-27b", 4, 1, 4160, 12),
+                 ("mixtral-8x7b", 4, 1, 4608, 12),
+                 ("deepseek-coder-33b", 8, 4, 512, 12),
+                 ("musicgen-large", None, 4, 512, 24))
+FAMILY_SERVE = ("--attn-impl", "kernel", "--prompt-len", "512",
+                "--gen-tokens", "64", "--max-batch", "8")
+FAMILY_SESSION = ([256 + 32 * slot for slot in range(8)], 576)
 
 
 def emit(phase, **fields):
@@ -835,8 +889,12 @@ def _time_row(kernel, plain, library, nbytes, flops, dtype, graph_launches):
                library_ms=None if library is None else event_ms(library,
                                                                 reps),
                library_graph_ms=None if library is None
-               else graph_ms(library, graph_launches),
-               host_loop_us=host_loop_us(kernel))
+               else graph_ms(library, graph_launches))
+    # a call of a millisecond or more is device-bound: fewer calls tell
+    # the same (1,000 calls of a 4,608-token row took 6 s on an NVIDIA
+    # H100 80GB HBM3 at 700 W)
+    row["host_loop_us"] = host_loop_us(
+        kernel, 1000 if row["graph_ms"] < 1 else 50)
     row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dtype)
     row["bound_share"] = row["bound_ms"] / row["graph_ms"]
     return row
@@ -871,6 +929,14 @@ def phase_flash(ops, ref):
                 def library():
                     return F.scaled_dot_product_attention(
                         q, k, v, is_causal=True, enable_gqa=True)
+            elif not cap:
+                pos = torch.arange(s, device="cuda")
+                back = pos[:, None] - pos[None, :]
+                mask = (back >= 0) & (back < window)
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True)
             row = _time_row(
                 lambda: ops.flash_attention(q, k, v, **kw),
                 lambda: ref.ref_flash_attention(q, k, v, **kw), library,
@@ -1163,10 +1229,12 @@ def vision_stub(cfg, batch, dtype):
                        device="cuda").to(dtype)
 
 
-def phase_model(ops, arch, prompt_len, phase="model", groups=None):
+def phase_model(ops, arch, prompt_len, phase="model", groups=None,
+                batch=4):
     """``arch`` at full width in float32 with weights from seed 0 (and
-    ``groups`` of its groups, where given): 4 prompts of ``prompt_len``
-    tokens and 16 teacher-forced decode steps through the kernel path
+    ``groups`` of its groups, where given): ``batch`` prompts of
+    ``prompt_len`` tokens and 16 teacher-forced decode steps through the
+    kernel path
     (every kernel of the arch) and the plain path; logits must agree
     within MODEL_TOL, and the kernel path must launch each kernel once
     per layer that runs it and call. A VLM's prefill reads the seeded
@@ -1182,11 +1250,12 @@ def phase_model(ops, arch, prompt_len, phase="model", groups=None):
 
     cfg = dataclasses.replace(get_config(arch), dtype="float32",
                               num_groups=groups or get_config(arch).num_groups)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model_lib.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    p, n, b = prompt_len, 16, 4
+    p, n, b = prompt_len, 16, batch
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, p + n))).cuda()
     vision = vision_stub(cfg, b, torch.float32)
@@ -1241,7 +1310,8 @@ def phase_model(ops, arch, prompt_len, phase="model", groups=None):
          init_seconds=init_s, prompts=b, prompt_len=p,
          teacher_forced_steps=n, logits_shape=list(logits["kernel"].shape),
          max_abs_logit_diff=diff, tol=MODEL_TOL, seconds=seconds,
-         kernel_launches=launches["kernel"], **moe_fields)
+         kernel_launches=launches["kernel"],
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), **moe_fields)
     del params, logits, routes, vision
     torch.cuda.empty_cache()
     if not finite:
@@ -1257,15 +1327,17 @@ def phase_model(ops, arch, prompt_len, phase="model", groups=None):
                              f"should be {want}")
 
 
-def phase_serve(ops, argv, phase="serve"):
-    """A serving main path at full width through ``serve.main(argv)``:
-    every request served and echoed; per admission one flash-attention
-    launch per attention layer and one SSD chunk launch per Mamba2 layer
-    (every prompt is at most one chunk), per decode step one
-    decode-attention launch per attention layer."""
+def phase_serve(ops, argv, phase="serve", groups=None):
+    """A serving main path at full width through ``serve.main(argv)``
+    (with ``groups``, through ``serve.run`` on the config cut to that
+    many groups): every request served and echoed; per admission one
+    flash-attention launch per attention layer and one SSD chunk launch
+    per Mamba2 layer (every prompt is at most one chunk), per decode step
+    one decode-attention launch per attention layer."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ImplContext
     from repro_torch.launch import serve
 
     from repro_torch.core import generate as gen_lib
@@ -1277,20 +1349,28 @@ def phase_serve(ops, argv, phase="serve"):
                 sum(f.captures for f in fns), sum(f.steps.capture_s
                                                   for f in fns))
 
-    attn, mamba = kernel_layers(get_config(argv[argv.index("--arch") + 1]))
+    cfg = get_config(_arg(argv, "--arch"))
+    cfg = dataclasses.replace(cfg, num_groups=groups or cfg.num_groups)
+    attn, mamba = kernel_layers(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     ops.reset_stats()
     counts0 = graph_counts()
     with contextlib.redirect_stdout(buf):
-        summary = serve.main(argv)
+        if groups:
+            args = serve._parser().parse_args(argv)
+            summary = serve.run(args, ImplContext.from_args(args).apply(cfg),
+                                torch.device("cuda"))
+        else:
+            summary = serve.main(argv)
     launches = ops.stats()
     peak = torch.cuda.max_memory_allocated()
     counts = [b - a for a, b in zip(counts0, graph_counts())]
     for line in buf.getvalue().strip().splitlines():
         print("  " + line, flush=True)
-    emit(phase, argv=argv, launches=launches, peak_mem_bytes=peak,
+    emit(phase, argv=argv, num_groups=cfg.num_groups, launches=launches,
+         peak_mem_bytes=peak,
          admission_captures=counts[0], admission_capture_s=counts[1],
          step_captures=counts[2], step_capture_s=counts[3], **summary)
     if summary["served"] != summary["requests"] \
@@ -4650,9 +4730,11 @@ def _alternated_ms(fns_by_name, steps, rounds=2):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def phase_graph_session(ops, arch, prompt_lens, cap, swap=False):
+def phase_graph_session(ops, arch, prompt_lens, cap, swap=False,
+                        groups=None):
     """29 for one server's session at full width (bf16 on float32
-    weights from seed 0, 8 slots admitted with ``prompt_lens`` into
+    weights from seed 0; ``groups`` of its groups, where given; 8 slots
+    admitted with ``prompt_lens`` into
     ``cap``-slot caches, slot 7 then evicted): GRAPH_CHECK_STEPS steps of
     the compiled step against eager from the same state, bitwise; one
     capture; an in-place SGD step of the weights, then GRAPH_AFTER_STEPS
@@ -4669,8 +4751,9 @@ def phase_graph_session(ops, arch, prompt_lens, cap, swap=False):
     from repro_torch.core import generate as gen_lib
     from repro_torch.models import model as model_lib
 
-    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel",
-                              ssd_impl="kernel")
+    cfg = dataclasses.replace(
+        get_config(arch), attn_impl="kernel", ssd_impl="kernel",
+        num_groups=groups or get_config(arch).num_groups)
     params = model_lib.init(cfg, seed=0, device="cuda")
     sess = gen_lib.DecodeSession(params, cfg, max_batch=8, max_len=cap)
     rng = np.random.default_rng(1)
@@ -4709,7 +4792,7 @@ def phase_graph_session(ops, arch, prompt_lens, cap, swap=False):
     replay_ms = event_ms(entry.graph.replay, reps=10)
     profiled_ms, busy_ms, kernels = _profiled(sess.step, GRAPH_PROFILED)
     emit("graph_session", arch=cfg.name, dtype=cfg.dtype, slots=8, cap=cap,
-         active_slots=7, compiled=sess.compiled,
+         num_groups=cfg.num_groups, active_slots=7, compiled=sess.compiled,
          checked_steps=GRAPH_CHECK_STEPS + GRAPH_AFTER_STEPS,
          gaps=gaps, captures=captured, captures_after_update=after_update,
          captures_after_swap=swapped, k3_per_step=k3 / (
@@ -5625,8 +5708,56 @@ def phase31(ops):
     return out
 
 
-def main():
+# ---------------------------------------------------------------------------
+# 32. slice 19: the four families no earlier phase runs
+
+
+def phase32(ops):
+    """32a: each of FAMILY_MODELS in float32, the kernel path against the
+    plain path (``phase_model``: logits within MODEL_TOL, K2 once a layer
+    and K3 once a layer a step, Mixtral's routing unflipped); 32b: each
+    served in bf16 at the same depth (``phase_serve``: every request
+    served and echoed, launches exact) and its compiled decode step held
+    bitwise against eager (``phase_graph_session``: one capture). Returns
+    32b's server launches, a family each."""
     import torch
+    for arch, groups, batch, prompt_len, _ in FAMILY_MODELS:
+        phase_model(ops, arch, prompt_len, phase="family", groups=groups,
+                    batch=batch)
+    launches = {}
+    for arch, groups, _, _, requests in FAMILY_MODELS:
+        argv = ["--arch", arch, "--requests", str(requests), *FAMILY_SERVE]
+        launches[f"family_serve_{arch}"] = phase_serve(
+            ops, argv, phase="family_serve", groups=groups)
+        torch.cuda.empty_cache()
+        phase_graph_session(ops, arch, *FAMILY_SESSION, groups=groups)
+    return launches
+
+
+def phase3(ops, ref):
+    """3: each kernel against its plain version. Returns the rows of K1,
+    K2, K2 at a query offset, K3 and K4."""
+    import torch
+    rows = (phase_kernel(ops, ref), phase_flash(ops, ref),
+            phase_flash_offset(ops, ref), phase_decode(ops, ref),
+            phase_ssd(ops, ref))
+    # SDPA's graph captures left cuBLAS a workspace on each capture
+    # stream; free them so that later phases' peak memory leaves them out
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def main(argv=None):
+    """The whole smoke test; ``--phase N`` (3 or 32, repeatable) runs
+    phases 1, 2 and those alone and prints no result line."""
+    import argparse
+
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", action="append", choices=["3", "32"],
+                        default=[])
+    alone = parser.parse_args(argv).phase
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -5665,16 +5796,16 @@ def main():
     # 2b. the launch geometry's Python mirrors against the built .cu
     phase_geometry(ops)
 
+    if alone:
+        if "3" in alone:
+            phase3(ops, ref)
+        if "32" in alone:
+            phase32(ops)
+        print(smi, flush=True)
+        return 0
+
     # 3. each kernel against its plain version
-    rows = phase_kernel(ops, ref)
-    flash_rows = phase_flash(ops, ref)
-    offset_rows = phase_flash_offset(ops, ref)
-    decode_rows = phase_decode(ops, ref)
-    ssd_rows = phase_ssd(ops, ref)
-    # SDPA's graph captures left cuBLAS a workspace on each capture
-    # stream; free them so that later phases' peak memory leaves them out
-    torch._C._cuda_clearCublasWorkspaces()
-    torch.cuda.empty_cache()
+    rows, flash_rows, offset_rows, decode_rows, ssd_rows = phase3(ops, ref)
 
     # 4. full-width learner, then on replay's mixed batches (4b)
     phase_learner(ops)
@@ -5838,6 +5969,11 @@ def main():
     # actors' policy: phase 7's run; 31d, the VLM's prefill: phase 29)
     slice18 = phase31(ops)
 
+    # 32. slice 19: Gemma2-27B, Mixtral-8x7B, DeepSeek-Coder-33B and
+    # MusicGen-Large, float32 kernel path against the plain path (32a),
+    # then served, with their compiled decode steps against eager (32b)
+    slice19 = phase32(ops)
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -5951,6 +6087,8 @@ def main():
         k["slice18_launches"] = {
             phase: launches[k["name"]] for phase, launches in slice18.items()
             if k["name"] in launches}
+        k["slice19_launches"] = {
+            phase: launches[k["name"]] for phase, launches in slice19.items()}
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     row = offset_rows[(FLASH_OFFSET_SHAPES[0], "bfloat16")]
     flash.update(offset_shape=list(FLASH_OFFSET_SHAPES[0]),

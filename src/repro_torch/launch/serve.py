@@ -309,7 +309,13 @@ def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
-    cfg = ImplContext.from_args(args).apply(cfg)
+    return run(args, ImplContext.from_args(args).apply(cfg), device)
+
+
+def run(args, cfg, device) -> dict:
+    """``main`` past its flags: serve ``args``' requests from ``cfg`` (a
+    config the flags name, or one cut from it, as a full-width model at a
+    cut depth) with weights from seed 0 on ``device``."""
     params = model_lib.init(cfg, seed=0, device=device)
     max_len = args.max_len or args.prompt_len + args.gen_tokens
     server = Server(cfg, params, max_batch=args.max_batch, max_len=max_len,

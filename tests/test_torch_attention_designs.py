@@ -126,8 +126,9 @@ def _bf16_want(q, k, v, **kw):
 
 # small cases of chip_smoke.py's FLASH_SHAPES: (B, H, K, S, hd, window,
 # softcap, causal): GQA at the serving head_dim, ragged S, a windowed and
-# softcapped case, the other head_dims, Zamba2's hd 80 without GQA, and a
-# non-causal case
+# softcapped case, the other head_dims, Zamba2's hd 80 without GQA, a
+# non-causal case, then DeepSeek-Coder-33B's group of 7 and MusicGen-Large's
+# MHA at hd 64
 FLASH_DESIGN_CASES = [
     (1, 8, 2, 1, 128, 0, 0.0, True),
     (1, 8, 2, 65, 128, 0, 0.0, True),
@@ -139,6 +140,8 @@ FLASH_DESIGN_CASES = [
     (1, 4, 1, 77, 256, 24, 30.0, True),
     (1, 8, 8, 256, 80, 0, 0.0, True),
     (2, 4, 2, 100, 64, 0, 0.0, False),
+    (1, 14, 2, 130, 128, 0, 0.0, True),
+    (1, 4, 4, 100, 64, 0, 0.0, True),
 ]
 
 
@@ -252,7 +255,9 @@ def _decode_case(b, h, kh, s, hd, pos_kind, window, seed):
 # (B, H, K, S, hd, pos, window): G = 4 (Qwen3-4B), 1 (Zamba2's shared
 # block) and 8 (two groups of four query heads); S not a multiple of the
 # range; ring buffers under a window; scalar pos and pos 0; a row with no
-# valid slot
+# valid slot; a group of 7 (DeepSeek-Coder-33B: two blocks of 4 and 3
+# query heads) and a wrapped ring as long as its window (Gemma2-27B's
+# local layers, group 2)
 DECODE_DESIGN_CASES = [
     (3, 8, 2, 200, 64, "rows", 0),
     (3, 8, 2, 200, 64, "scalar", 0),
@@ -262,6 +267,8 @@ DECODE_DESIGN_CASES = [
     (2, 16, 2, 230, 64, "rows", 0),
     (2, 16, 2, 230, 64, "ring", 100),
     (3, 8, 2, 200, 64, "none_valid", 0),
+    (2, 14, 2, 230, 64, "rows", 0),
+    (2, 4, 2, 160, 128, "ring", 160),
 ]
 
 
@@ -322,3 +329,15 @@ def test_decode_splits_at_the_serving_shapes():
     # G = 8 takes two blocks per (row, KV head), as twice the rows do
     assert tops.decode_splits(8, 64, 8, 576) \
         == tops.decode_splits(16, 32, 8, 576) == (3, 192)
+
+
+def test_decode_splits_at_the_family_shapes():
+    # Gemma2-27B's local ring (8 rows x 16 KV heads, 4,096 slots) and
+    # global layer, Mixtral-8x7B's ring, DeepSeek-Coder-33B's group of 7
+    # (two blocks per (row, KV head), as G = 8) and MusicGen-Large's MHA
+    assert tops.decode_splits(8, 32, 16, 4096) == (4, 1344)
+    assert tops.decode_splits(8, 32, 16, 576) == (3, 192)
+    assert tops.decode_splits(8, 32, 8, 4096) == (6, 800)
+    assert tops.decode_splits(8, 56, 8, 576) \
+        == tops.decode_splits(8, 64, 8, 576) == (3, 192)
+    assert tops.decode_splits(8, 32, 32, 576) == (2, 288)

@@ -162,7 +162,13 @@ def test_every_arch_initialises_with_the_reference_leaves():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_baseline_match_jax(arch, impl):
     """``impl`` picks both the attention and the Mamba2 SSD path."""
-    jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl)
+    _check_forward(arch, impl)
+
+
+def _check_forward(arch, impl, **over):
+    """``test_forward_logits_baseline_match_jax`` on ``arch`` with the
+    config fields ``over`` set in both packages."""
+    jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl, **over)
     tokens = _tokens(tcfg, (2, FORWARD_LEN.get(arch, 40)))
     jvis, tvis = _vision(tcfg, 2)
     want_l, want_b, want_aux = jmodel.apply_lm(jparams, jnp.asarray(tokens),
@@ -187,7 +193,13 @@ def test_prefill_then_decode_match_jax(arch, impl):
     cache holds the vision k/v) builds the reference's caches, every
     subtree and leaf of them, and 8 decode steps at per-row positions
     (wrapping the ring) track its logits and baseline."""
-    jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl)
+    _check_prefill_then_decode(arch, impl)
+
+
+def _check_prefill_then_decode(arch, impl, **over):
+    """``test_prefill_then_decode_match_jax`` on ``arch`` with the config
+    fields ``over`` set in both packages."""
+    jcfg, tcfg, jparams, tparams = _setup(arch, ssd_impl=impl, **over)
     p, n = PREFILL_LEN.get(arch, 36), 8
     tokens = _tokens(tcfg, (2, p + n), seed=2)
     jvis, tvis = _vision(tcfg, 2)

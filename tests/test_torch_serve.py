@@ -39,7 +39,13 @@ SEED = 7
                 params=["qwen3-4b", "gemma2-27b", "zamba2-2.7b",
                         "granite-moe-1b-a400m", "xlstm-125m"])
 def setup(request):
-    cfg = get_reduced_config(request.param)
+    return _setup(request.param)
+
+
+def _setup(arch):
+    """The reduced ``arch``'s config, weights from seed 0, a prompt and
+    ``generate``'s stream from it: the per-request tests' input."""
+    cfg = get_reduced_config(arch)
     params = model_lib.init(cfg, seed=0)
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, P))
     ref = {k: v.numpy() for k, v in G.generate(
