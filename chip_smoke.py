@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 32      # phases 1, 2 and 32 alone
+    python3 chip_smoke.py --phase 33      # phases 1, 2 and 33 alone
 
 
 Phases, each printing JSON lines; any failed check raises and the script
@@ -79,7 +80,7 @@ exits nonzero without printing a result:
               with --attn-impl kernel, 24 requests (the serving main path:
               its flash- and decode-attention launches are reported); then
               a profile of one decode step (host time, device busy time by
-              kernel)
+              kernel; at 9 of the 36 groups, PROFILE_GROUPS)
  11. zamba    Zamba2-2.7B as published in float32, weights from seed 0: the
               kernel path (SSD chunk and attention kernels) against the
               plain path on 4 prompts of 512 tokens (two chunks, the state
@@ -87,7 +88,8 @@ exits nonzero without printing a result:
  12. zserve   repro_torch.launch.serve.main at full Zamba2-2.7B width with
               --attn-impl kernel --ssd-impl kernel, 24 requests of 1..256
               tokens (its SSD chunk, flash- and decode-attention launches
-              are reported); then a profile of one decode step
+              are reported); then a profile of one decode step (3 of
+              the 9 groups)
  13. grad     gradients on the card, float32: one full-width Zamba2-2.7B
               Mamba2 layer on a 256-token chunk and one full-width Qwen3-4B
               attention layer at S 512, the loss mean(out^2) through the
@@ -105,7 +107,7 @@ exits nonzero without printing a result:
               paths: the kernel path's launches exact, loss and gradient
               norm within MODEL_TOL, each parameter's gradient within
               LM_GRAD_TOL of its largest
- 16. lm       --mode lm at full Zamba2-2.7B width: 2 steps of 4 x 512
+ 16. lm       --mode lm at full Zamba2-2.7B width: 1 step of 4 x 512
               tokens, K4 in every Mamba2 layer (two chunks) and K2 in the
               shared block under autograd (remat: per group, and per layer
               inside Zamba2's six-layer groups); tok/s, ms per step, peak
@@ -162,7 +164,8 @@ exits nonzero without printing a result:
               launched (the mixers are plain PyTorch, as the reference's)
  23. xserve   repro_torch.launch.serve.main for xLSTM-125M in bf16: 24
               requests of 1..64 tokens (one chunk at most) in 8 slots, no
-              kernel launched; then a profile of one decode step
+              kernel launched; then a profile of one decode step (2 of
+              the 6 groups)
  24. xlm_rl   --mode lm-rl for xLSTM-125M, B 8, T 64, 3 steps: K1 once a
               step at (64, 8), nothing else; ms a step split into
               generation and learner, fps, peak memory; its float32
@@ -241,8 +244,9 @@ exits nonzero without printing a result:
               graph of model.serve_step a state's static buffers) at full
               width against eager steps from the same state, every
               product bitwise (logits, baseline, each cache leaf, token,
-              log-prob, entropy, the step's baseline): the Qwen3-4B,
-              Zamba2-2.7B, Granite and xLSTM-125M 8-slot sessions in
+              log-prob, entropy, the step's baseline): the Qwen3-4B (9
+              of 36 groups), Zamba2-2.7B (3 of 9), Granite and
+              xLSTM-125M 8-slot sessions in
               bf16 (GRAPH_SESSIONS; one capture, K3 a replay equal to an
               eager step's, an in-place SGD step of the weights read by
               the next replay with no new capture; xLSTM also another
@@ -250,16 +254,17 @@ exits nonzero without printing a result:
               step in turns, one replay's device ms, the graph step's
               idle share under torch.profiler; one Llama-3.2-Vision-90B
               group's generate(vision=) (phase 25's shapes) and its
-              eager loop; Granite lm-rl generation through
-              GeneratorSource (B 8, T 64), two batches around an
+              eager loop; Granite lm-rl generation (8 of 24 groups)
+              through GeneratorSource (B 8, T 64), two batches around an
               in-place weight update, against the same episodes
               generated eagerly, one capture. Phases 10, 12, 15, 20-25
               decode through the graphs too, their checks unchanged
  30. graph    slice 17 (core/compiled.py), graph against eager from one
               state, bitwise (or within twice a second eager run's gap):
               30a the full-width learner steps (deep, recurrent), 30b the
-              pipelined unroll (gridworld, Catch), 30c the Qwen3-4B and
-              Zamba2-2.7B admissions; phases 4-8, 17, 18 run through them
+              pipelined unroll (gridworld, Catch), 30c the Qwen3-4B (9
+              of 36 groups) and Zamba2-2.7B (3 of 9) admissions; phases
+              4-8, 17, 18 run through them
  31. graph    slice 18: 31a the LM learner steps at full width through
               the compiled.TrainStep that train.build_lm_rl / build_lm
               build, against the plain step from the built state, 3
@@ -267,7 +272,10 @@ exits nonzero without printing a result:
               step) on batches the built source draws: Qwen3-4B lm-rl (B
               8, T 64; K1, K2) and Zamba2-2.7B lm (4 x 512; K2, K4), their
               kept states in host memory, Granite lm-rl (MoE), xLSTM-125M
-              lm (S 128) and the reduced VLM lm; every metric, parameter
+              lm (S 128; Qwen3-4B at 9 of 36 groups, Zamba2 at 3 of 9,
+              Granite at 8 of 24, the xLSTM at 2 of 6) and the reduced
+              VLM lm; every metric,
+              parameter
               and AdamW leaf bitwise (or within twice a second eager
               run's gap), one capture, each step's K1/K2/K4 launches
               remat_step_launches' in both runs, ms a step and peak
@@ -299,6 +307,23 @@ exits nonzero without printing a result:
               requests; prompts of up to 512 tokens, 64 generated, 8
               slots) and its compiled decode step held bitwise against
               eager (phase 29's check, one capture)
+ 33. family_train  slice 20, the same four families trained at every
+              published width through train.main (FAMILY_TRAIN, depth cut
+              by depth_cut: Gemma2-27B and Mixtral-8x7B lm-rl at 2
+              groups, where weights, gradients and AdamW moments come near
+              Qwen3-4B's 64 GB, their lm at 1, DeepSeek-Coder-33B at 3 of
+              62, MusicGen-Large at 24 of 48): --mode lm-rl (B 8, T 64;
+              K3 generation, K2 prefill and learner, K1) and --mode lm
+              (Gemma2-27B and Mixtral-8x7B B 1 x 5,120 tokens, past their
+              4,096-token windows; DeepSeek-Coder-33B and MusicGen-Large
+              B 4 x 512), 1 step each, with phases 15 and
+              16's checks (the compiled: line, one capture, memory
+              released, launches exact, a float32 kernel-against-plain
+              step with every metric and, for Mixtral, the router's
+              terms and flips on pinned routes), then 31a's check of the
+              same run (graph against eager, 3 steps, one capture); run
+              right after phase 3, on a card no other phase has left
+              memory on
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
               phase 17's launches; recurrent_*: phase 18's; granite_*:
@@ -306,8 +331,8 @@ exits nonzero without printing a result:
               25's; mp_*: phase 26's, one entry a rank;
               slice14_launches / slice15_launches: phase 27's and 28's
               runs, a rank each; slice17_launches / slice18_launches /
-              slice19_launches: phases 30, 31a and 32b; K2's offset_*:
-              phase 3's offset row),
+              slice19_launches / slice20_launches: phases 30, 31a, 32b
+              and 33; K2's offset_*: phase 3's offset row),
               then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
@@ -642,11 +667,13 @@ DRYRUN_ARGV = ["--arch", XLSTM, "--shape", "decode_32k", "--ranks", "1"]
 # capture) and GRAPH_AFTER_STEPS after an in-place weight update, held
 # bitwise; GRAPH_TIMED_STEPS steps a turn for the eager and graph times,
 # GRAPH_PROFILED under the profiler
+# Qwen3-4B's session at 9 of its 36 groups and Zamba2-2.7B's at 3 of 9
+# (the last item; None: all), for the script's time
 GRAPH_SESSIONS = (
-    ("qwen3-4b", [256 + 32 * slot for slot in range(8)], 576),
-    ("zamba2-2.7b", [32 * (slot + 1) for slot in range(8)], 320),
-    (GRANITE, [8 * (slot + 1) for slot in range(8)], 128),
-    (XLSTM, [8 * (slot + 1) for slot in range(8)], 128))
+    ("qwen3-4b", [256 + 32 * slot for slot in range(8)], 576, 9),
+    ("zamba2-2.7b", [32 * (slot + 1) for slot in range(8)], 320, 3),
+    (GRANITE, [8 * (slot + 1) for slot in range(8)], 128, None),
+    (XLSTM, [8 * (slot + 1) for slot in range(8)], 128, None))
 GRAPH_CHECK_STEPS, GRAPH_AFTER_STEPS = 6, 2
 GRAPH_TIMED_STEPS, GRAPH_PROFILED = 10, 5
 # phase 30: the compiled rl-agent entries and admissions at full width
@@ -657,10 +684,18 @@ GRAPH_TIMED_STEPS, GRAPH_PROFILED = 10, 5
 # prefills exact lengths: one length a bucket)
 GRAPH_LEARNER_STEPS, GRAPH_UNROLL_CALLS = 3, 4
 GRAPH_ADMIT_ROUNDS, GRAPH_TIMED = 3, 5
+# (arch, cap, the buckets' prompt lengths, groups): Qwen3-4B at 9 of 36
+# groups, Zamba2-2.7B at 3 of 9, for the script's time
 GRAPH_ADMITS = (
-    ("qwen3-4b", 576, ([200, 220, 240, 256], [100, 110, 120, 128])),
-    ("zamba2-2.7b", 320, ([256] * 4, [128] * 4)),
+    ("qwen3-4b", 576, ([200, 220, 240, 256], [100, 110, 120, 128]), 9),
+    ("zamba2-2.7b", 320, ([256] * 4, [128] * 4), 3),
 )
+# 29's Granite lm-rl generation at 8 of its 24 groups, for the script's
+# time
+GRAPH_SOURCE_GROUPS = 8
+# the decode profiles (phases 10, 12, 23) at these depths of the three
+# archs, for the script's time
+PROFILE_GROUPS = {"qwen3-4b": 9, "zamba2-2.7b": 3, XLSTM: 2}
 # phase 31: the compiled LM learner steps at full width against eager
 # (GRAPH_LM_STEPS steps from the built state: warm, capture, replay), the
 # trainers of phases 15, 16, 21 (lm-rl), 24 (lm) and 25 (the reduced VLM
@@ -677,9 +712,14 @@ LM_RL_ARGV = ["--mode", "lm-rl", "--arch", "qwen3-4b", "--attn-impl",
               "64", "--steps", "1"]
 LM_ARGV = ["--mode", "lm", "--arch", "zamba2-2.7b", "--attn-impl", "kernel",
            "--ssd-impl", "kernel", "--batch", "4", "--seq", "512", "--steps",
-           "2"]
-GRAPH_LM_CASES = ((LM_RL_ARGV, True), (LM_ARGV, True), (GLM_RL_ARGV, False),
-                  (XLM_ARGV, False), (VLM_LM_ARGV, False))
+           "1"]
+# (argv, the state kept in host memory, groups (None: all)): Qwen3-4B at
+# 9 of 36 groups, Zamba2-2.7B at 3 of 9, Granite at 8 of 24 and
+# xLSTM-125M at 2 of 6, for the script's time (phase 33 holds the same
+# graphs at up to 3.4B parameters)
+GRAPH_LM_CASES = ((LM_RL_ARGV, True, 9), (LM_ARGV, True, 3),
+                  (GLM_RL_ARGV, False, 8), (XLM_ARGV, False, 2),
+                  (VLM_LM_ARGV, False, None))
 # phase 32: the four families of configs/ no earlier phase runs, at every
 # published width, depth cut only where their float32 weights would not
 # leave the plain path room on the card: (arch, groups (None: all),
@@ -697,6 +737,26 @@ FAMILY_MODELS = (("gemma2-27b", 4, 1, 4160, 12),
 FAMILY_SERVE = ("--attn-impl", "kernel", "--prompt-len", "512",
                 "--gen-tokens", "64", "--max-batch", "8")
 FAMILY_SESSION = ([256 + 32 * slot for slot in range(8)], 576)
+# phase 33: the same families trained at every published width through
+# the entry point, 1 step each (bf16 activations on float32 weights,
+# AdamW): (arch, lm-rl's groups, lm's groups, lm's batch, lm's sequence);
+# lm-rl runs B 8 x T 64 (LM_RL_SHAPE) for each. Gemma2's and Mixtral's
+# lm-rl runs keep their weights, gradients and both AdamW moments (16
+# bytes a parameter) near Qwen3-4B's 64 GB (3,444,655,104 and
+# 3,164,692,480 parameters at 2 of 23 and 2 of 32 groups); at 1 group
+# Gemma2's generated episodes are so nearly deterministic that the first
+# layer's q and k get no gradient but rounding (its float32 check's leaf
+# bar, relative to the leaf, failed on it). The other runs are cut
+# further for the script's time: Gemma2's and Mixtral's lm to 1 group,
+# DeepSeek to 3 of 62, MusicGen to 24 of 48 layers. Gemma2's and
+# Mixtral's lm sequences pass their 4,096-token window: 5,120 is the
+# least length past it that both packages take, a multiple of the chunked
+# loss's 512 and of the attn_chunk (1,024) that K2's backward recomputes
+# in; Mixtral's 5,120 tokens route as 10 MoE groups of 512
+FAMILY_TRAIN = (("gemma2-27b", 2, 1, 1, 5120),
+                ("mixtral-8x7b", 2, 1, 1, 5120),
+                ("deepseek-coder-33b", 3, 3, 4, 512),
+                ("musicgen-large", 24, 24, 4, 512))
 
 
 def emit(phase, **fields):
@@ -1416,8 +1476,9 @@ def _profiled(fn, reps):
                       "calls_per_call": e.count / reps} for e in top])
 
 
-def phase_profile(arch, prompt_lens, cap):
-    """Where one full-width serving decode step spends its time: 8 slots
+def phase_profile(arch, prompt_lens, cap, groups=None):
+    """Where one full-width serving decode step (``groups`` of the arch's
+    groups, where given) spends its time: 8 slots
     admitted with ``prompt_lens`` into ``cap``-slot caches, then 5 decode
     steps timed on the host clock, and 5 more under torch.profiler for the
     device's busy time by kernel; then one admission of the longest prompt
@@ -1430,8 +1491,9 @@ def phase_profile(arch, prompt_lens, cap):
     from repro_torch.core.generate import DecodeSession
     from repro_torch.models import model as model_lib
 
-    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel",
-                              ssd_impl="kernel")
+    cfg = dataclasses.replace(
+        get_config(arch), attn_impl="kernel", ssd_impl="kernel",
+        num_groups=groups or get_config(arch).num_groups)
     params = model_lib.init(cfg, seed=0, device="cuda")
     sess = DecodeSession(params, cfg, max_batch=8, max_len=cap)
     rng = np.random.default_rng(1)
@@ -1455,7 +1517,8 @@ def phase_profile(arch, prompt_lens, cap):
     def measured(x):
         return x if x is not None else "not measured"
 
-    emit("profile", arch=cfg.name, dtype=cfg.dtype, slots=8, cap=cap,
+    emit("profile", arch=cfg.name, num_groups=cfg.num_groups,
+         dtype=cfg.dtype, slots=8, cap=cap,
          step_ms=step_ms, profiled_step_ms=profiled_ms,
          device_busy_ms=measured(busy_ms),
          device_idle_share=measured(busy_ms and 1 - busy_ms / profiled_ms),
@@ -2213,16 +2276,25 @@ def remat_step_launches(cfg, seq):
     ``seq`` tokens with ``cfg.remat``: each layer runs in the forward pass
     and again in its group's recomputation, and a layer of a multi-layer
     group once more in its own (the nested checkpoint); the shared block
-    after each group is a one-layer group. Without remat each layer runs
-    once. A self-attention layer launches flash attention once a pass, a
-    Mamba2 layer the SSD chunk kernel once a chunk; xattn and the xLSTM
-    mixers launch nothing."""
+    after each group is a one-layer group. But torch's non-reentrant
+    checkpoint stops a region's recomputation once it has rebuilt every
+    tensor the region's backward saved (its early stop): where nothing
+    follows a multi-layer group's last layer inside the group's region
+    (Gemma2's pair; Zamba2's shared block follows its Mamba2 layers),
+    that layer is not rerun there and runs twice. Without remat each
+    layer runs once. A self-attention layer launches flash attention
+    once a pass, a Mamba2 layer the SSD chunk kernel once a chunk; xattn
+    and the xLSTM mixers launch nothing."""
     from repro_torch.models.attention import CAUSAL_KINDS
 
-    passes = (3 if len(cfg.block_pattern) > 1 else 2) if cfg.remat else 1
+    nested = cfg.remat and len(cfg.block_pattern) > 1
+    last = len(cfg.block_pattern) - 1
     chunks = -(-seq // cfg.ssm_chunk)
     out = {"flash_attention": 0, "ssd_chunk": 0}
-    for mixer, _ in cfg.block_pattern:
+    for idx, (mixer, _) in enumerate(cfg.block_pattern):
+        passes = (3 if nested else 2) if cfg.remat else 1
+        if nested and idx == last and not cfg.shared_attn_every:
+            passes = 2
         if mixer == "mamba":
             out["ssd_chunk"] += passes * chunks * cfg.num_groups
         elif mixer in CAUSAL_KINDS:
@@ -2262,6 +2334,7 @@ def _lm_main(ops, argv, probe=None):
     split, batch = split_ms(runtime, reps=LM_SPLIT_REPS)
     peak_reserved = torch.cuda.max_memory_reserved()
     captures = runtime.step_fn.captures
+    parameters = sum(p.numel() for p in runtime.params.parameters())
     probed = probe(runtime.params, batch) if probe is not None else {}
     del runtime
     gc.collect()
@@ -2274,13 +2347,34 @@ def _lm_main(ops, argv, probe=None):
             f"{left} bytes still reserved after the run")
     step_ms = split["unroll_ms"] + split["learner_ms"]
     run = dict(argv=argv, seconds=seconds, fps_line=last, compiled=line,
-               learner_captures=captures, metrics=metrics,
+               learner_captures=captures, parameters=parameters,
+               metrics=metrics,
                launches=launches, peak_mem_bytes=peak,
                peak_reserved_bytes=peak_reserved, reserved_left_bytes=left,
                frames=frames, split_reps=LM_SPLIT_REPS, **split,
                step_ms=step_ms,
                frames_per_s=frames / steps / step_ms * 1e3, **probed)
     return run, batch, steps
+
+
+@contextlib.contextmanager
+def recorded_aux(seen):
+    """Inside: ``seen["aux"]``, the MoE aux (load balance, z-loss, dropped
+    fraction, each summed over the layers) of the last ``model.forward``
+    call, the one whose router terms a learner step adds to its loss."""
+    from repro_torch.models import model as model_lib
+    forward = model_lib.forward
+
+    def recording(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        seen["aux"] = tuple(float(a.detach()) for a in out[1])
+        return out
+
+    model_lib.forward = recording
+    try:
+        yield seen
+    finally:
+        model_lib.forward = forward
 
 
 def _lm_step_check(ops, cfg, batch, make_step, want):
@@ -2291,7 +2385,10 @@ def _lm_step_check(ops, cfg, batch, make_step, want):
     nothing; the loss and the gradients' global norm must agree within
     MODEL_TOL, and every leaf's largest gradient difference within
     LM_GRAD_TOL of that leaf's largest gradient. The optimizer is a probe
-    that keeps the gradients and moves no weight.
+    that keeps the gradients and moves no weight. Every other metric the
+    step returns (lm-rl: pg_loss, baseline_loss, entropy_loss), and an MoE
+    arch's router terms (load balance, z-loss, dropped fraction), are
+    recorded for both paths with their gaps, under no bar.
 
     An MoE arch's kernel run takes the plain run's routing
     (``pinned_routes``): a token whose top-k probabilities nearly tie may
@@ -2332,15 +2429,21 @@ def _lm_step_check(ops, cfg, batch, make_step, want):
         opt = optimizers.Optimizer(init=lambda p: {}, step=keep)
         icfg = dataclasses.replace(cfg, attn_impl=impl, ssd_impl=impl)
         ops.reset_stats()
+        seen = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with routing[path]():
+        with routing[path](), recorded_aux(seen):
             _, _, metrics = make_step(icfg, opt, vtrace)(params, {}, 0,
                                                          batch)
         torch.cuda.synchronize()
+        others = {k: float(v) for k, v in metrics.items() if k != "loss"}
+        if cfg.num_experts:
+            others.update(zip(("load_balance", "z_loss", "dropped_frac_sum"),
+                              seen["aux"]))
         runs[path] = dict(loss=float(metrics["loss"]),
                           grad_norm=float(optimizers.global_norm(
                               grads[path])),
+                          metrics=others,
                           ms=(time.perf_counter() - t0) * 1e3,
                           launches=ops.stats())
         del metrics
@@ -2387,6 +2490,8 @@ def _lm_step_check(ops, cfg, batch, make_step, want):
     return dict(dtype="float32", tol=MODEL_TOL, grad_tol=LM_GRAD_TOL,
                 kernel=k, plain=p, loss_diff=abs(k["loss"] - p["loss"]),
                 grad_norm_diff=abs(k["grad_norm"] - p["grad_norm"]),
+                metric_diffs={key: abs(v - p["metrics"][key])
+                              for key, v in k["metrics"].items()},
                 worst_leaf=worst, routing=routing_report)
 
 
@@ -2394,17 +2499,19 @@ def _arg(argv, flag):
     return argv[argv.index(flag) + 1]
 
 
-def router_probe(arch, tokens_of):
+def router_probe(cfg, tokens_of):
     """A ``_lm_main`` probe: the MoE router's load-balance and z-loss
     (summed over layers, as the learner's loss takes them) of the trained
-    weights on the run's last batch, through the plain attention path."""
+    weights on the run's last batch, through the plain attention path;
+    ``cfg``: the run's config (its depth cut too)."""
+    arch = cfg.name
+    cfg = dataclasses.replace(cfg, attn_impl="xla")
+
     def probe(params, batch):
         import torch
 
-        from repro_torch.configs import get_config
         from repro_torch.models import model as model_lib
 
-        cfg = dataclasses.replace(get_config(arch), attn_impl="xla")
         with torch.no_grad():
             _, aux, _ = model_lib.forward(params, tokens_of(batch), cfg=cfg)
         lb, zl, dropped = (float(a) for a in aux)
@@ -2413,6 +2520,14 @@ def router_probe(arch, tokens_of):
                                  f"{lb}, {zl}, {dropped}")
         return dict(load_balance=lb, z_loss=zl, dropped_frac_sum=dropped)
     return probe
+
+
+def run_config(argv):
+    """The config ``train.main(argv)`` builds its LM run from
+    (``train._lm_config``: published or reduced, impls folded in, and cut
+    in depth inside ``depth_cut``)."""
+    from repro_torch.launch import train
+    return train._lm_config(train._parser().parse_args(argv))
 
 
 def phase_lm_rl(ops, argv=LM_RL_ARGV, phase="lm_rl"):
@@ -2426,12 +2541,12 @@ def phase_lm_rl(ops, argv=LM_RL_ARGV, phase="lm_rl"):
     the V-trace kernel. Then the kernel-against-plain check of one float32
     step on the last batch that ``split_ms`` drew. An MoE arch also
     reports its router losses. Returns the main run's launches."""
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import TrainConfig
     from repro_torch.core import learner, sources
 
     arch = _arg(argv, "--arch")
-    cfg = get_config(arch)
-    probe = router_probe(arch, lambda b: b["obs"].T[:, :-1]) \
+    cfg = run_config(argv)
+    probe = router_probe(cfg, lambda b: b["obs"].T[:, :-1]) \
         if cfg.num_experts else None
     run, batch, steps = _lm_main(ops, argv, probe)
     t, b = int(_arg(argv, "--seq")), int(_arg(argv, "--batch"))
@@ -2447,8 +2562,8 @@ def phase_lm_rl(ops, argv=LM_RL_ARGV, phase="lm_rl"):
             cfg, opt, loss_cfg, loss_chunk=t, vtrace_impl=vtrace))
 
     check = _lm_step_check(ops, cfg, batch, make_step, learner_launches)
-    emit(phase, arch=arch, T=t, B=b, want_launches=want, check=check,
-         **run)
+    emit(phase, arch=arch, groups=cfg.num_groups, T=t, B=b,
+         want_launches=want, check=check, **run)
     if run["launches"] != want:
         raise AssertionError(f"{phase} launches {run['launches']}, want "
                              f"{want} ({layers} layers, {steps} steps)")
@@ -2465,12 +2580,10 @@ def phase_lm(ops, argv=LM_ARGV, phase="lm"):
     kernel-against-plain check of one float32 step on the last batch that
     ``split_ms`` drew, at the run's config. An MoE arch also reports its
     router losses. Returns the main run's launches."""
-    from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core import learner
 
-    arch = _arg(argv, "--arch")
-    cfg = (get_reduced_config if "--reduced" in argv else get_config)(arch)
-    probe = router_probe(arch, lambda b: b["tokens"][:, :-1]) \
+    cfg = run_config(argv)
+    probe = router_probe(cfg, lambda b: b["tokens"][:, :-1]) \
         if cfg.num_experts else None
     run, batch, steps = _lm_main(ops, argv, probe)
     launches = run["launches"]
@@ -2485,7 +2598,7 @@ def phase_lm(ops, argv=LM_ARGV, phase="lm"):
 
     check = (_lm_step_check(ops, cfg, batch, make_step, per_step)
              if any(per_step.values()) else None)
-    emit(phase, arch=cfg.name, seq=seq,
+    emit(phase, arch=cfg.name, groups=cfg.num_groups, seq=seq,
          tokens_per_step=run["frames"] // steps,
          tokens_per_s=run.pop("frames_per_s"), want_launches=want,
          check=check, **run)
@@ -3345,6 +3458,14 @@ def depth_cut(train, groups):
         yield
     finally:
         train.get_config = full
+
+
+def train_depth(groups):
+    """``depth_cut`` of ``train``'s configs to ``groups`` groups; nothing
+    where ``groups`` is None."""
+    from repro_torch.launch import train
+    return (contextlib.nullcontext() if groups is None
+            else depth_cut(train, groups))
 
 
 def _mp_rank(mesh, argv, f32_groups):
@@ -4946,7 +5067,8 @@ def phase_graph_vlm(ops):
 
 
 def phase_graph_source(ops):
-    """29 for Granite lm-rl generation at full width: GeneratorSource
+    """29 for Granite lm-rl generation at full width (GRAPH_SOURCE_GROUPS
+    of its groups): GeneratorSource
     (GLM_RL_ARGV's B 8, T 64) through the compiled session, two batches
     with an in-place SGD step of the weights between them, each against
     the same episodes generated eagerly (the source's prompts and seeds,
@@ -4962,7 +5084,8 @@ def phase_graph_source(ops):
     from repro_torch.models import model as model_lib
 
     b, t = 8, 64
-    cfg = dataclasses.replace(get_config(GRANITE), attn_impl="kernel")
+    cfg = dataclasses.replace(get_config(GRANITE), attn_impl="kernel",
+                              num_groups=GRAPH_SOURCE_GROUPS)
     params = model_lib.init(cfg, seed=0, device="cuda")
     source = GeneratorSource(cfg, batch_size=b, episode_length=t, seed=0)
     fns = gen_lib.session_fns(cfg)
@@ -5024,8 +5147,9 @@ def phase_graph_source(ops):
 
 def phase29(ops):
     """29: the compiled decode step at full width against eager."""
-    for arch, lens, cap in GRAPH_SESSIONS:
-        phase_graph_session(ops, arch, lens, cap, swap=arch == XLSTM)
+    for arch, lens, cap, groups in GRAPH_SESSIONS:
+        phase_graph_session(ops, arch, lens, cap, swap=arch == XLSTM,
+                            groups=groups)
     phase_graph_vlm(ops)
     phase_graph_source(ops)
 
@@ -5262,9 +5386,10 @@ def _pool_bytes(pool):
                if tuple(s["segment_pool_id"]) == tuple(pool))
 
 
-def phase_graph_admit(ops, arch, cap, lens):
+def phase_graph_admit(ops, arch, cap, lens, groups=None):
     """30c: admissions into a full-width 8-slot session (bf16 on float32
-    weights from seed 0, ``cap``-slot caches) through their CUDA graphs
+    weights from seed 0, ``groups`` of its groups where given, ``cap``-slot
+    caches) through their CUDA graphs
     against ``_SessionFns.admit``'s eager branch on a clone of the state:
     prefill_many of 4 prompts into slots 0-3 and of 4 into slots 4-7 (two
     prefill buckets, ``lens``), and prefill_into of one into slot 0, each
@@ -5281,8 +5406,9 @@ def phase_graph_admit(ops, arch, cap, lens):
     from repro_torch.core import generate as gen_lib
     from repro_torch.models import model as model_lib
 
-    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel",
-                              ssd_impl="kernel")
+    cfg = dataclasses.replace(
+        get_config(arch), attn_impl="kernel", ssd_impl="kernel",
+        num_groups=groups or get_config(arch).num_groups)
     params = model_lib.init(cfg, seed=0, device="cuda")
     sess = gen_lib.DecodeSession(params, cfg, max_batch=8, max_len=cap)
     fns = gen_lib.session_fns(cfg)
@@ -5370,8 +5496,9 @@ def phase30(ops):
                              + phase_graph_learner(ops, True)}}
     phase_graph_unroll(ops, "gridworld", deep=True)
     phase_graph_unroll(ops, "catch", deep=False)
-    for arch, cap, lens in GRAPH_ADMITS:
-        out[f"graph_admit_{arch}"] = phase_graph_admit(ops, arch, cap, lens)
+    for arch, cap, lens, groups in GRAPH_ADMITS:
+        out[f"graph_admit_{arch}"] = phase_graph_admit(ops, arch, cap, lens,
+                                                       groups)
     return out
 
 
@@ -5461,6 +5588,7 @@ def phase_graph_lm_learner(ops, argv, host):
     from repro_torch.launch import train
     from repro_torch.tree import leaves
 
+    t0 = time.perf_counter()
     args = train._parser().parse_args(
         list(argv) + ["--steps", str(GRAPH_LM_STEPS)])
     build = train.build_lm_rl if args.mode == "lm-rl" else train.build_lm
@@ -5478,7 +5606,9 @@ def phase_graph_lm_learner(ops, argv, host):
     source.stop()
     del source
     keep = "cpu" if host else "cuda"
+    built_s = time.perf_counter() - t0
     start = _kept(dict(params.named_parameters()), keep, pin=host)
+    kept_s = time.perf_counter() - t0 - built_s
     if any(bool(x.any()) for x in leaves(opt_state)):
         raise AssertionError(f"graph_lm {cfg.name}: AdamW state not zero")
     want = {**dict.fromkeys(ops.stats(), 0),
@@ -5568,6 +5698,8 @@ def phase_graph_lm_learner(ops, argv, host):
          peak_reserved={"eager": eager["peak_reserved"],
                         "graph": got["peak_reserved"]},
          loss=[float(m["loss"]) for m in got["metrics"]],
+         seconds=dict(build=built_s, keep_start=kept_s,
+                      total=time.perf_counter() - t0),
          note="ms: synchronised host clock a step; the graph run's steps "
               "are the warm call, the capture with its replay, a replay; "
               "allocated_at_start: the state and whatever copies of it "
@@ -5701,9 +5833,11 @@ def phase31(ops):
     """31: the compiled LM learner steps at full width (31a) and replay's
     value function (31c) against eager (31b runs on phase 7's run, 31d in
     phase 29's VLM group). Returns 31a's launches, a case each."""
-    out = {f"graph_lm_{_arg(argv, '--arch')}":
-           phase_graph_lm_learner(ops, argv, host)
-           for argv, host in GRAPH_LM_CASES}
+    out = {}
+    for argv, host, groups in GRAPH_LM_CASES:
+        with train_depth(groups):
+            out[f"graph_lm_{_arg(argv, '--arch')}"] = \
+                phase_graph_lm_learner(ops, argv, host)
     phase_graph_value(ops)
     return out
 
@@ -5734,6 +5868,49 @@ def phase32(ops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 33. slice 20: the four families trained
+
+
+def family_train_argv(arch, mode, batch, seq):
+    """A phase-33 run's ``train.main`` arguments: the kernel paths, 1
+    step."""
+    return ["--mode", mode, "--arch", arch, "--attn-impl", "kernel",
+            "--vtrace-impl", "kernel", "--batch", str(batch), "--seq",
+            str(seq), "--steps", "1"]
+
+
+def phase33(ops):
+    """33: each of FAMILY_TRAIN through ``train.main`` at every published
+    width, cut to its groups (``depth_cut``): --mode lm-rl at
+    LM_RL_SHAPE's B and T (``phase_lm_rl``) and --mode lm at its batch and
+    sequence (``phase_lm``), each with its float32 kernel-against-plain
+    step, then 31a's graph-against-eager check of the same arguments
+    (``phase_graph_lm_learner``, the built state in pinned host memory).
+    Returns the main runs' and the graph runs' launches, a run each."""
+    import torch
+
+    t, b = LM_RL_SHAPE
+    t0 = time.perf_counter()
+    emit("family_train_start", reserved=torch.cuda.memory_reserved(),
+         allocated=torch.cuda.memory_allocated())
+    launches = {}
+    for arch, rl_groups, lm_groups, batch, seq in FAMILY_TRAIN:
+        for mode, groups, run_batch, run_seq, phase in (
+                ("lm-rl", rl_groups, b, t, phase_lm_rl),
+                ("lm", lm_groups, batch, seq, phase_lm)):
+            argv = family_train_argv(arch, mode, run_batch, run_seq)
+            with train_depth(groups):
+                launches[f"family_{mode}_{arch}"] = phase(
+                    ops, argv, phase=f"family_{mode.replace('-', '_')}")
+                torch.cuda.empty_cache()
+                launches[f"graph_family_{mode}_{arch}"] = \
+                    phase_graph_lm_learner(ops, argv, True)
+    emit("family_train", runs=len(launches) // 2,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
 def phase3(ops, ref):
     """3: each kernel against its plain version. Returns the rows of K1,
     K2, K2 at a query offset, K3 and K4."""
@@ -5749,14 +5926,14 @@ def phase3(ops, ref):
 
 
 def main(argv=None):
-    """The whole smoke test; ``--phase N`` (3 or 32, repeatable) runs
+    """The whole smoke test; ``--phase N`` (3, 32 or 33, repeatable) runs
     phases 1, 2 and those alone and prints no result line."""
     import argparse
 
     import torch
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", action="append", choices=["3", "32"],
-                        default=[])
+    parser.add_argument("--phase", action="append",
+                        choices=["3", "32", "33"], default=[])
     alone = parser.parse_args(argv).phase
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5801,11 +5978,22 @@ def main(argv=None):
             phase3(ops, ref)
         if "32" in alone:
             phase32(ops)
+        if "33" in alone:
+            phase33(ops)
         print(smi, flush=True)
         return 0
 
     # 3. each kernel against its plain version
     rows, flash_rows, offset_rows, decode_rows, ssd_rows = phase3(ops, ref)
+
+    # 33. slice 20: the families of phase 32 trained through the entry
+    # point at every published width (lm-rl and lm, depth cut as
+    # FAMILY_TRAIN), each run's float32 kernel-against-plain step and its
+    # learner graph against eager. It runs here, before phase 4: its 50-58
+    # GB states and their graph pools need a card that no earlier phase
+    # has left memory on (after phase 32, 2.7 GB still allocated and 8.4
+    # reserved, Gemma2's lm-rl graph capture ran out of memory)
+    slice20 = phase33(ops)
 
     # 4. full-width learner, then on replay's mixed batches (4b)
     phase_learner(ops)
@@ -5880,7 +6068,8 @@ def main(argv=None):
     # a profile of its decode step
     serve_launches = phase_serve(ops, SERVE_ARGV)
     torch.cuda.empty_cache()
-    phase_profile("qwen3-4b", [256 + 32 * slot for slot in range(8)], 576)
+    phase_profile("qwen3-4b", [256 + 32 * slot for slot in range(8)], 576,
+                  PROFILE_GROUPS["qwen3-4b"])
 
     # 11. full-width Zamba2-2.7B: kernel path against the plain path
     phase_model(ops, "zamba2-2.7b", 512)
@@ -5890,7 +6079,7 @@ def main(argv=None):
     zamba_launches = phase_serve(ops, ZAMBA_SERVE_ARGV)
     torch.cuda.empty_cache()
     phase_profile("zamba2-2.7b", [32 * (slot + 1) for slot in range(8)],
-                  320)
+                  320, PROFILE_GROUPS["zamba2-2.7b"])
 
     # 13. gradients on the card: the kernel paths against the plain paths
     phase_grad(ops)
@@ -5925,7 +6114,8 @@ def main(argv=None):
     phase_xlstm(ops)
     phase_serve(ops, XSERVE_ARGV, phase="xserve")
     torch.cuda.empty_cache()
-    phase_profile(XLSTM, [8 * (slot + 1) for slot in range(8)], 128)
+    phase_profile(XLSTM, [8 * (slot + 1) for slot in range(8)], 128,
+                  PROFILE_GROUPS[XLSTM])
     xlm_rl_launches = phase_lm_rl(ops, XLM_RL_ARGV, phase="xlm_rl")
     phase_lm(ops, XLM_ARGV, phase="xlm")
 
@@ -6089,6 +6279,8 @@ def main(argv=None):
             if k["name"] in launches}
         k["slice19_launches"] = {
             phase: launches[k["name"]] for phase, launches in slice19.items()}
+        k["slice20_launches"] = {
+            phase: launches[k["name"]] for phase, launches in slice20.items()}
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     row = offset_rows[(FLASH_OFFSET_SHAPES[0], "bfloat16")]
     flash.update(offset_shape=list(FLASH_OFFSET_SHAPES[0]),

@@ -23,7 +23,8 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("vocab,length,seed,branching", [
-    (512, 5000, 1, 4), (37, 777, 5, 2), (32000, 3000, 0, 4)])
+    (512, 5000, 1, 4), (37, 777, 5, 2), (32000, 3000, 0, 4),
+    (256000, 20000, 1, 4)])
 def test_markov_corpus_bitwise(vocab, length, seed, branching):
     got = tsyn.markov_corpus(vocab, length, seed=seed, branching=branching)
     want = jsyn.markov_corpus(vocab, length, seed=seed, branching=branching)

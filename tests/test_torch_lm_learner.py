@@ -86,8 +86,11 @@ STEP_ATOL = LR / 2
 CARRIED_TOL = dict(rtol=5e-4, atol=5e-4)
 
 
-def _setup(arch, dtype, attn, ssd="xla"):
-    over = dict(dtype=dtype, attn_impl=attn, ssd_impl=ssd, remat=True)
+def _setup(arch, dtype, attn, ssd="xla", config=None):
+    """``config``: further overrides of the reduced config, applied to
+    both packages alike."""
+    over = dict(dtype=dtype, attn_impl=attn, ssd_impl=ssd, remat=True,
+                **(config or {}))
     jcfg = dataclasses.replace(jconfigs.get_reduced_config(arch), **over)
     tcfg = dataclasses.replace(tconfigs.get_reduced_config(arch), **over)
     jparams, _ = jmodel.init(jax.random.PRNGKey(0), jcfg)
@@ -143,14 +146,32 @@ def _resync(tparams, jparams):
                                 strict=True)
 
 
-def _lm_rl_steps(arch, dtype, attn, vtrace, resync=False, later_tol=None):
-    t, b = 16, 4
-    jcfg, tcfg, jparams, tparams = _setup(arch, dtype, attn)
+def _compiled(jitted, **compiler_options):
+    """``jitted``, compiled at its first call's arguments with XLA's
+    ``compiler_options``; later calls take arguments of the same shapes."""
+    cache = []
+
+    def call(*args):
+        if not cache:
+            cache.append(jitted.lower(*args).compile(
+                compiler_options=compiler_options))
+        return cache[0](*args)
+    return call
+
+
+def _lm_rl_steps(arch, dtype, attn, vtrace, resync=False, later_tol=None,
+                 t=16, b=4, config=None, excess_precision=True):
+    """``excess_precision=False``: compile the reference's step with XLA's
+    ``xla_allow_excess_precision`` off, so that every operation rounds to
+    its output type, as the port's do, also inside a fusion."""
+    jcfg, tcfg, jparams, tparams = _setup(arch, dtype, attn, config=config)
     jtc, ttc = JTrainConfig(**RL_TRAIN), TTrainConfig(**RL_TRAIN)
     jopt, topt = jmake_optimizer(jtc), tmake_optimizer(ttc)
     jstep = jax.jit(jsources.lm_rl_step_from_rollout(
         jlearner.make_lm_train_step(jcfg, jopt, jtc, loss_chunk=8,
                                     vtrace_impl=vtrace)))
+    if not excess_precision:
+        jstep = _compiled(jstep, xla_allow_excess_precision=False)
     tstep = tsources.lm_rl_step_from_rollout(
         tlearner.make_lm_train_step(tcfg, topt, ttc, loss_chunk=8,
                                     vtrace_impl=vtrace))
@@ -204,9 +225,9 @@ def test_xlstm_lm_rl_carried_steps_match_jax():
                  later_tol=CARRIED_TOL)
 
 
-def _pretrain_steps(arch, dtype, impl):
-    b, s = 2, 32
-    jcfg, tcfg, jparams, tparams = _setup(arch, dtype, impl, impl)
+def _pretrain_steps(arch, dtype, impl, b=2, s=32, config=None):
+    jcfg, tcfg, jparams, tparams = _setup(arch, dtype, impl, impl,
+                                          config=config)
     jtc, ttc = JTrainConfig(**LM_TRAIN), TTrainConfig(**LM_TRAIN)
     jopt, topt = jmake_optimizer(jtc), tmake_optimizer(ttc)
     jstep = jax.jit(jlearner.make_lm_pretrain_step(jcfg, jopt,
