@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 32      # phases 1, 2 and 32 alone
     python3 chip_smoke.py --phase 33      # phases 1, 2 and 33 alone
+    python3 chip_smoke.py --phase 34      # phases 1, 2 and 34 alone
 
 
 Phases, each printing JSON lines; any failed check raises and the script
@@ -189,7 +190,7 @@ exits nonzero without printing a result:
               refuses two ranks on one device; the times are checks of
               the collectives, not speed figures): 26a Zamba2-2.7B --mode
               lm and 26b Granite-3.0-1B-A400M --mode lm-rl at full width,
-              depth cut to MP_GROUPS (2 of 9 and 4 of 24 groups),
+              depth cut to MP_GROUPS (1 of 9 and 2 of 24 groups),
               through the entry point's builders and Runtime, each rank's
               losses, step ms, model-group all-reduces and peak memory,
               K1-K4 launches exact a rank (the unmeshed run's counts),
@@ -245,8 +246,8 @@ exits nonzero without printing a result:
               width against eager steps from the same state, every
               product bitwise (logits, baseline, each cache leaf, token,
               log-prob, entropy, the step's baseline): the Qwen3-4B (9
-              of 36 groups), Zamba2-2.7B (3 of 9), Granite and
-              xLSTM-125M 8-slot sessions in
+              of 36 groups), Zamba2-2.7B (3 of 9), Granite (12 of 24)
+              and xLSTM-125M 8-slot sessions in
               bf16 (GRAPH_SESSIONS; one capture, K3 a replay equal to an
               eager step's, an in-place SGD step of the weights read by
               the next replay with no new capture; xLSTM also another
@@ -301,10 +302,10 @@ exits nonzero without printing a result:
               groups, B 1, 4,608 tokens (9 MoE groups of 512), no token
               routed to another expert set; DeepSeek-Coder-33B on 8 of
               62 groups (56 query heads over 8), B 4 x 512; MusicGen-Large
-              whole (48 layers), B 4 x 512; 32b each served in bf16
-              (phase 10's checks; MusicGen-Large through serve.main, 24
-              requests, the others at 32a's depth through serve.run, 12
-              requests; prompts of up to 512 tokens, 64 generated, 8
+              on 24 of 48 layers, B 4 x 512; 32b each served in bf16
+              (phase 10's checks; at 32a's depth through serve.run,
+              MusicGen-Large 24 requests, the others 12; prompts of up
+              to 512 tokens, 64 generated, 8
               slots) and its compiled decode step held bitwise against
               eager (phase 29's check, one capture)
  33. family_train  slice 20, the same four families trained at every
@@ -312,7 +313,7 @@ exits nonzero without printing a result:
               by depth_cut: Gemma2-27B and Mixtral-8x7B lm-rl at 2
               groups, where weights, gradients and AdamW moments come near
               Qwen3-4B's 64 GB, their lm at 1, DeepSeek-Coder-33B at 3 of
-              62, MusicGen-Large at 24 of 48): --mode lm-rl (B 8, T 64;
+              62, MusicGen-Large at 12 of 48): --mode lm-rl (B 8, T 64;
               K3 generation, K2 prefill and learner, K1) and --mode lm
               (Gemma2-27B and Mixtral-8x7B B 1 x 5,120 tokens, past their
               4,096-token windows; DeepSeek-Coder-33B and MusicGen-Large
@@ -324,6 +325,22 @@ exits nonzero without printing a result:
               same run (graph against eager, 3 steps, one capture); run
               right after phase 3, on a card no other phase has left
               memory on
+ 34. examples  slice 21, the repository's five examples on the port
+              (src/repro_torch/examples), each through its main, its
+              launches exact: 34a quickstart (3 host-actor steps, then
+              Catch to "SOLVED"; K1 3 + 1,500); 34b the V-trace ablation
+              at one seed (700 steps, lag 40; K1 2,800), then the
+              uncorrected arm's log rho exactly 0, its user-written step
+              captured by compiled.TrainStep bitwise eager, and the lagged
+              actors' copy refreshed only every 3rd step under the unroll
+              graph; 34c the gridworld (300 steps, its fps), its unroll
+              and learner step one graph (compiled.UnrollTrainStep)
+              bitwise eager; 34d lm_rl_100m at its default width (d 640,
+              16 layers) with vocab 256, 100 steps (the reward curve; K1
+              100, K2 3,200, K3 49,600), one learner graph step bitwise
+              eager, generation and learner ms; 34e serve_batched (its
+              DeprecationWarning, the reduced Qwen3-4B server, K2/K3
+              exact)
  14. kernels  one {"kernels": [...]} line (K1's lm_rl_* fields: its (64, 8)
               row; lm_rl_launches / lm_launches: phases 15 and 16; dp_*:
               phase 17's launches; recurrent_*: phase 18's; granite_*:
@@ -332,7 +349,8 @@ exits nonzero without printing a result:
               slice14_launches / slice15_launches: phase 27's and 28's
               runs, a rank each; slice17_launches / slice18_launches /
               slice19_launches / slice20_launches: phases 30, 31a, 32b
-              and 33; K2's offset_*: phase 3's offset row),
+              and 33; slice21_launches: phase 34, an example each; K2's
+              offset_*: phase 3's offset row),
               then
               the card's name and power limit, then the final
               {"ok": true, "device": {...}} line
@@ -576,7 +594,7 @@ MP_F32_GROUPS = {"zamba2-2.7b": 1, GRANITE: 2}
 # the depth of 26a, 26b and 27a's runs (full width, depth cut from the
 # published 9, 24 and 6 groups for the script's time): a rank's gloo
 # collectives grow with the layers, and the checks hold per layer
-MP_GROUPS = {"zamba2-2.7b": 2, GRANITE: 4, XLSTM: 1}
+MP_GROUPS = {"zamba2-2.7b": 1, GRANITE: 2, XLSTM: 1}
 MP22_STEPS = 2
 MP_TOL = 1e-5
 MP_CKPT_ARGV = ["--mode", "lm", "--arch", "qwen3-4b", "--reduced",
@@ -667,12 +685,12 @@ DRYRUN_ARGV = ["--arch", XLSTM, "--shape", "decode_32k", "--ranks", "1"]
 # capture) and GRAPH_AFTER_STEPS after an in-place weight update, held
 # bitwise; GRAPH_TIMED_STEPS steps a turn for the eager and graph times,
 # GRAPH_PROFILED under the profiler
-# Qwen3-4B's session at 9 of its 36 groups and Zamba2-2.7B's at 3 of 9
-# (the last item; None: all), for the script's time
+# Qwen3-4B's session at 9 of its 36 groups, Zamba2-2.7B's at 3 of 9 and
+# Granite's at 12 of 24 (the last item; None: all), for the script's time
 GRAPH_SESSIONS = (
     ("qwen3-4b", [256 + 32 * slot for slot in range(8)], 576, 9),
     ("zamba2-2.7b", [32 * (slot + 1) for slot in range(8)], 320, 3),
-    (GRANITE, [8 * (slot + 1) for slot in range(8)], 128, None),
+    (GRANITE, [8 * (slot + 1) for slot in range(8)], 128, 12),
     (XLSTM, [8 * (slot + 1) for slot in range(8)], 128, None))
 GRAPH_CHECK_STEPS, GRAPH_AFTER_STEPS = 6, 2
 GRAPH_TIMED_STEPS, GRAPH_PROFILED = 10, 5
@@ -727,13 +745,13 @@ GRAPH_LM_CASES = ((LM_RL_ARGV, True, 9), (LM_ARGV, True, 3),
 # Mixtral-8x7B's 4,608 pass their 4,096-token window, so the rings wrap in
 # the prefill; Mixtral's MoE routes groups of 512 tokens
 # (moe.MOE_GROUP_SIZE), so its prompt is 9 of them. 32b serves each:
-# MusicGen-Large whole through serve.main, the others at the same depth
-# through serve.run (no depth flag); then each one's compiled decode step
-# against eager
+# each at the same depth through serve.run (no depth flag; MusicGen-Large
+# at 24 of its 48 layers, for the script's time); then each one's compiled
+# decode step against eager
 FAMILY_MODELS = (("gemma2-27b", 4, 1, 4160, 12),
                  ("mixtral-8x7b", 4, 1, 4608, 12),
                  ("deepseek-coder-33b", 8, 4, 512, 12),
-                 ("musicgen-large", None, 4, 512, 24))
+                 ("musicgen-large", 24, 4, 512, 24))
 FAMILY_SERVE = ("--attn-impl", "kernel", "--prompt-len", "512",
                 "--gen-tokens", "64", "--max-batch", "8")
 FAMILY_SESSION = ([256 + 32 * slot for slot in range(8)], 576)
@@ -748,7 +766,7 @@ FAMILY_SESSION = ([256 + 32 * slot for slot in range(8)], 576)
 # layer's q and k get no gradient but rounding (its float32 check's leaf
 # bar, relative to the leaf, failed on it). The other runs are cut
 # further for the script's time: Gemma2's and Mixtral's lm to 1 group,
-# DeepSeek to 3 of 62, MusicGen to 24 of 48 layers. Gemma2's and
+# DeepSeek to 3 of 62, MusicGen to 12 of 48 layers. Gemma2's and
 # Mixtral's lm sequences pass their 4,096-token window: 5,120 is the
 # least length past it that both packages take, a multiple of the chunked
 # loss's 512 and of the attn_chunk (1,024) that K2's backward recomputes
@@ -756,7 +774,23 @@ FAMILY_SESSION = ([256 + 32 * slot for slot in range(8)], 576)
 FAMILY_TRAIN = (("gemma2-27b", 2, 1, 1, 5120),
                 ("mixtral-8x7b", 2, 1, 1, 5120),
                 ("deepseek-coder-33b", 3, 3, 4, 512),
-                ("musicgen-large", 24, 24, 4, 512))
+                ("musicgen-large", 12, 12, 4, 512))
+# phase 34: the repository's examples on the port (repro_torch.examples),
+# each through its main as a user runs it, the reference's defaults but
+# where named here: the V-trace ablation at one seed (700 steps, lag 40),
+# the gridworld for 300 steps, lm_rl_100m at its default width (d 640, 16
+# layers) with vocab 256 for 100 steps, serve_batched on the reduced
+# Qwen3-4B (it adds --reduced) with the kernel attention; then
+# EXAMPLE_GRAPH_STEPS steps of each graph the examples capture beyond
+# phases 30 and 31 (the fused gridworld step, the user-written uncorrected
+# step, one lm_rl_100m learner step) against eager from one state, and the
+# lagged actors' refresh at a lag of EXAMPLE_LAG
+ABLATION_ARGV = ["--seeds", "1"]
+GRIDWORLD_ARGV = ["--steps", "300"]
+LM_RL_100M_ARGV = ["--vocab", "256", "--steps", "100"]
+SERVE_BATCHED_ARGV = ["--arch", "qwen3-4b", "--attn-impl", "kernel",
+                      "--requests", "24"]
+EXAMPLE_GRAPH_STEPS, EXAMPLE_LAG = 3, 3
 
 
 def emit(phase, **fields):
@@ -5911,6 +5945,372 @@ def phase33(ops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 34. slice 21: the repository's examples on the port
+
+
+def _example(ops, main, argv):
+    """``main(argv)`` of one example with its printed lines captured and
+    echoed. Returns what it returned, its lines, its kernel launches (the
+    counts set to 0 just before it), and its synchronised host seconds
+    and peak memory."""
+    import torch
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.stats()
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        print("  " + line, flush=True)
+    return out, lines, launches, dict(
+        seconds=seconds, peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def _launches(**counts):
+    """A run's expected launches: ``counts``, every other kernel 0."""
+    return {"vtrace": 0, "flash_attention": 0, "decode_attention": 0,
+            "ssd_chunk": 0, **counts}
+
+
+def _exact(phase, launches, want):
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, want {want}")
+
+
+def phase_example_quickstart(ops):
+    """34a: ``quickstart.main([])``: 3 host-actor steps, then Catch on the
+    device actors to a solve (K1 once a step, 3 + 1,500); its final line
+    must say SOLVED."""
+    from repro_torch.examples import quickstart
+    args = quickstart._parser().parse_args([])
+    out, lines, launches, cost = _example(ops, quickstart.main, [])
+    want = _launches(vtrace=3 + args.steps)
+    emit("example_quickstart", final_reward_per_step=out["reward_per_step"],
+         done_line=lines[-1], host_seconds=out["host_seconds"],
+         device_seconds=out["device_seconds"],
+         device_ms_per_step=out["device_seconds"] / args.steps * 1e3,
+         fps_line=[ln for ln in lines if ln.startswith("step")][-1],
+         launches=launches, want_launches=want, **cost)
+    if not (math.isfinite(out["reward_per_step"]) and out["solved"]
+            and lines[-1].endswith("(SOLVED)")):
+        raise AssertionError(f"quickstart: {lines[-1]}")
+    _exact("example_quickstart", launches, want)
+    return launches
+
+
+def _lagged_actor(ablation, args):
+    """The ablation's corrected arm at a lag of EXAMPLE_LAG on the card
+    (the unroll a CUDA graph reading the actors' copy by address): at
+    each of 2 x lag + 1 steps the copy holds the learner's weights of the
+    last sync, bitwise, and the rollout's first behaviour logits are that
+    copy's forward, bitwise; between syncs the learner's own forward
+    differs from them."""
+    import copy
+
+    import torch
+    source, step_fn, agent, opt = ablation.build(True, EXAMPLE_LAG,
+                                                 args.steps, lr=args.lr)
+    opt_state = opt.init(list(agent.parameters()))
+    actor_gaps, logit_gaps, differs = [], [], []
+    for step in range(2 * EXAMPLE_LAG + 1):
+        if step % EXAMPLE_LAG == 0:
+            synced = copy.deepcopy(agent)
+        batch = source.next_batch(agent)
+        actor_gaps.append(max(
+            _gap(a, b) for a, b in zip(source._actor.state_dict().values(),
+                                       synced.state_dict().values())))
+        with torch.no_grad():
+            first = synced(batch["obs"][0]).policy_logits
+            now = agent(batch["obs"][0]).policy_logits
+        logit_gaps.append(_gap(batch["behavior_logits"][0], first))
+        if step % EXAMPLE_LAG:
+            differs.append(not torch.equal(now, first))
+        agent, opt_state, _ = step_fn(agent, opt_state, step, batch)
+    return {"lag": EXAMPLE_LAG, "steps": 2 * EXAMPLE_LAG + 1,
+            "actor_gaps": actor_gaps, "logit_gaps": logit_gaps,
+            "learner_differs_between_syncs": differs,
+            "unroll_captures": source.captures}
+
+
+def phase_example_ablation(ops):
+    """34b: ``vtrace_ablation.main(ABLATION_ARGV)``: the four arms (K1
+    once a step, 4 x 700), each one's mean final reward and ms a step;
+    then, cuDNN pinned deterministic, the uncorrected arm's log rho
+    exactly 0 on one batch, its captured step (``compiled.TrainStep`` over
+    the user-written step) against that step run eagerly from one state
+    for EXAMPLE_GRAPH_STEPS steps (every metric, parameter and RMSProp
+    leaf bitwise, one capture, K1 once a step), and the lagged actors
+    (``_lagged_actor``)."""
+    import copy
+
+    import torch
+
+    from repro_torch.examples import vtrace_ablation as ablation
+    args = ablation._parser().parse_args(ABLATION_ARGV)
+    rows, lines, launches, cost = _example(ops, ablation.main, ABLATION_ARGV)
+    want = _launches(vtrace=4 * args.steps * args.seeds)
+    arms = [dict(arm=r["arm"], lag=r["lag"], rewards=r["rewards"],
+                 ms_per_step=r["seconds"] / (args.steps * args.seeds) * 1e3)
+            for r in rows]
+    with cudnn_deterministic():
+        source, graph, agent, opt = ablation.build(False, args.lag,
+                                                   args.steps, lr=args.lr)
+        batches = [source.next_batch(agent)
+                   for _ in range(EXAMPLE_GRAPH_STEPS)]
+        seen = ablation.uncorrected(lambda p, o, s, b: b)(agent, None, 0,
+                                                          batches[0])
+        log_rho = ablation.log_rhos(agent, seen)
+        rho_exact = bool(torch.equal(log_rho, torch.zeros_like(log_rho)))
+        eager = copy.deepcopy(agent)
+        states = {"graph": opt.init(list(agent.parameters())),
+                  "eager": opt.init(list(eager.parameters()))}
+        gaps, k1 = {}, []
+        for step, batch in enumerate(batches):
+            before = ops.stats()["vtrace"]
+            _, _, got = graph(agent, states["graph"], step, batch)
+            k1.append(ops.stats()["vtrace"] - before)
+            _, _, plain = graph.step_fn(eager, states["eager"], step, batch)
+            _note_tree(gaps, "metrics/", got, plain)
+            _note_tree(gaps, "params/", dict(agent.named_parameters()),
+                       dict(eager.named_parameters()))
+            _note_tree(gaps, "opt_state/", states["graph"], states["eager"])
+        lagged = _lagged_actor(ablation, args)
+    emit("example_ablation", argv=ABLATION_ARGV, steps=args.steps,
+         lag=args.lag, arms=arms, csv=lines, launches=launches,
+         want_launches=want, uncorrected_log_rho_max=float(
+             log_rho.abs().max()), uncorrected_log_rho_exact=rho_exact,
+         graph_steps=EXAMPLE_GRAPH_STEPS, products=len(gaps),
+         gaps={k: v for k, v in gaps.items() if v},
+         captures=graph.captures, graph_vtrace_launches=k1,
+         lagged_actor=lagged, **cost)
+    if not all(math.isfinite(r) for a in arms for r in a["rewards"]):
+        raise AssertionError(f"example_ablation: rewards {arms}")
+    _exact("example_ablation", launches, want)
+    _check_bitwise("example_ablation uncorrected step", gaps)
+    if not rho_exact or graph.captures != 1 \
+            or k1 != [1] * EXAMPLE_GRAPH_STEPS:
+        raise AssertionError(f"example_ablation: log rho exact {rho_exact}, "
+                             f"captures {graph.captures}, K1 {k1}")
+    if any(lagged["actor_gaps"]) or any(lagged["logit_gaps"]) \
+            or not all(lagged["learner_differs_between_syncs"]):
+        raise AssertionError(f"example_ablation: lagged actors {lagged}")
+    return launches
+
+
+def phase_example_gridworld(ops):
+    """34c: ``minatar_gridworld.main(GRIDWORLD_ARGV)``: the fused unroll and
+    learner step (``compiled.UnrollTrainStep``, one capture; K1 once a
+    step), the reference's fps lines; then, cuDNN pinned deterministic,
+    the fused graph against the plain unroll-then-step from one state
+    (``build`` twice from the seeds) for EXAMPLE_GRAPH_STEPS steps: every
+    metric, parameter, RMSProp leaf, the env carry and the generator's
+    state bitwise, one capture, K1 once a step; then ms a step, eager and
+    graph in turns."""
+    import torch
+
+    from repro_torch.examples import minatar_gridworld as gridworld
+    steps = int(_arg(GRIDWORLD_ARGV, "--steps"))
+    out, lines, launches, cost = _example(ops, gridworld.main,
+                                          GRIDWORLD_ARGV)
+    want = _launches(vtrace=steps)
+    with cudnn_deterministic():
+        graph, agent, state, _ = gridworld.build(steps)
+        plain, eager, estate, _ = gridworld.build(steps)
+        gaps, k1 = {}, []
+        for step in range(EXAMPLE_GRAPH_STEPS):
+            before = ops.stats()["vtrace"]
+            _, _, got = graph(agent, state, step)
+            k1.append(ops.stats()["vtrace"] - before)
+            _, _, want_m = plain.step(eager, estate, step)
+            _note_tree(gaps, "metrics/", got, want_m)
+            _note_tree(gaps, "params/", dict(agent.named_parameters()),
+                       dict(eager.named_parameters()))
+            _note_tree(gaps, "opt_state/", state, estate)
+            _note_tree(gaps, "carry/", graph.unroll.carry,
+                       plain.unroll.carry)
+            _note_tree(gaps, "generator/",
+                       graph.unroll.generator.get_state(),
+                       plain.unroll.generator.get_state())
+        ms = _alternated_ms({
+            "eager": lambda: plain.step(eager, estate, steps),
+            "graph": lambda: graph(agent, state, steps)}, GRAPH_TIMED)
+    last = out["lines"][-1]
+    emit("example_gridworld", argv=GRIDWORLD_ARGV, fps=last["fps"],
+         final_reward_per_step=last["reward_per_step"], printed=out["lines"],
+         ms_per_step=out["seconds"] / steps * 1e3, captures=out["captures"],
+         launches=launches, want_launches=want,
+         graph_steps=EXAMPLE_GRAPH_STEPS, products=len(gaps),
+         gaps={k: v for k, v in gaps.items() if v},
+         check_captures=graph.captures, graph_vtrace_launches=k1,
+         eager_ms_per_step=ms["eager"], graph_ms_per_step=ms["graph"],
+         **cost)
+    if not all(math.isfinite(ln["reward_per_step"]) for ln in out["lines"]):
+        raise AssertionError(f"example_gridworld: {out['lines']}")
+    _exact("example_gridworld", launches, want)
+    _check_bitwise("example_gridworld fused step", gaps)
+    if out["captures"] != 1 or graph.captures != 1 \
+            or k1 != [1] * EXAMPLE_GRAPH_STEPS:
+        raise AssertionError(f"example_gridworld: captures {out['captures']}"
+                             f", {graph.captures}, K1 {k1}")
+    del graph, plain, agent, eager, state, estate
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_example_lm_rl(ops):
+    """34d: ``lm_rl_100m.main(LM_RL_100M_ARGV)`` at its default width
+    (94,723,328 parameters at vocab 512; d 640, 16 layers) with vocab 256,
+    100 steps of B 32 episodes of 32 tokens: every step's reward (the
+    curve), K1 once a step, K2 once a layer in each step's prefill and its
+    learner forward (no remat), K3 once a layer a decode step (31 a step);
+    then from a fresh build (weights from seed 0, twice), one generated
+    batch rotated along the batch for each of EXAMPLE_GRAPH_STEPS steps:
+    the learner's graph against its plain step, every metric, parameter
+    and AdamW leaf bitwise, one capture, K1 1 and K2 one a layer a step;
+    generation and learner ms a step (synchronised medians)."""
+    import statistics as stats
+
+    import torch
+
+    from repro_torch.core import generate as gen_lib
+    from repro_torch.examples import lm_rl_100m
+    from repro_torch.models import model as model_lib
+    args = lm_rl_100m._parser().parse_args(LM_RL_100M_ARGV)
+    out, lines, launches, cost = _example(ops, lm_rl_100m.main,
+                                          LM_RL_100M_ARGV)
+    layers, decode_steps = args.layers, args.ep_len - 1
+    want = _launches(vtrace=args.steps,
+                     flash_attention=2 * layers * args.steps,
+                     decode_attention=decode_steps * layers * args.steps)
+    rewards = out["rewards"]
+    reached = next((i for i, r in enumerate(rewards) if r >= 0.5), None)
+
+    cfg, _, params, opt, state, graph = lm_rl_100m.build(args)
+    eager = model_lib.init(cfg, seed=0, device="cuda")
+    estate = opt.init(list(eager.parameters()))
+    start_gaps = {}
+    _note_tree(start_gaps, "", dict(params.named_parameters()),
+               dict(eager.named_parameters()))
+    gen = torch.Generator().manual_seed(7)
+    prompt, seed = lm_rl_100m.draw(gen, args, cfg.vocab_size)
+
+    def generate():
+        return gen_lib.generate(params, prompt, seed, cfg=cfg,
+                                num_steps=args.ep_len)
+
+    def timed(fn, reps):
+        times, res = [], None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return res, times
+
+    before = ops.stats()
+    ep, gen_ms = timed(generate, 5)
+    gen_launches = {k: (v - before[k]) // 5 for k, v in ops.stats().items()}
+    first = lm_rl_100m.episode_batch(ep, cfg.vocab_size)
+    batches = [{k: v.roll(i, dims=0) for k, v in first.items()}
+               for i in range(EXAMPLE_GRAPH_STEPS)]
+    gaps, step_launches, ms = {}, [], {"graph": [], "eager": []}
+    for step, batch in enumerate(batches):
+        before = ops.stats()
+        (_, _, got), t = timed(lambda: graph(params, state, step, batch), 1)
+        step_launches.append({k: v - before[k]
+                              for k, v in ops.stats().items()})
+        ms["graph"] += t
+        (_, _, plain), t = timed(
+            lambda: graph.step_fn(eager, estate, step, batch), 1)
+        ms["eager"] += t
+        _note_tree(gaps, f"metrics/{step}/", got, plain)
+    _note_tree(gaps, "params/", dict(params.named_parameters()),
+               dict(eager.named_parameters()))
+    _note_tree(gaps, "opt_state/", state, estate)
+    step_want = _launches(vtrace=1, flash_attention=layers)
+    emit("example_lm_rl_100m", argv=LM_RL_100M_ARGV, params=out["params"],
+         d_model=args.d_model, layers=layers, vocab=args.vocab,
+         batch=args.batch, ep_len=args.ep_len, steps=args.steps,
+         run_seconds=out["seconds"],
+         ms_per_step=out["seconds"] / args.steps * 1e3,
+         tok_s=args.steps * args.batch * args.ep_len / out["seconds"],
+         rewards=rewards, first_step_at_0_5=reached, printed=out["lines"],
+         launches=launches, want_launches=want,
+         generation_ms=stats.median(gen_ms[2:]), generation_ms_all=gen_ms,
+         generation_launches=gen_launches,
+         learner_graph_ms=ms["graph"][-1],
+         learner_eager_ms=stats.median(ms["eager"][1:]), learner_ms=ms,
+         graph_steps=EXAMPLE_GRAPH_STEPS, products=len(gaps),
+         start_gaps=max(start_gaps.values()),
+         gaps={k: v for k, v in gaps.items() if v}, captures=graph.captures,
+         graph_step_launches=step_launches, **cost)
+    if not all(math.isfinite(r) for r in rewards) \
+            or len(rewards) != args.steps:
+        raise AssertionError(f"example_lm_rl_100m: rewards {rewards}")
+    _exact("example_lm_rl_100m", launches, want)
+    _check_bitwise("example_lm_rl_100m start", start_gaps)
+    _check_bitwise("example_lm_rl_100m learner step", gaps)
+    if graph.captures != 1 or any(s != step_want for s in step_launches):
+        raise AssertionError(f"example_lm_rl_100m: captures "
+                             f"{graph.captures}, step launches "
+                             f"{step_launches}, want {step_want}")
+    del params, eager, state, estate, graph, batches, first, ep
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_example_serve(ops):
+    """34e: ``serve_batched.main(SERVE_BATCHED_ARGV)``: its
+    DeprecationWarning, then the reduced server it forwards to: every
+    request served and echoed, K2 once an attention layer an admission
+    and K3 once a decode step."""
+    import warnings
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.examples import serve_batched
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        summary, lines, launches, cost = _example(
+            ops, serve_batched.main, SERVE_BATCHED_ARGV)
+    deprecated = any(issubclass(w.category, DeprecationWarning)
+                     for w in caught)
+    attn, mamba = kernel_layers(get_reduced_config(
+        _arg(SERVE_BATCHED_ARGV, "--arch")))
+    want = _launches(flash_attention=attn * summary["admissions"],
+                     ssd_chunk=mamba * summary["admissions"],
+                     decode_attention=attn * summary["steps"])
+    emit("example_serve_batched", argv=SERVE_BATCHED_ARGV,
+         deprecation_warned=deprecated, launches=launches,
+         want_launches=want, peak_mem_bytes=cost["peak_mem_bytes"],
+         **summary)
+    if not deprecated or summary["served"] != summary["requests"] \
+            or not summary["prompt_echo_ok"] or not summary["steps"]:
+        raise AssertionError(f"example_serve_batched: warned {deprecated}, "
+                             f"{summary}")
+    _exact("example_serve_batched", launches, want)
+    return launches
+
+
+def phase34(ops):
+    """34: the five examples on the card (34a-34e). Returns each one's
+    launches."""
+    t0 = time.perf_counter()
+    out = {"example_quickstart": phase_example_quickstart(ops),
+           "example_ablation": phase_example_ablation(ops),
+           "example_gridworld": phase_example_gridworld(ops),
+           "example_lm_rl_100m": phase_example_lm_rl(ops),
+           "example_serve_batched": phase_example_serve(ops)}
+    emit("examples", seconds=time.perf_counter() - t0)
+    return out
+
+
 def phase3(ops, ref):
     """3: each kernel against its plain version. Returns the rows of K1,
     K2, K2 at a query offset, K3 and K4."""
@@ -5926,14 +6326,14 @@ def phase3(ops, ref):
 
 
 def main(argv=None):
-    """The whole smoke test; ``--phase N`` (3, 32 or 33, repeatable) runs
+    """The whole smoke test; ``--phase N`` (3, 32, 33 or 34, repeatable) runs
     phases 1, 2 and those alone and prints no result line."""
     import argparse
 
     import torch
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", action="append",
-                        choices=["3", "32", "33"], default=[])
+                        choices=["3", "32", "33", "34"], default=[])
     alone = parser.parse_args(argv).phase
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5980,6 +6380,8 @@ def main(argv=None):
             phase32(ops)
         if "33" in alone:
             phase33(ops)
+        if "34" in alone:
+            phase34(ops)
         print(smi, flush=True)
         return 0
 
@@ -6164,6 +6566,12 @@ def main(argv=None):
     # then served, with their compiled decode steps against eager (32b)
     slice19 = phase32(ops)
 
+    # 34. slice 21: the repository's examples on the port (quickstart, the
+    # V-trace ablation, the gridworld's fused step, lm_rl_100m at its
+    # default width, serve_batched), each through its main, and the graphs
+    # they capture against eager
+    slice21 = phase34(ops)
+
     # 14. kernels, card, result
     row = rows[TRAINER_SHAPE]
     replay_row = rows[REPLAY_SHAPE]
@@ -6281,6 +6689,8 @@ def main(argv=None):
             phase: launches[k["name"]] for phase, launches in slice19.items()}
         k["slice20_launches"] = {
             phase: launches[k["name"]] for phase, launches in slice20.items()}
+        k["slice21_launches"] = {
+            phase: launches[k["name"]] for phase, launches in slice21.items()}
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     row = offset_rows[(FLASH_OFFSET_SHAPES[0], "bfloat16")]
     flash.update(offset_shape=list(FLASH_OFFSET_SHAPES[0]),

@@ -31,6 +31,11 @@ and on the card as CUDA graphs of static memory:
     carry donated): the carry lives in static buffers updated in place,
     and each rollout is copied out of graph memory, so a rollout handed
     to the learner is never overwritten by the next dispatch.
+  * ``UnrollTrainStep`` composes an ``Unroll`` and a ``TrainStep`` into
+    one graph (the reference's unroll and learner step jitted as one
+    program): the carry stays in the unroll's static buffers, the
+    rollout in graph memory, and the optimizer's scalars are staged as
+    ``TrainStep`` stages them.
   * ``Forward`` wraps a module's forward (the reference's jitted
     ``apply_fn(p, obs).<head>``: the host actors' policy, replay's value
     function): one graph per input shape, the input copied into a static
@@ -180,6 +185,11 @@ class TrainStep:
     included, are copied out of graph memory. Replay's mixed batches are
     another structure, so another key.
 
+    ``step_fn`` may be a step a user wrote around a learner step, taken as
+    it stands (``examples/vtrace_ablation.py``'s uncorrected step: a
+    forward under ``no_grad``, then the step on a new dict of the batch
+    with its behaviour logits rebound).
+
     Elsewhere, and under a mesh (the gradients' all-reduce and the model
     axis's collectives, which no graph here captures), it calls
     ``step_fn``, eagerly.
@@ -284,6 +294,49 @@ class Unroll:
         """Write ``carry`` (same structure) into the static buffers."""
         for dst, src in zip(leaves(self.carry), leaves(carry)):
             dst.copy_(src)
+
+
+class UnrollTrainStep:
+    """An unroll and then a learner step on its rollout, ``self(params,
+    opt_state, step) -> (params, opt_state, metrics)``, compiled as the
+    reference jits the two as one program (``examples/minatar_gridworld.py``'s
+    ``combined``): the unroll acts with ``params`` themselves (no actor
+    copy, no lag), and the step learns from that rollout at once.
+
+    ``unroll`` (an ``Unroll``) holds the env carry in its static buffers
+    and the generator; ``train_step`` (a ``TrainStep``) holds the plain
+    step and its optimizer. On CUDA with ``train_step.compiled`` both run
+    as one CUDA graph per key (the carry's buffers, the params' storages
+    and the optimizer state's), the generator registered with it, the
+    optimizer's changing scalars staged before each replay as
+    ``TrainStep`` stages them; the rollout never leaves graph memory, and
+    the metrics are copied out. Elsewhere ``step`` runs, eagerly."""
+
+    def __init__(self, unroll: Unroll, train_step: TrainStep):
+        self.unroll = unroll
+        self.train_step = train_step
+        self.graphs = Graphs()
+
+    @property
+    def captures(self) -> int:
+        return self.graphs.captures
+
+    def step(self, params, opt_state, step):
+        """The plain function: the unroll (its carry updated in place),
+        then the learner step."""
+        rollout = self.unroll._step(params)
+        return self.train_step.step_fn(params, opt_state, step, rollout)
+
+    def __call__(self, params, opt_state, step):
+        anchor = leaves(self.unroll.carry)[0]
+        if not (self.train_step.compiled and anchor.is_cuda):
+            return self.step(params, opt_state, step)
+        self.train_step.opt.stage(step, anchor.device)
+        key = self.unroll.graph_key(params) + (_ptrs(opt_state),)
+        metrics = self.graphs(anchor, key,
+                              lambda: self.step(params, opt_state, step)[2],
+                              generators=(self.unroll.generator,))
+        return params, opt_state, _copy_out(metrics)
 
 
 class Forward:
