@@ -1,0 +1,9 @@
+"""``generate_ms.lm``: ms a step in the source's ``next_batch`` (the
+episodes' generation, ``GeneratorSource`` over the decode session), from
+the traced run's spans, which synchronize on both sides: the mean over
+the window's steps."""
+
+
+def read(run):
+    spans = run.spans.get("source")
+    return 1e3 * sum(spans) / len(spans) if spans else None

@@ -1,0 +1,7 @@
+"""``mfu.learner_only``: ``mfu.atari``'s reading (its reader, found by
+name), in ``impala_deep_atari.learner_only``, whose rate is
+``learner_fps``."""
+
+from perfbench.bench import load_reader
+
+read = load_reader("mfu.atari")
